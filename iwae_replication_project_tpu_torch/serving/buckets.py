@@ -1,0 +1,121 @@
+"""Shape-bucket ladder and the serving boundaries' validators (port of
+``serving/buckets.py``: ``BucketLadder``, ``as_row(s)``, ``validate_k`` and
+``validate_model``; the k-chunk menu and the adaptive validators wait for the
+large-k slice).
+
+The engine rounds every coalesced batch up to a small power-of-two ladder
+(1, 2, 4, ..., max_batch), so a warm engine sees a closed menu of shapes, and
+slices the padding rows off before results leave it. This module is also the
+payload host boundary: :func:`as_row` / :func:`as_rows` turn caller payloads
+into the engine's float32 row layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+
+def as_row(row, n_features: int, op: str) -> np.ndarray:
+    """One request payload as a flat float32 ``[n_features]`` row; raises
+    ValueError when its size does not match the op's feature contract."""
+    row = np.asarray(row, np.float32).reshape(-1)
+    if row.shape[0] != n_features:
+        raise ValueError(f"{op} payload must have {n_features} features, "
+                         f"got {row.shape[0]}")
+    return row
+
+
+def as_rows(x) -> Tuple[np.ndarray, bool]:
+    """Caller payload as a float32 ``[n, d]`` matrix, plus whether the input
+    was a single row (the blocking helpers un-batch the result for those)."""
+    x = np.asarray(x, np.float32)
+    single = x.ndim == 1
+    rows = x[None] if single else x.reshape(x.shape[0], -1)
+    return rows, single
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketLadder:
+    """An ascending tuple of permitted batch sizes (the largest is the
+    engine's max coalesced batch)."""
+
+    buckets: Tuple[int, ...]
+
+    def __post_init__(self):
+        if not self.buckets:
+            raise ValueError("ladder needs at least one bucket")
+        if list(self.buckets) != sorted(set(self.buckets)):
+            raise ValueError(f"buckets must be strictly ascending, got "
+                             f"{self.buckets}")
+        if self.buckets[0] < 1:
+            raise ValueError("buckets must be >= 1")
+
+    @staticmethod
+    def powers_of_two(max_batch: int) -> "BucketLadder":
+        """1, 2, 4, ... up to and including `max_batch` (appended as its own
+        rung when it is not itself a power of two)."""
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        rungs = []
+        b = 1
+        while b < max_batch:
+            rungs.append(b)
+            b *= 2
+        rungs.append(max_batch)
+        return BucketLadder(tuple(rungs))
+
+    @property
+    def max_batch(self) -> int:
+        return self.buckets[-1]
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest rung >= n. Raises for n outside (0, max_batch]."""
+        if n < 1:
+            raise ValueError(f"batch size must be >= 1, got {n}")
+        for b in self.buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"batch size {n} exceeds the ladder's max bucket "
+                         f"{self.max_batch}")
+
+    def pad_rows(self, rows: np.ndarray, bucket: int) -> np.ndarray:
+        """`rows` ``[n, ...]`` zero-padded to ``[bucket, ...]``. Zero is a
+        safe fill for every op: padded rows compute finite values that the
+        engine slices off."""
+        n = rows.shape[0]
+        if n > bucket:
+            raise ValueError(f"{n} rows do not fit bucket {bucket}")
+        if n == bucket:
+            return rows
+        out = np.zeros((bucket,) + rows.shape[1:], dtype=rows.dtype)
+        out[:n] = rows
+        return out
+
+
+def validate_model(model, served) -> str:
+    """`model` must be a string naming one of the `served` models, else
+    ValueError (the typed bad request): a request must never be served by
+    the wrong weights."""
+    if not isinstance(model, str) or not model:
+        raise ValueError(f"model must be a non-empty string, got "
+                         f"{type(model).__name__}")
+    if model not in served:
+        raise ValueError(
+            f"unknown model {model!r}; "
+            + (f"this serving boundary holds {sorted(served)}" if served
+               else "no named models are served here"))
+    return model
+
+
+def validate_k(k, k_max: int) -> int:
+    """An int in ``[1, k_max]`` or ValueError (the typed bad request)."""
+    if isinstance(k, bool) or not isinstance(k, (int, np.integer)):
+        raise ValueError(f"k must be an integer, got {type(k).__name__}")
+    k = int(k)
+    if not 1 <= k <= k_max:
+        raise ValueError(f"k={k} is out of range [1, {k_max}] for this "
+                         f"serving path")
+    return k

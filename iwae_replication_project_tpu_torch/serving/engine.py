@@ -1,0 +1,480 @@
+"""ServingEngine: pipelined online inference on one device (port of
+``serving/engine.py``).
+
+Request lifecycle, a two-stage pipeline behind a bounded in-flight window:
+
+    submit -> bounded queue -> [dispatcher thread]
+                 coalesce (max_batch / max_wait_us) -> pad to shape bucket
+                 -> draw per-row noise on the host -> launch on a side CUDA
+                 stream, record an event (no host sync)
+                 -> bounded in-flight window (max_inflight)
+           -> [completion thread]
+                 wait on the batch's event -> the one device-to-host copy
+                 -> slice real rows -> complete futures, record latency
+
+CUDA streams and events take the place of the JAX engine's asynchronous AOT
+dispatch: the dispatcher never blocks on the device, so it coalesces the next
+batch while the card computes the current one. ``max_inflight=0`` is the
+serial mode (the dispatcher fetches inline). Without :meth:`start`, the
+blocking helpers drain the queue inline on the calling thread.
+
+Invariants:
+
+* **row independence** -- each request row's noise comes from its own
+  generator (serving/programs.py), so a row's result does not depend on its
+  bucket, its neighbours or the padding, up to the encoder matmuls' choice of
+  algorithm per batch size (the hot-loop kernel itself is row-independent);
+* **bounded everything** -- queue bound (:class:`EngineOverloaded` shed),
+  in-flight window, per-request queue timeout (:class:`RequestTimeout`), and
+  launch/fetch errors that land in exactly the affected batch's futures.
+
+Not ported yet: the executable store, fault points, the profiler, tracing,
+the int8 policy, the sharded and adaptive scorers and checkpoint loading.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from iwae_replication_project_tpu_torch.models.iwae import to_device
+from iwae_replication_project_tpu_torch.ops.hot_loop import (
+    PATH_CODES,
+    serving_dispatch_config,
+)
+from iwae_replication_project_tpu_torch.serving.batcher import (
+    EngineOverloaded,
+    InflightWindow,
+    MicroBatcher,
+    Request,
+    RequestTimeout,
+    complete_future,
+)
+from iwae_replication_project_tpu_torch.serving.buckets import (
+    BucketLadder,
+    as_row,
+    as_rows,
+    validate_k,
+    validate_model,
+)
+from iwae_replication_project_tpu_torch.serving.metrics import ServingMetrics
+from iwae_replication_project_tpu_torch.serving.programs import (
+    PROGRAMS,
+    draw_noise,
+)
+from iwae_replication_project_tpu_torch.utils.device import resolve_device
+from iwae_replication_project_tpu_torch.utils.dtypes import validate_precision
+
+__all__ = ["ServingEngine", "EngineOverloaded", "RequestTimeout"]
+
+#: default per-request k admission bound; a k above it is a typed bad
+#: request (ValueError) at submit
+DEFAULT_K_MAX = 1024
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One launched-but-uncompleted batch riding the in-flight window."""
+
+    batch: List[Request]
+    op: str
+    k: int
+    bucket: int
+    out: torch.Tensor                  # device result, maybe still computing
+    event: Optional[Any] = None        # torch.cuda.Event after the launch
+    #: the launched input tensors, kept alive until the batch completes
+    inputs: tuple = ()
+
+
+class ServingEngine:
+    """Typed online-inference API over one model's weights on one device.
+
+    Pass ``params=`` (the port's parameter tree; see :mod:`..convert` for
+    the JAX package's) and ``model_config=``. Knobs: ``k`` (default
+    importance samples per score/encode request, 50), ``k_max`` (per-request
+    admission bound, default ``max(1024, k)``), ``max_batch``/``max_wait_us``
+    (coalescing; the shape buckets are the powers of two up to max_batch),
+    ``queue_limit`` (shed bound), ``max_inflight`` (launched
+    but uncompleted batches; 0 = serial), ``timeout_s`` (per-request queue
+    deadline; None disables), ``seed`` (the engine seed every row generator
+    mixes in), ``kernel_path`` (None = the CUDA kernel on the card, the
+    plain version on the CPU; ``"kernel"`` or ``"reference"`` pins one for
+    every score dispatch), ``model`` (tenant label; a submit naming another
+    model is a bad request), ``precision`` (None, ``"fp32"`` or ``"bf16"``:
+    bf16 matmul operands with fp32 accumulation) and ``device`` (None =
+    ``cuda``, which must exist; pass ``"cpu"`` to serve on the CPU).
+    """
+
+    #: ops whose program runs the hot-loop block and is therefore gated
+    _GATED_OPS = ("score",)
+
+    def __init__(self, *, params, model_config,
+                 k: Optional[int] = None, k_max: Optional[int] = None,
+                 max_batch: int = 64, max_wait_us: float = 2000.0,
+                 queue_limit: int = 1024, max_inflight: int = 2,
+                 timeout_s: Optional[float] = 2.0, seed: int = 0,
+                 kernel_path: Optional[str] = None,
+                 model: Optional[str] = None,
+                 precision: Optional[str] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.precision = validate_precision(precision) \
+            if precision is not None else None
+        self.cfg = dataclasses.replace(model_config, fused_likelihood=False,
+                                       hot_loop_path=None)
+        if self.precision == "bf16":
+            self.cfg = dataclasses.replace(self.cfg, compute_dtype="bfloat16")
+        elif self.precision == "fp32":
+            self.cfg = dataclasses.replace(self.cfg, compute_dtype=None)
+        if kernel_path not in (None, "kernel", "reference"):
+            raise ValueError(f"kernel_path={kernel_path!r}: expected None | "
+                             f"kernel | reference")
+        if kernel_path == "kernel" and self.device.type != "cuda":
+            raise ValueError("kernel_path='kernel' needs a CUDA device")
+        #: (dispatch cfg, path) of every score dispatch: the CUDA kernel on
+        #: the card for logits models, the plain composition otherwise
+        self._score_kernel = serving_dispatch_config(
+            self.cfg, device=self.device, force=kernel_path)
+        self.model = str(model) if model is not None else None
+        self.models = frozenset({self.model}) if self.model else None
+        self.k = int(k) if k is not None else 50
+        if k_max is not None and int(k_max) < self.k:
+            raise ValueError(f"k_max={int(k_max)} is below this engine's "
+                             f"default k={self.k}")
+        self.k_max = int(k_max) if k_max is not None \
+            else max(DEFAULT_K_MAX, self.k)
+        self._programs = dict(PROGRAMS)
+        self.timeout_s = timeout_s
+        self.ladder = BucketLadder.powers_of_two(max_batch)
+        self.metrics = ServingMetrics(model=self.model,
+                                      precision=self.precision)
+        self._clock = time.monotonic
+        self._batcher = MicroBatcher(max_batch=max_batch,
+                                     max_wait_us=max_wait_us,
+                                     queue_limit=queue_limit,
+                                     clock=self._clock)
+        self._params = to_device(params, self.device)
+        self._stream = None
+        if self.device.type == "cuda":
+            # every launch runs on this side stream; it first waits for the
+            # parameter copies queued on the current stream
+            self._stream = torch.cuda.Stream(device=self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._base_seed = int(seed)
+        self._seed_counter = 0
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._thread: Optional[threading.Thread] = None
+        self._stop_evt = threading.Event()
+        if max_inflight < 0:
+            raise ValueError(f"max_inflight must be >= 0, got {max_inflight}")
+        self.max_inflight = int(max_inflight)
+        self._window: Optional[InflightWindow] = None
+        self._completion_thread: Optional[threading.Thread] = None
+        self._completion_stop = threading.Event()
+        #: op -> required payload feature count
+        self.row_dims = {
+            "score": self.cfg.x_dim,
+            "encode": self.cfg.x_dim,
+            "decode": self.cfg.n_latent_enc[-1],
+        }
+
+    # ------------------------------------------------------------------
+    # request API
+    # ------------------------------------------------------------------
+
+    def submit(self, op: str, row, k: Optional[int] = None, *,
+               seed: Optional[int] = None,
+               model: Optional[str] = None) -> Future:
+        """Enqueue ONE example; returns its Future. Raises
+        :class:`EngineOverloaded` when the queue bound is hit.
+
+        ``seed`` overrides the engine's per-request seed counter (a result
+        is a pure function of weights, payload, seed and k, so a retry with
+        the original seed returns the same result). The queue drains only
+        when something pumps it: :meth:`start`, :meth:`flush` or a blocking
+        helper."""
+        if op not in self._programs:
+            raise ValueError(f"unknown op {op!r}; choose "
+                             f"{sorted(self._programs)}")
+        if model is not None:
+            validate_model(model, self.models or ())
+        _, takes_k = self._programs[op]
+        k = validate_k(self.k if k is None else k, self.k_max) \
+            if takes_k else 0
+        row = as_row(row, self.row_dims[op], op)
+        now = self._clock()
+        if seed is not None and not 0 <= int(seed) < 2 ** 31:
+            raise ValueError(f"seed must be in [0, 2**31), got {seed}")
+        with self._cv:
+            if seed is None:
+                seed = self._seed_counter
+                self._seed_counter = (self._seed_counter + 1) % (2 ** 31)
+            req = Request(op=op, payload=row, k=k, seed=int(seed),
+                          t_enqueue=now,
+                          deadline=(now + self.timeout_s
+                                    if self.timeout_s is not None else None))
+            try:
+                self._batcher.submit(req)
+            except EngineOverloaded:
+                self.metrics.count("shed")
+                raise
+            self.metrics.count("submitted")
+            self.metrics.set_queue_depth(self._batcher.pending)
+            self._cv.notify()
+        return req.future
+
+    def _blocking(self, op: str, x, k: Optional[int]) -> np.ndarray:
+        rows, single = as_rows(x)
+        futures = [self.submit(op, r, k=k) for r in rows]
+        if self._thread is None:
+            self.flush()
+        out = np.stack([f.result() for f in futures])
+        return out[0] if single else out
+
+    def score(self, x, k: Optional[int] = None) -> np.ndarray:
+        """k-sample IWAE log p(x) per example (``[n]``, or a scalar for a
+        single row). Blocks until served."""
+        return self._blocking("score", x, k)
+
+    def encode(self, x, k: Optional[int] = None) -> np.ndarray:
+        """Posterior deepest-latent mean embedding per example."""
+        return self._blocking("encode", x, k)
+
+    def decode(self, h) -> np.ndarray:
+        """Pixel probabilities decoded from deepest-latent rows."""
+        return self._blocking("decode", h, None)
+
+    # ------------------------------------------------------------------
+    # dispatch machinery
+    # ------------------------------------------------------------------
+
+    def flush(self) -> int:
+        """Drain the queue inline; returns the number of dispatches."""
+        n = 0
+        while True:
+            with self._cv:
+                expired, batches = self._batcher.poll(force=True)
+                self.metrics.set_queue_depth(self._batcher.pending)
+            self._complete_expired(expired)
+            if not batches:
+                return n
+            for batch in batches:
+                self._dispatch(batch)
+                n += 1
+
+    def start(self) -> "ServingEngine":
+        """Spawn the background pipeline (idempotent): the dispatcher thread,
+        plus the completion thread when ``max_inflight >= 1``."""
+        if self._thread is None:
+            self._stop_evt.clear()
+            self._completion_stop.clear()
+            if self.max_inflight >= 1:
+                self._window = InflightWindow(
+                    self.max_inflight, on_change=self.metrics.set_inflight)
+                self._completion_thread = threading.Thread(
+                    target=self._completion_loop,
+                    name="iwae-serve-complete", daemon=True)
+                self._completion_thread.start()
+            self._thread = threading.Thread(target=self._loop,
+                                            name="iwae-serve-dispatch",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the pipeline, draining everything: queued requests are still
+        dispatched and every in-flight batch completes before the threads
+        are joined."""
+        if self._thread is not None:
+            self._stop_evt.set()
+            with self._cv:
+                self._cv.notify_all()
+            if self._window is not None:
+                self._window.wake()
+            self._thread.join()
+            self._thread = None
+        if self._completion_thread is not None:
+            self._completion_stop.set()
+            self._window.wake()
+            self._completion_thread.join()
+            self._completion_thread = None
+            self._window = None
+        self.flush()
+
+    def _loop(self) -> None:
+        pipelined = self._window is not None
+        while not self._stop_evt.is_set():
+            with self._cv:
+                expired, batches = self._batcher.poll()
+                self.metrics.set_queue_depth(self._batcher.pending)
+                if not batches and not expired:
+                    nxt = self._batcher.next_event()
+                    wait = None if nxt is None \
+                        else max(nxt - self._clock(), 1e-4)
+                    self._cv.wait(timeout=wait)
+                    continue
+            self._complete_expired(expired)
+            for batch in batches:
+                if pipelined:
+                    # backpressure before the launch: block while
+                    # max_inflight batches are outstanding
+                    self._window.acquire(abort=self._stop_evt.is_set)
+                    inf = self._launch_routed(batch)
+                    if inf is None:
+                        self._window.release()
+                    else:
+                        self._window.commit(inf)
+                else:
+                    self._dispatch(batch)
+
+    def _completion_loop(self) -> None:
+        while True:
+            inf = self._window.pop(stop=self._completion_stop.is_set)
+            if inf is None:
+                return
+            self._finish(inf)
+            self._window.done()
+
+    _complete = staticmethod(complete_future)
+
+    def _complete_expired(self, expired: List[Request]) -> None:
+        for r in expired:
+            self.metrics.count("timeouts")
+            self._complete(r.future, exc=RequestTimeout(
+                f"{r.op} request expired after {self.timeout_s}s in queue "
+                f"(engine saturated — shed load or raise timeout_s)"))
+
+    def _kernel_for(self, op: str) -> tuple:
+        """``(dispatch cfg, path name)`` of `op`: score runs the serving
+        gate's choice; encode and decode never touch the decoder block."""
+        return self._score_kernel if op in self._GATED_OPS \
+            else (self.cfg, "reference")
+
+    def _run(self, op: str, k: int, cfg, payload: np.ndarray,
+             seeds: Sequence[int]):
+        """Draw the batch's noise on the host, then launch its program on
+        the device without waiting; returns ``(out, event, inputs)``."""
+        program, takes_k = self._programs[op]
+        noise = draw_noise(cfg, op, self._base_seed, seeds, k)
+        kwargs = {"noise": noise}
+        if self._stream is None:
+            x = torch.from_numpy(payload)
+            args = (x, k) if takes_k else (x,)
+            return program(self._params, cfg, self._base_seed, seeds, *args,
+                           **kwargs), None, ()
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            x = torch.from_numpy(payload).to(self.device, non_blocking=True)
+            noise_dev = [t.to(self.device, non_blocking=True) for t in noise]
+            kwargs["noise"] = noise_dev
+            args = (x, k) if takes_k else (x,)
+            out = program(self._params, cfg, self._base_seed, seeds, *args,
+                          **kwargs)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event, (x, *noise_dev)
+
+    def _launch(self, batch: List[Request]) -> _InFlight:
+        """Stage one: pad, draw noise, launch. Returns the in-flight handle
+        without synchronizing."""
+        op, k = batch[0].op, batch[0].k
+        n = len(batch)
+        bucket = self.ladder.bucket_for(n)
+        payload = self.ladder.pad_rows(
+            np.stack([r.payload for r in batch]), bucket)
+        seeds = [r.seed for r in batch] + [0] * (bucket - n)
+        cfg, path = self._kernel_for(op)
+        self.metrics.set_kernel(op, k, bucket, PATH_CODES[path], path)
+        out, event, inputs = self._run(op, k, cfg, payload, seeds)
+        t_disp = self._clock()
+        for r in batch:
+            r.t_dispatch = t_disp
+        self.metrics.count("dispatches")
+        self.metrics.count("real_rows", n)
+        self.metrics.count("padded_rows", bucket - n)
+        return _InFlight(batch=batch, op=op, k=k, bucket=bucket, out=out,
+                         event=event, inputs=inputs)
+
+    def _launch_routed(self, batch: List[Request]) -> Optional[_InFlight]:
+        """:meth:`_launch` with failure routing: an exception lands in
+        exactly this batch's futures, never in the dispatcher thread."""
+        try:
+            return self._launch(batch)
+        except Exception as e:
+            for r in batch:
+                self.metrics.count("errors")
+                self._complete(r.future, exc=e)
+            return None
+
+    def _fetch(self, inf: _InFlight) -> np.ndarray:
+        """The pipeline's one blocking device-to-host transfer: wait for the
+        batch's event, then copy. Asynchronous device faults surface here."""
+        if inf.event is not None:
+            inf.event.synchronize()
+            with torch.cuda.device(self.device):
+                return inf.out.cpu().numpy()
+        return inf.out.numpy()
+
+    def _finish(self, inf: _InFlight) -> None:
+        """Stage two: fetch, slice padding, complete this batch's futures."""
+        try:
+            out = self._fetch(inf)
+        except Exception as e:
+            for r in inf.batch:
+                self.metrics.count("errors")
+                self._complete(r.future, exc=e)
+            return
+        now = self._clock()
+        for i, r in enumerate(inf.batch):
+            self.metrics.record_latency(inf.op, inf.bucket, now - r.t_enqueue)
+            if r.t_dispatch is not None:
+                self.metrics.record_queue_wait(inf.op, inf.bucket,
+                                               r.t_dispatch - r.t_enqueue)
+                self.metrics.record_device_wait(inf.op, inf.bucket,
+                                                now - r.t_dispatch)
+            if self._complete(r.future, result=out[i]):
+                self.metrics.count("completed")
+
+    def _dispatch(self, batch: List[Request]) -> None:
+        """Serial dispatch: launch, then fetch and complete on this thread."""
+        inf = self._launch_routed(batch)
+        if inf is not None:
+            self._finish(inf)
+
+    # ------------------------------------------------------------------
+    # warmup
+    # ------------------------------------------------------------------
+
+    def warmup(self, ops: Sequence[str] = ("score", "encode", "decode")
+               ) -> Dict[str, float]:
+        """Run every (op, bucket) of the ladder once at the engine's k on
+        zero payloads, so the kernel is built and loaded and the device's
+        libraries and memory pools are initialised before the first request.
+        Returns ``{"programs": N, "seconds": S}``."""
+        t0 = time.perf_counter()
+        n_programs = 0
+        for op in ops:
+            if op not in self._programs:
+                raise ValueError(f"unknown op {op!r}")
+            _, takes_k = self._programs[op]
+            k = self.k if takes_k else 0
+            cfg, path = self._kernel_for(op)
+            for bucket in self.ladder.buckets:
+                payload = np.zeros((bucket, self.row_dims[op]), np.float32)
+                _, event, _ = self._run(op, k, cfg, payload, [0] * bucket)
+                if event is not None:
+                    event.synchronize()
+                self.metrics.set_kernel(op, k, bucket, PATH_CODES[path],
+                                        path)
+                n_programs += 1
+        _, path = self._kernel_for("score")
+        self.metrics.registry.gauge("kernel_path").set(
+            float(PATH_CODES[path]))
+        return {"programs": float(n_programs),
+                "seconds": round(time.perf_counter() - t0, 3)}

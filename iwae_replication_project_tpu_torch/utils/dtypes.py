@@ -1,0 +1,30 @@
+"""Serving precision policies of the port.
+
+Counterpart of ``utils/dtypes.py`` in the JAX package, reduced to the policy
+vocabulary: ``fp32`` (the exact program) and ``bf16`` (bf16 matmul operands,
+fp32 accumulation). The JAX package's ``int8`` weight-only policy is not
+ported yet, so it is rejected here like any unknown string rather than being
+served as something else.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+#: the serving precision policies the port serves; ``fp32`` is the default
+PRECISIONS = ("fp32", "bf16")
+
+
+def validate_precision(precision: Any) -> str:
+    """One of :data:`PRECISIONS`, or ValueError (the typed bad request).
+
+    A typo'd or unported policy dies at the first boundary it crosses and
+    never becomes a silent fp32 engine.
+    """
+    if not isinstance(precision, str) or not precision:
+        raise ValueError(f"precision must be a non-empty string, got "
+                         f"{type(precision).__name__}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; the port serves "
+                         f"the precision policies {list(PRECISIONS)}")
+    return precision
