@@ -93,12 +93,22 @@ class ModelConfig:
         defaults.update(kw)
         return ModelConfig(**defaults)
 
+    @staticmethod
+    def one_layer(**kw) -> "ModelConfig":
+        """The 1-stochastic-layer architecture of Burda Table 1."""
+        defaults = dict(n_hidden_enc=(200,), n_latent_enc=(50,),
+                        n_hidden_dec=(200,), n_latent_dec=(784,))
+        defaults.update(kw)
+        return ModelConfig(**defaults)
 
-def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                output_bias=None) -> Params:
     """The parameter tree, drawn on the host from `generator` (a CPU
     generator, so the same seed gives the same weights on every device);
-    the engine moves it to its device. Output biases start at zero (the
-    JAX package's data-dependent output bias comes with the data slice)."""
+    callers move it to their device. `output_bias` is the logit-of-pixel-mean
+    vector of the data layer (``data.output_bias_from_pixel_means``); None
+    starts the output bias at zero."""
     L = cfg.n_stochastic
     enc = []
     in_dim = cfg.x_dim
@@ -115,7 +125,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
                                              cfg.n_latent_dec[i]))
         in_dim = cfg.n_latent_dec[i]
     out = mlp.output_block_init(generator, in_dim, cfg.n_hidden_dec[-1],
-                                cfg.x_dim)
+                                cfg.x_dim, out_bias=output_bias)
     return {"enc": tuple(enc), "dec": tuple(dec), "out": out}
 
 
@@ -134,23 +144,28 @@ def _noise(eps: Optional[Sequence[torch.Tensor]], i: int):
 
 def encode(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
            generator: Optional[torch.Generator] = None,
-           eps: Optional[Sequence[torch.Tensor]] = None):
+           eps: Optional[Sequence[torch.Tensor]] = None,
+           stop_q_score: bool = False):
     """The inference chain q(h|x) with a k-sample fan-out at the first layer.
 
     Returns ``(h, log_q, q_last)``: ``h`` a tuple of ``[k, B, d_i]`` samples,
     ``log_q`` ``[k, B]`` and ``q_last`` the (mu, std) of the last
     conditional. ``eps[i]`` (shape ``[k, B, d_i]``) injects layer i's noise;
     without it the draws come from `generator` in layer order.
+    `stop_q_score=True` detaches mu and std inside ``log q`` only, keeping
+    the pathwise dependence through the samples: the score-term removal that
+    DReG and STL need (JAX :162-190).
     """
     if eps is not None and len(eps) != cfg.n_stochastic:
         raise ValueError(f"encode needs {cfg.n_stochastic} noise tensors, "
                          f"got {len(eps)}")
     dt = cfg.matmul_dtype
+    sg = (lambda t: t.detach()) if stop_q_score else (lambda t: t)
     mu, std = mlp.stochastic_block_apply(params["enc"][0], x, cfg.std_floor,
                                          dt)
     h1 = dist.normal_sample(mu, std, (k,), generator=generator,
                             eps=_noise(eps, 0))
-    log_q = torch.sum(dist.normal_log_prob(h1, mu, std), dim=-1)
+    log_q = torch.sum(dist.normal_log_prob(h1, sg(mu), sg(std)), dim=-1)
     h = [h1]
     q_last = (mu, std)
     for i in range(1, cfg.n_stochastic):
@@ -158,7 +173,8 @@ def encode(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
                                              cfg.std_floor, dt)
         hi = dist.normal_sample(mu, std, generator=generator,
                                 eps=_noise(eps, i))
-        log_q = log_q + torch.sum(dist.normal_log_prob(hi, mu, std), dim=-1)
+        log_q = log_q + torch.sum(dist.normal_log_prob(hi, sg(mu), sg(std)),
+                                  dim=-1)
         h.append(hi)
         q_last = (mu, std)
     return tuple(h), log_q, q_last
@@ -231,11 +247,12 @@ def generate_x(params: Params, cfg: ModelConfig, h_top: torch.Tensor, *,
 def log_weights_and_aux(params: Params, cfg: ModelConfig, x: torch.Tensor,
                         k: int, *,
                         generator: Optional[torch.Generator] = None,
-                        eps: Optional[Sequence[torch.Tensor]] = None):
+                        eps: Optional[Sequence[torch.Tensor]] = None,
+                        stop_q_score: bool = False):
     """One encoder+decoder pass -> ``[k, B]`` log importance weights plus the
     intermediates: ``log w = (log p(h) + log p(x|h)) - log q(h|x)``."""
     h, log_q, q_last = encode(params, cfg, x, k, generator=generator,
-                              eps=eps)
+                              eps=eps, stop_q_score=stop_q_score)
     log_pxh_cond = log_px_given_h(params, cfg, x, h[0])
     log_ph = log_prior(params, cfg, h)
     log_w = log_ph + log_pxh_cond - log_q
@@ -246,6 +263,7 @@ def log_weights_and_aux(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def log_weights(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
                 generator: Optional[torch.Generator] = None,
-                eps: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                eps: Optional[Sequence[torch.Tensor]] = None,
+                stop_q_score: bool = False) -> torch.Tensor:
     return log_weights_and_aux(params, cfg, x, k, generator=generator,
-                               eps=eps)[0]
+                               eps=eps, stop_q_score=stop_q_score)[0]

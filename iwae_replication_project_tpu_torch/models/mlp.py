@@ -24,12 +24,14 @@ import torch
 Params = Dict[str, Any]
 
 
-def dense_init(generator: torch.Generator, in_dim: int,
-               out_dim: int) -> Params:
-    """Glorot-uniform kernel, zero bias: Keras Dense defaults."""
+def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
+               bias=None) -> Params:
+    """Glorot-uniform kernel, zero (or given) bias: Keras Dense defaults."""
     limit = math.sqrt(6.0 / (in_dim + out_dim))
     w = (torch.rand((in_dim, out_dim), generator=generator) * 2.0 - 1.0) * limit
-    return {"w": w, "b": torch.zeros(out_dim)}
+    b = torch.zeros(out_dim) if bias is None \
+        else torch.as_tensor(bias, dtype=torch.float32).clone()
+    return {"w": w, "b": b}
 
 
 def dense_apply(p: Params, x: torch.Tensor,
@@ -64,12 +66,14 @@ def stochastic_block_apply(p: Params, x: torch.Tensor,
 
 
 def output_block_init(generator: torch.Generator, in_dim: int, hidden: int,
-                      out_dim: int) -> Params:
-    """Final deterministic decoder head: 2x tanh-Dense + logit layer."""
+                      out_dim: int, out_bias=None) -> Params:
+    """Final deterministic decoder head: 2x tanh-Dense + logit layer.
+    `out_bias` (``[out_dim]``, e.g. the data layer's logit of the pixel
+    means) initialises the logit layer's bias; None means zeros."""
     return {
         "l1": dense_init(generator, in_dim, hidden),
         "l2": dense_init(generator, hidden, hidden),
-        "out": dense_init(generator, hidden, out_dim),
+        "out": dense_init(generator, hidden, out_dim, bias=out_bias),
     }
 
 

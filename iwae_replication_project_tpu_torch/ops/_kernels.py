@@ -36,6 +36,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "hot_loop_fwd": (_i, [_vp] * 9 + [_i] * 6 + [_vp]),
         "hot_loop_fwd_smem_bytes": (ctypes.c_size_t, [_i, _i]),
     },
+    "hot_loop_bwd": {
+        "hot_loop_bwd": (_i, [_vp] * 12 + [_i] * 7 + [_vp]),
+        "hot_loop_bwd_smem_bytes": (ctypes.c_size_t, [_i, _i]),
+        "hot_loop_bwd_groups": (_i, [_i]),
+    },
 }
 
 _lock = threading.Lock()

@@ -6,16 +6,21 @@ For the 2-layer flagship the decoder output block ``h1 @ W1 -> tanh -> @ W2
 matmul MACs and most of the activation bytes. Two implementations of that
 one function, selected per call:
 
-* ``kernel`` -- the hand-written CUDA kernel ``csrc/hot_loop_fwd.cu`` (replaces
-  the TPU kernel ``_fwd_kernel``/``_fwd_pallas``, hot_loop.py:633-695 of the
-  JAX package), taken for CUDA tensors;
+* ``kernel`` -- :class:`FusedBlockLL`, whose forward is the hand-written
+  CUDA kernel ``csrc/hot_loop_fwd.cu`` (replaces the TPU kernel
+  ``_fwd_kernel``/``_fwd_pallas``, hot_loop.py:633-695 of the JAX package)
+  and whose backward is ``csrc/hot_loop_bwd.cu`` (replaces ``_bwd_kernel``/
+  ``_bwd_pallas``, :698-792), taken for CUDA tensors;
 * ``reference`` -- the plain PyTorch composition :func:`_reference_impl`,
-  the twin of the JAX ``_reference_impl`` (:810-821), taken for CPU tensors
-  or under an explicit ``"reference"`` pin.
+  the twin of the JAX ``_reference_impl`` (:810-821), differentiated by plain
+  autograd, taken for CPU tensors or under an explicit ``"reference"`` pin.
 
-:func:`fused_forward` is the kernel's wrapper: it launches the kernel for a
-CUDA tensor (or raises) and uses the plain version only for a CPU tensor.
-There is no fall back from the card to the plain version.
+:func:`fused_forward` and :func:`fused_backward` are the kernels' wrappers:
+each launches its kernel for CUDA tensors (or raises) and uses its plain
+version (:func:`_reference_impl`, :func:`_bwd_plain`) only for CPU tensors.
+There is no fall back from the card to a plain version: the backward kernel
+streams its weights and takes every shape the forward takes, unlike the JAX
+custom VJP, which falls back to the XLA backward when no VMEM tile fits.
 
 Selection is recorded on the port's telemetry registry like the JAX
 package's: a ``kernel_path`` gauge (:data:`PATH_CODES`) and per-path counters
@@ -28,6 +33,7 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from typing import Optional
 
@@ -40,14 +46,16 @@ from iwae_replication_project_tpu_torch.telemetry.registry import get_registry
 #: code of the JAX package's ``pallas`` path (2): it is the same fused block.
 PATH_CODES = {"reference": 0, "kernel": 2}
 
-#: the kernel this module launches (``csrc/hot_loop_fwd.cu``)
+#: the kernels this module launches (``csrc/hot_loop_fwd.cu``,
+#: ``csrc/hot_loop_bwd.cu``)
 KERNEL = "hot_loop_fwd"
+KERNEL_BWD = "hot_loop_bwd"
 
 #: largest dynamic shared memory a Hopper CTA may use (bytes)
 MAX_SMEM_BYTES = 232448
 
 _count_lock = threading.Lock()
-_launches = {KERNEL: 0}
+_launches = {KERNEL: 0, KERNEL_BWD: 0}
 
 
 def launch_counts() -> dict:
@@ -138,6 +146,31 @@ def _reference_impl(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype=None):
     return torch.sum(ll, dim=-1)
 
 
+def _bwd_plain(h1, w1, b1, w2, b2, w3, b3, x, g, compute_dtype=None):
+    """The backward kernel's plain version: the gradients of
+    :func:`_reference_impl` for the ``[k, B]`` cotangent `g`, written out
+    with the JAX ``_bwd_kernel``'s rounding points (:698-746): with bf16 every
+    matmul operand is rounded, while the tanh derivatives and the bias sums
+    use the unrounded fp32 values.
+
+    Returns ``(dh [k, B, H1], dW1, db1, dW2, db2, dW3, db3)``.
+    """
+    def op(t):
+        return t if compute_dtype is None else t.to(compute_dtype).float()
+
+    k, b, h1_dim = h1.shape
+    h = h1.reshape(k * b, h1_dim)
+    y1 = torch.tanh(op(h) @ op(w1) + b1)
+    y2 = torch.tanh(op(y1) @ op(w2) + b2)
+    logits = (op(y2) @ op(w3) + b3).reshape(k, b, -1)
+    dl = (g[..., None] * (x[None] - torch.sigmoid(logits))).reshape(k * b, -1)
+    dy2 = (op(dl) @ op(w3).T) * (1.0 - y2 * y2)
+    dy1 = (op(dy2) @ op(w2).T) * (1.0 - y1 * y1)
+    dh = (op(dy1) @ op(w1).T).reshape(k, b, h1_dim)
+    return (dh, op(h).T @ op(dy1), dy1.sum(0), op(y1).T @ op(dy2),
+            dy2.sum(0), op(y2).T @ op(dl), dl.sum(0))
+
+
 # --------------------------------------------------------------------------
 # The kernel's wrapper
 # --------------------------------------------------------------------------
@@ -154,6 +187,43 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_dtype(compute_dtype) -> None:
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None or torch.bfloat16, got "
+                         f"{compute_dtype!r}")
+
+
+def _check_block(h1, w1, b1, w2, b2, w3, b3, x, g=None) -> tuple:
+    """Validate the kernels' inputs; returns ``(k, B, H1, hidden, D)``."""
+    if h1.device.type != "cuda":
+        raise ValueError(f"unsupported device {h1.device}")
+    if h1.dim() != 3:
+        raise ValueError(f"h1 must be [k, B, H1], got {tuple(h1.shape)}")
+    k, b, h1_dim = h1.shape
+    hid, d = w1.shape[1], w3.shape[1]
+    checks = [("h1", h1, (k, b, h1_dim)), ("w1", w1, (h1_dim, hid)),
+              ("b1", b1, (hid,)), ("w2", w2, (hid, hid)), ("b2", b2, (hid,)),
+              ("w3", w3, (hid, d)), ("b3", b3, (d,)), ("x", x, (b, d))]
+    if g is not None:
+        checks.append(("g", g, (k, b)))
+    for name, t, shape in checks:
+        _check(name, t, shape, h1.device)
+    return k, b, h1_dim, hid, d
+
+
+def _load_kernel(name: str, h1_dim: int, hid: int):
+    """The loaded library of kernel `name`, after checking that its tiles
+    fit a Hopper CTA's shared memory at these widths."""
+    from iwae_replication_project_tpu_torch.ops import _kernels
+    lib = _kernels.load(name)
+    smem = getattr(lib, f"{name}_smem_bytes")(h1_dim, hid)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name} needs {smem} bytes of shared memory for "
+                         f"H1={h1_dim}, hidden={hid}; a Hopper CTA has "
+                         f"{MAX_SMEM_BYTES}")
+    return lib
+
+
 def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
                   compute_dtype: Optional[torch.dtype] = None
                   ) -> torch.Tensor:
@@ -164,32 +234,14 @@ def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
     anything the kernel does not take. On CPU tensors it computes the plain
     version :func:`_reference_impl`.
     """
-    if compute_dtype not in (None, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be None or torch.bfloat16, got "
-                         f"{compute_dtype!r}")
+    _check_dtype(compute_dtype)
     if h1.device.type == "cpu":
         return _reference_impl(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype)
-    if h1.device.type != "cuda":
-        raise ValueError(f"unsupported device {h1.device}")
-    if h1.dim() != 3:
-        raise ValueError(f"h1 must be [k, B, H1], got {tuple(h1.shape)}")
-    k, b, h1_dim = h1.shape
-    hid, d = w1.shape[1], w3.shape[1]
+    k, b, h1_dim, hid, d = _check_block(h1, w1, b1, w2, b2, w3, b3, x)
     dev = h1.device
-    for name, t, shape in (("h1", h1, (k, b, h1_dim)), ("w1", w1, (h1_dim, hid)),
-                           ("b1", b1, (hid,)), ("w2", w2, (hid, hid)),
-                           ("b2", b2, (hid,)), ("w3", w3, (hid, d)),
-                           ("b3", b3, (d,)), ("x", x, (b, d))):
-        _check(name, t, shape, dev)
     if k * b == 0:
         return torch.zeros((k, b), dtype=torch.float32, device=dev)
-    from iwae_replication_project_tpu_torch.ops import _kernels
-    lib = _kernels.load(KERNEL)
-    smem = lib.hot_loop_fwd_smem_bytes(h1_dim, hid)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"hot-loop kernel needs {smem} bytes of shared "
-                         f"memory for H1={h1_dim}, hidden={hid}; a Hopper "
-                         f"CTA has {MAX_SMEM_BYTES}")
+    lib = _load_kernel(KERNEL, h1_dim, hid)
     out = torch.empty((k, b), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -206,6 +258,74 @@ def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
     return out
 
 
+def fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
+                   compute_dtype: Optional[torch.dtype] = None) -> tuple:
+    """The gradients of :func:`fused_forward` for the ``[k, B]`` cotangent
+    `g`: ``(dh [k, B, H1], dW1, db1, dW2, db2, dW3, db3)``.
+
+    On CUDA tensors this launches ``csrc/hot_loop_bwd.cu`` (the per-group
+    kernel, then the fixed-order sum of its partials) on the current stream
+    and counts one launch; the six weight/bias gradients are views of one
+    contiguous buffer. It raises for anything the kernel does not take. On
+    CPU tensors it computes the plain version :func:`_bwd_plain`.
+    """
+    _check_dtype(compute_dtype)
+    if h1.device.type == "cpu":
+        return _bwd_plain(h1, w1, b1, w2, b2, w3, b3, x, g, compute_dtype)
+    k, b, h1_dim, hid, d = _check_block(h1, w1, b1, w2, b2, w3, b3, x, g)
+    dev = h1.device
+    shapes = ((h1_dim, hid), (hid,), (hid, hid), (hid,), (hid, d), (d,))
+    sizes = [math.prod(s) for s in shapes]
+    if k * b == 0:
+        return (torch.zeros_like(h1),) + tuple(
+            torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
+    lib = _load_kernel(KERNEL_BWD, h1_dim, hid)
+    rows = k * b
+    groups = lib.hot_loop_bwd_groups(rows)
+    dh = torch.empty_like(h1)
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    slots = torch.empty((groups, sum(sizes)), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hot_loop_bwd(
+            h1.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), x.data_ptr(),
+            g.data_ptr(), dh.data_ptr(), grads.data_ptr(), slots.data_ptr(),
+            rows, b, h1_dim, hid, d, groups,
+            int(compute_dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"hot_loop_bwd launch failed with CUDA error {rc} "
+                           f"(k={k}, B={b}, H1={h1_dim}, hidden={hid}, D={d})")
+    with _count_lock:
+        _launches[KERNEL_BWD] += 1
+    parts = torch.split(grads, sizes)
+    return (dh,) + tuple(p.view(s) for p, s in zip(parts, shapes))
+
+
+class FusedBlockLL(torch.autograd.Function):
+    """``log p(x | h1)`` of the decoder output block with a kernel on both
+    sides: forward :func:`fused_forward` (B1), backward
+    :func:`fused_backward` (B2). The twin of the JAX custom VJP
+    ``_fused_block_ll``/``_fused_fwd``/``_fused_bwd`` (:869-911). The
+    binary targets `x` get no gradient. On CPU tensors both sides compute
+    their plain versions, so the CPU tests drive the wiring the card runs.
+
+    ``FusedBlockLL.apply(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype)``
+    """
+
+    @staticmethod
+    def forward(ctx, h1, w1, b1, w2, b2, w3, b3, x, compute_dtype=None):
+        ctx.save_for_backward(h1, w1, b1, w2, b2, w3, b3, x)
+        ctx.compute_dtype = compute_dtype
+        return fused_forward(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_backward(*ctx.saved_tensors, g.contiguous(),
+                               ctx.compute_dtype)
+        return grads + (None, None)
+
+
 def decoder_score(out_params, x, h1, *,
                   compute_dtype: Optional[torch.dtype] = None,
                   force_path: Optional[str] = None) -> torch.Tensor:
@@ -220,6 +340,6 @@ def decoder_score(out_params, x, h1, *,
     path = select_path(h1.device, force_path)
     _record_path(path)
     if path == "kernel":
-        return fused_forward(h1.contiguous(), w1, b1, w2, b2, w3, b3,
-                             x.contiguous(), compute_dtype)
+        return FusedBlockLL.apply(h1.contiguous(), w1, b1, w2, b2, w3, b3,
+                                  x.contiguous(), compute_dtype)
     return _reference_impl(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype)

@@ -1,8 +1,9 @@
 """Experiment configuration (port of ``utils/config.py``, reduced to the
-fields the zoo presets set and ``model_config()`` reads: architecture,
-objective, seed, ``compute_dtype``, ``serving_precision``, ``likelihood`` and
-``fused_likelihood``; the training, evaluation and execution knobs come with
-their slices)."""
+fields the zoo presets set and the ported paths read: data, architecture,
+objective with switching, the training knobs of the Burda schedule,
+``compute_dtype``, ``serving_precision``, ``likelihood``,
+``fused_likelihood`` and the gradient-SNR diagnostics; evaluation,
+checkpoint, logging and mesh knobs come with their slices)."""
 
 from __future__ import annotations
 
@@ -12,12 +13,18 @@ from typing import Optional, Tuple
 import torch
 
 from iwae_replication_project_tpu_torch.models.iwae import ModelConfig
+from iwae_replication_project_tpu_torch.objectives.estimators import (
+    ObjectiveSpec,
+)
 from iwae_replication_project_tpu_torch.utils.dtypes import validate_precision
 
 
 @dataclasses.dataclass
 class ExperimentConfig:
+    # data
     dataset: str = "binarized_mnist"
+    data_dir: str = "data"
+    allow_synthetic: bool = True
 
     # architecture (the 2-layer flagship by default)
     n_hidden_encoder: Tuple[int, ...] = (200, 100)
@@ -33,8 +40,16 @@ class ExperimentConfig:
     beta: float = 0.5
     k2: int = 1
 
+    # training (experiment_example.py:35-40; Burda's schedule)
+    batch_size: int = 100
+    n_stages: int = 8
+    adam_eps: float = 1e-4
     seed: int = 0
+    # stage i trains max(1, round(3^(i-1) * passes_scale)) passes
     passes_scale: float = 1.0
+
+    # objective switching: from `switch_stage` on, train with `switch_loss`
+    # (and `switch_k` if given) instead of `loss_function`
     switch_stage: Optional[int] = None
     switch_loss: Optional[str] = None
     switch_k: Optional[int] = None
@@ -48,6 +63,9 @@ class ExperimentConfig:
     likelihood: str = "logits"
     # the fused hot-loop dispatcher; None = auto: "logits" and CUDA
     fused_likelihood: Optional[bool] = None
+    # gradient-SNR diagnostics over the trailing snr_window steps of a pass
+    diagnostics: bool = True
+    snr_window: int = 50
 
     def __post_init__(self):
         if self.compute_dtype == "float32":
@@ -78,3 +96,23 @@ class ExperimentConfig:
             compute_dtype=self.compute_dtype,
             fused_likelihood=bool(fused),
         )
+
+    def diagnostics_config(self):
+        """The DiagnosticsConfig training runs under, or None when
+        diagnostics are off."""
+        if not self.diagnostics:
+            return None
+        from iwae_replication_project_tpu_torch.telemetry.diagnostics import (
+            DiagnosticsConfig)
+        return DiagnosticsConfig(snr_window=self.snr_window)
+
+    def objective_spec(self, stage: Optional[int] = None) -> ObjectiveSpec:
+        """The objective in effect at `stage` (1-based; None -> the base
+        one)."""
+        name, k = self.loss_function, self.k
+        if (self.switch_stage is not None and stage is not None
+                and stage >= self.switch_stage):
+            name = self.switch_loss or name
+            k = self.switch_k if self.switch_k is not None else k
+        return ObjectiveSpec(name=name, k=k, p=self.p, alpha=self.alpha,
+                             beta=self.beta, k2=self.k2)

@@ -3,14 +3,15 @@
 The preset table is the JAX package's, name for name; ``serving_engine``
 builds a :class:`~.serving.engine.ServingEngine` for a preset with weights
 freshly initialised from the preset's seed (checkpoint loading is not ported
-yet). Architectures: the 1-stochastic-layer model uses two 200-wide
-deterministic layers and a 50-d latent; the 2-layer model is the
-experiment_example.py:48-51 stack.
+yet), and ``train`` runs a preset through the staged training loop.
+Architectures: the 1-stochastic-layer model uses two 200-wide deterministic
+layers and a 50-d latent; the 2-layer model is the experiment_example.py:48-51
+stack.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -108,6 +109,23 @@ def get(name: str) -> ExperimentConfig:
         raise KeyError(f"unknown preset {name!r}"
                        + (f"; did you mean {hint}?" if hint else ""))
     return zoo[name]
+
+
+def train(config_or_name, *, device=None,
+          max_batches_per_pass: Optional[int] = None, **overrides):
+    """Train a zoo preset (by name or :class:`ExperimentConfig`) through the
+    staged Burda training loop on `device` (None = ``cuda``); `overrides`
+    replace config fields (e.g. ``n_stages=2``). Returns ``(state,
+    history)`` of :func:`..experiment.run_experiment`."""
+    import dataclasses
+
+    from iwae_replication_project_tpu_torch.experiment import run_experiment
+
+    cfg = get(config_or_name) if isinstance(config_or_name, str) \
+        else config_or_name
+    cfg = dataclasses.replace(cfg, **overrides)
+    return run_experiment(cfg, max_batches_per_pass=max_batches_per_pass,
+                          device=device)
 
 
 def serving_engine(config_or_name, *, k: int = None, device=None, **knobs):

@@ -86,7 +86,7 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     got = thl.fused_forward(*args)
     want = thl._reference_impl(*args)
     assert torch.equal(got, want)
-    assert thl.launch_counts() == {thl.KERNEL: 0}
+    assert thl.launch_counts() == {thl.KERNEL: 0, thl.KERNEL_BWD: 0}
     with pytest.raises(ValueError, match="compute_dtype"):
         thl.fused_forward(*args, compute_dtype=torch.float16)
 

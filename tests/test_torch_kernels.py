@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, the wrapper's checks, bucket independence of a row's result, and the
-serving engine through the kernel.
+version, the wrapper's checks, bucket independence of a row's result, the
+serving engine through the forward kernel, the backward kernel's
+determinism, and the autograd Function and a train step through both.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -155,3 +156,113 @@ def test_engine_padded_bucket_parity_on_the_card(cuda, n):
     np.testing.assert_allclose(got, direct, atol=1e-3, rtol=0)
     print(f"n={n}: bitwise={np.array_equal(got, direct)} "
           f"max_abs={np.abs(got - direct).max():.3e}")
+
+
+# --------------------------------------------------------------------------
+# the backward kernel (csrc/hot_loop_bwd.cu)
+# --------------------------------------------------------------------------
+
+#: backward kernel vs its plain version, per output, relative to the
+#: output's largest magnitude. fp32: the same arithmetic summed in another
+#: order (weight gradients sum up to R = 5000 rows of both signs). bf16: both
+#: round the same operands, but an operand within an fp32 rounding of a
+#: bf16 midpoint may round to the neighbouring bf16 value on one side only
+#: (2^-8 relative), and its effect spreads through the later products.
+BWD_TOL = {None: 1e-4, torch.bfloat16: 1e-2}
+
+BWD_SHAPES = [(1, 1, 8, 16, 12), (13, 17, 8, 16, 130), (3, 5, 37, 70, 130),
+              (10, 300, 8, 16, 12), (13, 17, 100, 200, 784),
+              (50, 100, 100, 200, 784)]
+
+
+def _bwd_inputs(k, b, h1, hid, d, seed=0):
+    args = list(_inputs(k, b, h1, hid, d, seed=seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    return args + [torch.randn((k, b), generator=g).cuda()]
+
+
+def _assert_outputs_close(got, want, rel):
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.shape == w.shape, i
+        assert torch.isfinite(a).all(), i
+        err = float((a - w).abs().max())
+        scale = float(w.abs().max())
+        assert err <= rel * scale + 1e-6, (i, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("k,b,h1,hid,d", BWD_SHAPES)
+def test_bwd_kernel_matches_plain_version(cuda, k, b, h1, hid, d, cd):
+    """All seven outputs; 13 x 17 rows leave a ragged last tile and D=130
+    a ragged pixel chunk, whose padding must add nothing."""
+    args = _bwd_inputs(k, b, h1, hid, d)
+    thl.reset_launch_counts()
+    got = thl.fused_backward(*args, compute_dtype=cd)
+    want = thl._bwd_plain(*args, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert thl.launch_counts() == {thl.KERNEL: 0, thl.KERNEL_BWD: 1}
+    _assert_outputs_close(got, want, BWD_TOL[cd])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+def test_bwd_kernel_is_bitwise_deterministic(cuda, cd):
+    """No float atomics: two launches on the same inputs agree bitwise,
+    weight gradients included (fixed row groups, fixed-order sum)."""
+    args = _bwd_inputs(50, 100, 100, 200, 784, seed=5)
+    first = thl.fused_backward(*args, compute_dtype=cd)
+    second = thl.fused_backward(*args, compute_dtype=cd)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+def test_fused_block_ll_gradients_on_the_card(cuda, cd):
+    """The autograd Function on CUDA tensors (B1 forward, B2 backward):
+    h1 and every weight and bias get torch.autograd's gradient through the
+    plain forward, within the tolerance of tests/test_torch_hot_loop_bwd.py
+    (the autodiff of the plain forward rounds at other points in bf16)."""
+    args = _bwd_inputs(13, 17, 100, 200, 784, seed=6)
+    x, g = args[7], args[8]
+    leaves = [a.clone().requires_grad_(True) for a in args[:7]]
+    thl.reset_launch_counts()
+    got = torch.autograd.grad(thl.FusedBlockLL.apply(*leaves, x, cd), leaves,
+                              g)
+    assert thl.launch_counts() == {thl.KERNEL: 1, thl.KERNEL_BWD: 1}
+    ref = [a.clone().requires_grad_(True) for a in args[:7]]
+    want = torch.autograd.grad(thl._reference_impl(*ref, x, cd), ref, g)
+    _assert_outputs_close(got, want, 1e-4 if cd is None else 2e-2)
+
+
+@pytest.mark.cuda
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = _bwd_inputs(3, 4, 8, 16, 12)
+    with pytest.raises(ValueError, match="shape"):
+        thl.fused_backward(*args[:8], args[8][:, :3].contiguous())
+    with pytest.raises(ValueError, match="is on cpu"):
+        thl.fused_backward(*args[:8], args[8].cpu())
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _bwd_inputs(1, 1, 2000, 1000, 12)
+        thl.fused_backward(*big)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_both_kernels(cuda):
+    """One flagship-width IWAE step on the card runs B1 once and B2 once;
+    a DReG step runs B2 twice."""
+    from iwae_replication_project_tpu_torch.objectives import ObjectiveSpec
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+
+    cfg = ModelConfig.two_layer(likelihood="logits", compute_dtype="bfloat16",
+                                fused_likelihood=True)
+    x = (torch.rand((100, 784), generator=torch.Generator().manual_seed(0))
+         > 0.5).float().cuda()
+    for name, bwd in (("IWAE", 1), ("DReG", 2)):
+        state = ts.create_train_state(0, cfg, device="cuda")
+        step = ts.make_train_step(ObjectiveSpec(name=name, k=50), cfg)
+        thl.reset_launch_counts()
+        state, metrics = step(state, x)
+        torch.cuda.synchronize()
+        assert thl.launch_counts() == {thl.KERNEL: 1, thl.KERNEL_BWD: bwd}
+        assert torch.isfinite(metrics["loss"])
