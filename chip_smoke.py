@@ -8,16 +8,24 @@ phases, one line per phase, and exits non-zero on the first failure:
 
 1. the card's name and power limit (nvidia-smi), torch/CUDA versions and the
    TF32 flags (both set False: the plain versions must run in full fp32);
-2. builds every CUDA kernel of the serving and training paths from
-   ``csrc/`` (one ``nvcc`` per source, all started together) and prints the
-   build times and ptxas's register/shared-memory report;
-3. holds each kernel against its plain PyTorch version on the card, in fp32
-   and bf16, within the stated tolerances, and times kernel and plain version
-   with CUDA events beside the kernel's bound: the forward (``hot_loop_fwd``)
-   at the serving shapes (k=50 x B in {1, 7, 64}), an odd shape and an
-   eval-like shape (k=250, B=500); the backward (``hot_loop_bwd``), per
-   output, at the train shape (k=50, B=100), the eval chunk, an odd shape and
-   odd widths, and bitwise across two launches;
+2. builds all four CUDA kernels from ``csrc/`` (one ``nvcc`` per source, all
+   started together) and prints the build times and ptxas's
+   register/shared-memory report;
+3. holds each kernel against its plain PyTorch version on the card, within
+   the stated tolerances, and times kernel and plain version with CUDA
+   events beside the kernel's bound: the hot-loop forward (``hot_loop_fwd``,
+   B1) in fp32 and bf16 at the serving shapes (k=50 x B in {1, 7, 64}), the
+   train shape (k=50, B=100), an odd shape and the eval chunk (k=250,
+   B=500); the hot-loop backward (``hot_loop_bwd``, B2), per output, at the
+   train shape, the eval chunk, an odd shape and odd widths, and bitwise
+   across two launches; the fused Bernoulli log-likelihood's forward and
+   backward (``fused_ll_fwd``, B3; ``fused_ll_bwd``, B4) in fp32 at the
+   flagship's last layer (H=200, D=784) at the train shape and the eval
+   chunk and at an odd shape (k=13, B=17, D=130), dW and db bitwise across
+   two launches; then the op's own path, ``fused_bernoulli_ll`` forward and
+   backward on the flagship's last layer at the train shape, whose launches
+   are counted, held against B1 (the same draws through the whole output
+   block) and against B2's dW3 and db3 for the same cotangent;
 4. serves the flagship preset ``northstar-iwae-2l-k50`` at full width (fresh
    weights from the preset's seed, synthetic binary rows from a seed) through
    the pipelined engine: warmup, then a ragged stream of score requests plus
@@ -28,11 +36,21 @@ phases, one line per phase, and exits non-zero on the first failure:
 5. trains the same preset at full width with ``zoo.train`` for two Burda
    stages (1 + 3 passes over the synthetic set: 40 steps of k=50, B=100,
    bf16): per-pass losses (finite, falling), ms per step, a breakdown of one
-   step, launches of both kernels (each equal to the step count); then holds
-   a step's per-leaf gradients against a ``hot_loop_path="reference"`` run
-   on the same draws, and runs one DReG step at 1-layer width, which must
-   launch the backward kernel twice;
-6. prints the kernels' JSON record and, last, the contract line
+   step, the per-stage evaluation run_experiment makes on the 256 synthetic
+   test rows (the seven scalars at nll_k=5000), launches of both kernels (B2
+   equal to the step count; B1 the step count plus the eval launches derived
+   from the config); then holds a step's per-leaf gradients against a
+   ``hot_loop_path="reference"`` run on the same draws, and runs one DReG
+   step at 1-layer width, which must launch the backward kernel twice;
+6. evaluates the trained flagship at full width with ``training_statistics``
+   (eval_k=50, nll_k=5000 in chunks of 250, batches of 500) and the
+   estimator diagnostics on 1000 synthetic test rows made from a seed:
+   the seven scalars (finite, NLL <= -IWAE(k=50) up to noise), active
+   units, seconds for the suite, ms per k=5000 NLL batch with B1's share,
+   B1's launches (equal to the count derived from the config; B2 none), and
+   one batch's NLL against a ``hot_loop_path="reference"`` model on the same
+   generator seed;
+7. prints the kernels' JSON record and, last, the contract line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -76,9 +94,27 @@ BWD_TOL = {"fp32": 1e-4, "bf16": 1e-2}
 #: per layer; 7.2e-3 at worst in the CPU parity tests)
 GRAD_TOL = 2e-2
 
+#: the fused Bernoulli log-likelihood's kernels (B3, B4) vs their plain
+#: versions, fp32 only (the op takes fp32): the same arithmetic summed in
+#: another order. Forward (atol, rtol) as B1's fp32; backward relative to
+#: each output's largest magnitude, as B2's fp32. The same tolerances hold
+#: B3 against B1 and B4's dW, db against B2's dW3, db3 on the same draws:
+#: there the last layer's input y2 is computed by cuBLAS on one side and
+#: inside B1/B2 on the other, another summation order again.
+FLL_TOL = (2e-3, 1e-5)
+FLL_BWD_TOL = 1e-4
+
+#: one eval batch's k=5000 NLL through the kernel vs the reference path on
+#: the same draws: the bf16 row tolerance of TOL (a mean of per-row
+#: estimates, each a logmeanexp of rows that differ by at most that)
+NLL_TOL = TOL["bf16"]
+
 FLAGSHIP = dict(h1=100, hid=200, d=784)
 PRESET = "northstar-iwae-2l-k50"
 TRAIN_K, TRAIN_B = 50, 100
+#: the full-width evaluation: synthetic test rows, and the generator seed of
+#: the NLL held against the reference path
+EVAL_ROWS, NLL_SEED = 1000, 5
 
 
 def fail(msg: str) -> int:
@@ -139,14 +175,16 @@ def hot_loop_bound_ms(k, b, h1, hid, d, dtype) -> tuple:
 
 def check_hot_loop(torch, hot_loop):
     """Phase 3: kernel vs plain version; returns (record for the JSON line,
-    ok)."""
+    ok, {(dtype, tag, B): kernel ms})."""
     shapes = [("serve", 50, 1, FLAGSHIP), ("serve", 50, 7, FLAGSHIP),
-              ("serve", 50, 64, FLAGSHIP), ("odd", 13, 17, FLAGSHIP),
+              ("serve", 50, 64, FLAGSHIP), ("train", TRAIN_K, TRAIN_B, FLAGSHIP),
+              ("odd", 13, 17, FLAGSHIP),
               ("odd-widths", 3, 5, dict(h1=37, hid=70, d=130)),
               ("eval", 250, 500, FLAGSHIP)]
     ok = True
     worst = 0.0
     main = None
+    times = {}
     for dtype in ("fp32", "bf16"):
         cd = torch.bfloat16 if dtype == "bf16" else None
         atol, rtol = TOL[dtype]
@@ -168,9 +206,10 @@ def check_hot_loop(torch, hot_loop):
                     f"tol=({atol:g} + {rtol:g}*|ref|) "
                     f"{'ok' if within else 'OUT OF TOLERANCE'}")
             ok &= within
-            if tag in ("serve", "eval"):
+            if tag in ("serve", "train", "eval"):
                 ms = time_ms(lambda: hot_loop.fused_forward(
                     *args, compute_dtype=cd), torch)
+                times[(dtype, tag, b)] = ms
                 plain = time_ms(lambda: hot_loop._reference_impl(
                     *args, compute_dtype=cd), torch)
                 bound, by = hot_loop_bound_ms(k, b, w["h1"], w["hid"],
@@ -188,7 +227,7 @@ def check_hot_loop(torch, hot_loop):
               "launches": None, "max_abs_err": worst, "ms": main["ms"],
               "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
               "bound_by": main["bound_by"], "library_ms": None}
-    return record, ok
+    return record, ok, times
 
 
 def breakdown(torch, np, eng):
@@ -355,6 +394,9 @@ def hot_loop_bwd_bound_ms(k, b, h1, hid, d, dtype) -> tuple:
 
 
 OUTPUTS = ("dh", "dW1", "db1", "dW2", "db2", "dW3", "db3")
+#: the evaluation suite's seven scalars (evaluation.metrics.SCALAR_NAMES)
+SCALARS = ("VAE", "IWAE", "NLL", "E_q(h|x)[log(p(x|h))]",
+           "D_kl(q(h|x),p(h))", "D_kl(q(h|x),p(h|x))", "reconstruction_loss")
 
 
 def check_hot_loop_bwd(torch, hot_loop):
@@ -423,6 +465,168 @@ def check_hot_loop_bwd(torch, hot_loop):
     return record, ok
 
 
+def fll_inputs(torch, k, b, h, d, seed):
+    """Random last-layer inputs and a cotangent on the card, drawn on the
+    host."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((k, b, h), generator=g).cuda(),
+            (torch.randn((h, d), generator=g) * 0.1).cuda(),
+            (torch.randn((d,), generator=g) * 0.1).cuda(),
+            (torch.rand((b, d), generator=g) > 0.5).float().cuda(),
+            torch.randn((k, b), generator=g).cuda()]
+
+
+def fused_ll_bound_ms(k, b, h, d, backward) -> tuple:
+    """(bound_ms, bound_by) of B3 (2 * R * H * D operations) or B4 (6 *
+    R * H * D: the recompute and two backward products) in fp32 on the CUDA
+    cores; bytes: h, W, bias, x (and g) read once, out (or dh, dW, db)
+    written once, 4 bytes each."""
+    rows = k * b
+    flops = (6.0 if backward else 2.0) * rows * h * d
+    nbytes = 4.0 * (rows * h + h * d + d + b * d + rows)
+    if backward:
+        nbytes += 4.0 * (rows * h + h * d + d)
+    t_ops = flops / PEAK_FLOPS["fp32"]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def outputs_within(torch, got, want, rel) -> tuple:
+    """(every output within rel * its max |want|, worst err / max, text)."""
+    fine, worst, parts = True, 0.0, []
+    for name, a, ref in zip(("dh", "dW", "db"), got, want):
+        err = float((a - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1e-12)
+        ok = err <= rel * scale + 1e-6 and bool(torch.isfinite(a).all())
+        fine &= ok
+        worst = max(worst, err / scale)
+        parts.append(f"{name} abs={err:.2e} of_max={err / scale:.1e}"
+                     f"{'' if ok else ' OUT'}")
+    return fine, worst, "; ".join(parts)
+
+
+def check_fused_ll(torch, fl):
+    """Phase 3c: B3 and B4 vs their plain versions in fp32, B4 bitwise
+    across two launches; returns (records for the JSON line, ok)."""
+    shapes = [("train", TRAIN_K, TRAIN_B, 200, 784),
+              ("eval", 250, 500, 200, 784), ("odd", 13, 17, 200, 130)]
+    ok = True
+    worst_f = worst_b = 0.0
+    main = {}
+    for i, (tag, k, b, h, d) in enumerate(shapes):
+        h1, w, bias, x, g = fll_inputs(torch, k, b, h, d, seed=300 + i)
+        got = fl.fused_ll_forward(h1, w, bias, x)
+        want = fl._reference_impl(h1, w, bias, x)
+        grads = fl.fused_ll_backward(h1, w, bias, x, g)
+        again = fl.fused_ll_backward(h1, w, bias, x, g)
+        want_g = fl._bwd_plain(h1, w, bias, x, g)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        fwd_ok = bool((err <= FLL_TOL[0] + FLL_TOL[1] * want.abs()).all()) \
+            and bool(torch.isfinite(got).all())
+        worst_f = max(worst_f, float(err.max()))
+        bitwise = all(bool(torch.equal(a, c)) for a, c in zip(grads, again))
+        bwd_ok, worst, text = outputs_within(torch, grads, want_g,
+                                             FLL_BWD_TOL)
+        worst_b = max(worst_b, worst)
+        ok &= fwd_ok and bwd_ok and bitwise
+        fwd_line = (f"kernel fused_ll_fwd fp32 {tag} k={k} B={b} H={h} "
+                    f"D={d}: max_abs_err={float(err.max()):.3e} "
+                    f"tol=({FLL_TOL[0]:g} + {FLL_TOL[1]:g}*|ref|) "
+                    f"{'ok' if fwd_ok else 'OUT OF TOLERANCE'}")
+        bwd_line = (f"kernel fused_ll_bwd fp32 {tag} k={k} B={b} H={h} "
+                    f"D={d}: tol={FLL_BWD_TOL:g}*max|ref| bitwise_repeat="
+                    f"{bitwise} {'ok' if bwd_ok and bitwise else 'FAIL'} | "
+                    + text)
+        if tag in ("train", "eval"):
+            for name, fn, plain, bwd in (
+                    ("fwd", lambda: fl.fused_ll_forward(h1, w, bias, x),
+                     lambda: fl._reference_impl(h1, w, bias, x), False),
+                    ("bwd", lambda: fl.fused_ll_backward(h1, w, bias, x, g),
+                     lambda: fl._bwd_plain(h1, w, bias, x, g), True)):
+                ms, plain_ms = time_ms(fn, torch), time_ms(plain, torch)
+                bound, by = fused_ll_bound_ms(k, b, h, d, bwd)
+                timing = (f" | kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                          f"bound_ms={bound:.5f} ({by})")
+                if bwd:
+                    bwd_line += timing
+                else:
+                    fwd_line += timing
+                if tag == "train":
+                    main[name] = dict(ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound, bound_by=by)
+        print(fwd_line, flush=True)
+        print(bwd_line, flush=True)
+        del h1, w, bias, x, g, got, want, grads, again, want_g
+    records = []
+    for name, line, worst in (("fwd", 206, worst_f), ("bwd", 242, worst_b)):
+        records.append({
+            "name": f"fused_ll_{name}", "route": "cuda",
+            "source": f"iwae_replication_project_tpu_torch/csrc/"
+                      f"fused_ll_{name}.cu",
+            "replaces": f"iwae_replication_project_tpu/ops/"
+                        f"fused_likelihood.py:{line}",
+            "launches": None, "max_abs_err": worst, **main[name],
+            "library_ms": None})
+    return records, ok
+
+
+def fused_ll_path(torch, fl, hot_loop):
+    """Phase 3d: the op's path. ``fused_bernoulli_ll`` forward and backward
+    on the flagship's last layer at the train shape (fp32, y2 from plain
+    torch through the output block's first two layers), with its launches
+    counted; held against B1 on the same h1 and against B2's dW3 and db3 for
+    the same cotangent. Returns ({kernel: launches}, ok)."""
+    h1, w1, b1, w2, b2, w3, b3, x = hot_loop_inputs(
+        torch, TRAIN_K, TRAIN_B, seed=400, **FLAGSHIP)
+    g = torch.randn((TRAIN_K, TRAIN_B), generator=torch.Generator()
+                    .manual_seed(401)).cuda()
+    y2 = torch.tanh(torch.tanh(h1 @ w1 + b1) @ w2 + b2)
+    leaves = [t.clone().requires_grad_(True) for t in (y2, w3, b3)]
+    fl.reset_launch_counts()
+    out = fl.fused_bernoulli_ll(*leaves, x)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    launches = fl.launch_counts()
+    whole = hot_loop.fused_forward(h1, w1, b1, w2, b2, w3, b3, x)
+    block = hot_loop.fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g)
+    torch.cuda.synchronize()
+    err = (out.detach() - whole).abs()
+    fwd_ok = bool((err <= FLL_TOL[0] + FLL_TOL[1] * whole.abs()).all())
+    parts, bwd_ok = [], True
+    for name, a, ref in (("dW", grads[1], block[5]), ("db", grads[2],
+                                                      block[6])):
+        e = float((a - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1e-12)
+        bwd_ok &= e <= FLL_BWD_TOL * scale + 1e-6
+        parts.append(f"{name} vs B2's {name}3 abs={e:.2e} of_max="
+                     f"{e / scale:.1e}")
+    launch_ok = launches == {fl.KERNEL_FWD: 1, fl.KERNEL_BWD: 1}
+    print(f"op fused_bernoulli_ll fp32 k={TRAIN_K} B={TRAIN_B} H=200 D=784: "
+          f"launches {launches} vs B1 max_abs_err={float(err.max()):.3e} "
+          f"tol=({FLL_TOL[0]:g} + {FLL_TOL[1]:g}*|ref|); "
+          + "; ".join(parts) + f" tol={FLL_BWD_TOL:g}*max|ref| "
+          f"{'ok' if fwd_ok and bwd_ok and launch_ok else 'FAIL'}",
+          flush=True)
+    return launches, fwd_ok and bwd_ok and launch_ok
+
+
+def eval_b1_launches(cfg, n_test: int, diagnostics: bool) -> int:
+    """B1 launches of one ``training_statistics`` run on `n_test` rows (and
+    of the estimator diagnostics), derived from the config: per eval batch
+    one for the batch metrics and nll_k/chunk for the streamed NLL, then
+    nll_k/chunk for the pruned NLL; with diagnostics one more per batch.
+    The reconstruction loss and the activity estimate do not reach B1."""
+    from iwae_replication_project_tpu_torch.utils.sizes import (
+        largest_divisor_leq)
+    batch = largest_divisor_leq(n_test, min(cfg.eval_batch_size, n_test))
+    chunks = cfg.nll_k // largest_divisor_leq(cfg.nll_k, cfg.nll_chunk)
+    n_batches = n_test // batch
+    return n_batches * (1 + chunks) + chunks + \
+        (n_batches if diagnostics else 0)
+
+
 def step_breakdown(torch, state, cfg, spec, x, hot_loop):
     """CUDA-event times of one train step at the train shape and of its
     parts: the B1 and B2 kernels and the Adam update each timed alone on the
@@ -457,7 +661,8 @@ def step_breakdown(torch, state, cfg, spec, x, hot_loop):
 
 def train(torch, np, zoo, hot_loop):
     """Phase 5: the flagship preset trained at full width through the
-    kernels. Returns ({kernel: launches during the training run}, ok)."""
+    kernels, evaluated after each stage. Returns ({kernel: launches during
+    the run}, the trained state, ok)."""
     import dataclasses
 
     from iwae_replication_project_tpu_torch.data import load_dataset
@@ -481,23 +686,40 @@ def train(torch, np, zoo, hot_loop):
               f"{h['objective']} k={h['k']} passes={h['passes']} "
               f"steps={h['steps']} pass_losses="
               f"{[round(v, 4) for v in h['pass_losses']]} "
-              f"train_s={h['train_seconds']:.3f} "
+              f"train_s={h['stage_train_seconds']:.3f} "
               f"grad_snr_enc={h.get('diag/grad_snr_enc', float('nan')):.4f} "
               f"grad_snr_dec={h.get('diag/grad_snr_dec', float('nan')):.4f}",
               flush=True)
+        print(f"train: stage {h['stage']} eval (eval_batch="
+              f"{h['eval_batch']:g}, nll_chunk={h['nll_chunk']:g}, "
+              f"kernel_path={h['kernel_path']:g}): "
+              + " ".join(f"{n}={h[n]:.4f}" for n in SCALARS + ("LL_pruned",))
+              + f" active={h['number_of_active_units']} "
+              f"pca_active={h['number_of_PCA_active_units']} "
+              f"ess={h['diag/ess']:.3f} eval_s={h['stage_eval_seconds']:.3f}",
+              flush=True)
     last = history[-1]
-    per_step_host = last["train_seconds"] / (last["steps"]
-                                             - history[-2]["steps"])
+    per_step_host = last["stage_train_seconds"] / (last["steps"]
+                                                   - history[-2]["steps"])
     print(f"train: {steps} steps in {wall:.3f}s (zoo.train, data and state "
-          f"set-up included); ms per step over stage {last['stage']} (host "
-          f"clock, {last['passes']} passes, one fetch) = "
-          f"{per_step_host * 1e3:.4f}", flush=True)
-    print(f"train: launches during the run {launches} (steps={steps})",
-          flush=True)
-    if not (launches[hot_loop.KERNEL] == steps
+          f"set-up and the per-stage evaluation included); ms per step over "
+          f"stage {last['stage']} (host clock, {last['passes']} passes, one "
+          f"fetch) = {per_step_host * 1e3:.4f}", flush=True)
+    cfg = zoo.get(PRESET)
+    ds = load_dataset(cfg.dataset, data_dir=cfg.data_dir)
+    per_eval = eval_b1_launches(cfg, len(ds.x_test), diagnostics=True)
+    want_b1 = steps + len(history) * per_eval
+    print(f"train: launches during the run {launches} (steps={steps}; B1 "
+          f"expected {steps} + {len(history)} stages x {per_eval} eval "
+          f"launches = {want_b1}; B2 expected {steps})", flush=True)
+    if not (launches[hot_loop.KERNEL] == want_b1
             and launches[hot_loop.KERNEL_BWD] == steps):
         ok = False
-        print("FAIL: B1 and B2 must each launch once per train step")
+        print("FAIL: B1 must launch once per train step plus the eval "
+              "count, B2 once per train step and never in eval")
+    scalars_ok = all(np.isfinite(h[n]) for h in history
+                     for n in SCALARS + ("LL_pruned",))
+    ok &= scalars_ok
     finite = bool(np.isfinite(losses).all())
     falling = losses[-1] < losses[0]
     print(f"train: losses finite={finite} first={losses[0]:.4f} "
@@ -505,9 +727,7 @@ def train(torch, np, zoo, hot_loop):
     ok &= finite and falling
 
     # one step's time and its parts, on the trained state
-    cfg = zoo.get(PRESET)
     model_cfg = cfg.model_config("cuda")
-    ds = load_dataset(cfg.dataset, data_dir=cfg.data_dir)
     x = torch.as_tensor(ds.x_train[:TRAIN_B], dtype=torch.float32).cuda()
     spec = cfg.objective_spec(1)
     step_ms, fwd_ms, bwd_ms, adam_ms = step_breakdown(
@@ -557,7 +777,100 @@ def train(torch, np, zoo, hot_loop):
           f"{float(metrics['loss']):.4f} launches {dreg_launches} "
           f"{'ok' if dreg_ok else 'FAIL: expected 1 forward, 2 backward'}",
           flush=True)
-    return launches, ok and dreg_ok
+    return launches, state, ok and dreg_ok and scalars_ok
+
+
+def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
+    """Phase 6: the trained flagship evaluated at full width. Returns ok."""
+    import dataclasses
+
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.evaluation import metrics as em
+    from iwae_replication_project_tpu_torch.telemetry.diagnostics import (
+        estimator_diagnostics)
+
+    cfg = zoo.get(PRESET)
+    model_cfg = cfg.model_config("cuda")
+    diag_cfg = cfg.diagnostics_config()
+    ds = load_dataset(cfg.dataset, data_dir=cfg.data_dir,
+                      synthetic_sizes=(1024, EVAL_ROWS))
+    x = torch.as_tensor(ds.x_test[:EVAL_ROWS].reshape(EVAL_ROWS, -1),
+                        dtype=torch.float32).cuda()
+    hot_loop.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, res2 = em.training_statistics(
+        state.params, model_cfg, x, cfg.eval_k,
+        batch_size=cfg.eval_batch_size, nll_k=cfg.nll_k,
+        nll_chunk=cfg.nll_chunk, activity_samples=cfg.activity_samples,
+        generator=em.eval_generator(cfg.seed, 1, "cuda"))
+    suite_s = time.perf_counter() - t0  # ends in the suite's one fetch
+    t0 = time.perf_counter()
+    batch = int(res["eval_batch"])
+    diag = estimator_diagnostics(
+        state.params, model_cfg, x.reshape(EVAL_ROWS // batch, batch, -1),
+        cfg.eval_k, diag_cfg, generator=em.eval_generator(cfg.seed, 30_001,
+                                                          "cuda"))
+    diag = {key: float(v) for key, v in diag.items()}
+    diag_s = time.perf_counter() - t0
+    launches = hot_loop.launch_counts()
+    want_b1 = eval_b1_launches(cfg, EVAL_ROWS, diagnostics=True)
+    print(f"eval: training_statistics on {EVAL_ROWS} synthetic test rows, "
+          f"eval_k={cfg.eval_k} nll_k={cfg.nll_k} nll_chunk="
+          f"{res['nll_chunk']:g} eval_batch={batch} activity_samples="
+          f"{cfg.activity_samples} kernel_path={res['kernel_path']:g}: "
+          + " ".join(f"{n}={res[n]:.4f}" for n in SCALARS + ("LL_pruned",)),
+          flush=True)
+    print(f"eval: active units {res2['number_of_active_units']}, PCA active "
+          f"{res2['number_of_PCA_active_units']}; diagnostics "
+          + " ".join(f"{k.split('/')[1]}={v:.4f}" for k, v in diag.items()),
+          flush=True)
+    ok = True
+    finite = all(np.isfinite(res[n]) for n in SCALARS + ("LL_pruned",))
+    # the k=5000 bound is the tighter one: NLL <= -IWAE(k=50), up to the
+    # noise of two independent estimates over 1000 rows
+    tighter = res["NLL"] <= -res["IWAE"] + 0.5
+    launch_ok = launches == {hot_loop.KERNEL: want_b1,
+                             hot_loop.KERNEL_BWD: 0}
+    print(f"eval: scalars finite={finite} NLL<=-IWAE(k=50)+0.5: {tighter}; "
+          f"launches {launches} (B1 expected {EVAL_ROWS // batch} batches x "
+          f"(1 + {cfg.nll_k // int(res['nll_chunk'])}) + "
+          f"{cfg.nll_k // int(res['nll_chunk'])} pruned + "
+          f"{EVAL_ROWS // batch} diagnostics = {want_b1}; B2 expected 0) "
+          f"{'ok' if launch_ok else 'FAIL'}", flush=True)
+    ok &= finite and tighter and launch_ok
+
+    # one k=5000 NLL batch: its time, B1's share, and the reference path
+    xb = x[:batch]
+    chunk = int(res["nll_chunk"])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nll = float(em.streaming_nll(
+            state.params, model_cfg, xb, cfg.nll_k, chunk,
+            generator=torch.Generator(device="cuda").manual_seed(NLL_SEED)))
+        times.append(time.perf_counter() - t0)
+    batch_ms = float(np.median(times)) * 1e3
+    b1_share = (cfg.nll_k // chunk) * b1_eval_ms / batch_ms
+    print(f"eval: whole suite {suite_s:.3f}s + estimator diagnostics "
+          f"{diag_s:.3f}s (host clock, each ending in its one fetch); one "
+          f"k={cfg.nll_k} NLL batch of {batch} rows = {batch_ms:.3f} ms "
+          f"(host clock, median of 3), of which B1 {cfg.nll_k // chunk} x "
+          f"{b1_eval_ms:.4f} ms (phase 3, CUDA events) = {b1_share:.1%}",
+          flush=True)
+    ref_cfg = dataclasses.replace(model_cfg, hot_loop_path="reference")
+    nll_ref = float(em.streaming_nll(
+        state.params, ref_cfg, xb, cfg.nll_k, chunk,
+        generator=torch.Generator(device="cuda").manual_seed(NLL_SEED)))
+    atol, rtol = NLL_TOL
+    within = abs(nll - nll_ref) <= atol + rtol * abs(nll_ref)
+    print(f"eval: one batch's NLL through the kernel {nll:.5f} vs "
+          f"hot_loop_path=reference {nll_ref:.5f} on the same generator "
+          f"seed: |diff|={abs(nll - nll_ref):.3e} tol=({atol:g} + "
+          f"{rtol:g}*|ref|) {'ok' if within else 'OUT OF TOLERANCE'}",
+          flush=True)
+    return ok and within
 
 
 def main() -> int:
@@ -573,6 +886,8 @@ def main() -> int:
         import iwae_replication_project_tpu_torch as port
         from iwae_replication_project_tpu_torch import zoo
         from iwae_replication_project_tpu_torch.ops import _kernels, hot_loop
+        from iwae_replication_project_tpu_torch.ops import (
+            fused_likelihood as fl)
     except ImportError as e:
         return fail(f"the port package is not beside this script: {e}")
     if Path(port.__file__).resolve().parent.parent != here:
@@ -591,7 +906,8 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
     try:
-        secs = _kernels.build([hot_loop.KERNEL, hot_loop.KERNEL_BWD])
+        secs = _kernels.build([hot_loop.KERNEL, hot_loop.KERNEL_BWD,
+                               fl.KERNEL_FWD, fl.KERNEL_BWD])
     except RuntimeError as e:
         return fail(str(e))
     for name, s in secs.items():
@@ -602,25 +918,39 @@ def main() -> int:
                                      "smem")):
                 print(f"build: ptxas {ln.strip()}", flush=True)
 
-    record, ok = check_hot_loop(torch, hot_loop)
+    record, ok, b1_times = check_hot_loop(torch, hot_loop)
     if not ok:
         return fail("a kernel disagrees with its plain version")
     record_bwd, ok = check_hot_loop_bwd(torch, hot_loop)
     if not ok:
         return fail("the backward kernel disagrees with its plain version")
+    fll_records, ok = check_fused_ll(torch, fl)
+    if not ok:
+        return fail("a fused-likelihood kernel disagrees with its plain "
+                    "version")
+    fll_launches, ok = fused_ll_path(torch, fl, hot_loop)
+    if not ok:
+        return fail("the fused_bernoulli_ll path failed")
+    for rec in fll_records:
+        rec["launches"] = fll_launches[rec["name"]]
 
     launches, ok = serve(torch, np, zoo, hot_loop)
     if not ok:
         return fail("the serving phase failed")
     record["launches"] = launches
 
-    train_launches, ok = train(torch, np, zoo, hot_loop)
+    train_launches, state, ok = train(torch, np, zoo, hot_loop)
     if not ok:
         return fail("the training phase failed")
     record_bwd["launches"] = train_launches[hot_loop.KERNEL_BWD]
 
+    if not evaluate(torch, np, zoo, hot_loop, state,
+                    b1_times[("bf16", "eval", 500)]):
+        return fail("the evaluation phase failed")
+
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
-    print(json.dumps({"kernels": [record, record_bwd]}), flush=True)
+    print(json.dumps({"kernels": [record, record_bwd] + fll_records}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

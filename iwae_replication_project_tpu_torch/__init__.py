@@ -17,7 +17,15 @@ What is ported so far:
   stages) -> ``training.epoch`` -> ``training.train_step`` ->
   ``objectives.gradients`` -> the same ``decoder_score``, whose
   ``FusedBlockLL`` autograd Function runs the backward kernel in
-  ``csrc/hot_loop_bwd.cu``.
+  ``csrc/hot_loop_bwd.cu``;
+* evaluation, after each stage of ``run_experiment`` or on its own:
+  ``evaluation.training_statistics`` (the seven scalars with the streamed
+  k=5000 NLL, active units, the pruned NLL) and
+  ``telemetry.diagnostics.estimator_diagnostics``, through the same
+  forward kernel;
+* the fused Bernoulli likelihood of the decoder's last layer,
+  ``ops.fused_likelihood.fused_bernoulli_ll``, with its forward and
+  backward kernels in ``csrc/fused_ll_fwd.cu`` and ``csrc/fused_ll_bwd.cu``.
 
 The package imports ``torch`` and ``numpy`` only: never ``jax`` and nothing
 of the JAX package. Entry points run on ``cuda`` unless the caller passes

@@ -10,4 +10,5 @@ from iwae_replication_project_tpu_torch.models.iwae import (  # noqa: F401
     log_px_given_h,
     log_weights,
     log_weights_and_aux,
+    reconstruct_probs,
 )

@@ -244,6 +244,20 @@ def generate_x(params: Params, cfg: ModelConfig, h_top: torch.Tensor, *,
     return decode_probs(params, cfg, h)
 
 
+def reconstruct_probs(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                      generator: Optional[torch.Generator] = None,
+                      enc_eps: Optional[Sequence[torch.Tensor]] = None,
+                      dec_eps: Optional[Sequence[torch.Tensor]] = None
+                      ) -> torch.Tensor:
+    """Encode with one sample, then ancestral-decode: ``[1, B, x_dim]``
+    pixel probabilities (JAX :302-308). `enc_eps` injects the encoder's
+    noise (as :func:`encode`'s `eps`, with k = 1), `dec_eps` the decoder's
+    (as :func:`generate_x`'s); without them the draws come from
+    `generator`, encoder first."""
+    h, _, _ = encode(params, cfg, x, 1, generator=generator, eps=enc_eps)
+    return generate_x(params, cfg, h[-1], generator=generator, eps=dec_eps)
+
+
 def log_weights_and_aux(params: Params, cfg: ModelConfig, x: torch.Tensor,
                         k: int, *,
                         generator: Optional[torch.Generator] = None,

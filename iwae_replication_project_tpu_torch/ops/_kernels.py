@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries are built at first
 use into ``_build/`` inside the package (listed in ``.gitignore``), keyed on a
-hash of the source and the flags: an edited source rebuilds, an unchanged one
-loads the existing library. Nothing here runs at import time.
+hash of the source, the local headers it includes (``csrc/*.cuh``) and the
+flags: an edited source rebuilds, an unchanged one loads the existing
+library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,9 +22,14 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+
+#: largest dynamic shared memory a Hopper CTA may use (bytes)
+MAX_SMEM_BYTES = 232448
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,12 +48,44 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "hot_loop_bwd_smem_bytes": (ctypes.c_size_t, [_i, _i]),
         "hot_loop_bwd_groups": (_i, [_i]),
     },
+    "fused_ll_fwd": {
+        "fused_ll_fwd": (_i, [_vp] * 5 + [_i] * 4 + [_vp]),
+        "fused_ll_fwd_smem_bytes": (ctypes.c_size_t, [_i]),
+    },
+    "fused_ll_bwd": {
+        "fused_ll_bwd": (_i, [_vp] * 8 + [_i] * 5 + [_vp]),
+        "fused_ll_bwd_smem_bytes": (ctypes.c_size_t, [_i]),
+        "fused_ll_bwd_groups": (_i, [_i]),
+    },
 }
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: name -> (seconds the build took, nvcc's output) for builds in this process
 build_log: Dict[str, Tuple[float, str]] = {}
+
+_count_lock = threading.Lock()
+_launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
+
+
+def count(name: str) -> None:
+    """Count one launch of kernel `name`; each wrapper calls it where it
+    launches its kernel, and nowhere else."""
+    with _count_lock:
+        _launches[name] += 1
+
+
+def launch_counts(names) -> Dict[str, int]:
+    """``{name: launches}`` of the named kernels since their last
+    :func:`reset_launch_counts`."""
+    with _count_lock:
+        return {name: _launches[name] for name in names}
+
+
+def reset_launch_counts(names) -> None:
+    with _count_lock:
+        for name in names:
+            _launches[name] = 0
 
 
 def nvcc_path() -> str:
@@ -64,7 +103,10 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for the current source."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = re.findall(rb'#include "([^"]+)"', src)
+    digest = hashlib.sha256(
+        src + b"".join((SRC_DIR / h.decode()).read_bytes() for h in headers)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -118,3 +160,31 @@ def load(name: str) -> ctypes.CDLL:
                 f.argtypes = argtypes
             _libs[name] = lib
         return lib
+
+
+def load_fitting(name: str, *widths: int) -> ctypes.CDLL:
+    """:func:`load`, after checking with the library's
+    ``<name>_smem_bytes(*widths)`` that the kernel's tiles fit a Hopper
+    CTA's shared memory at these widths (a launch above it would be
+    refused)."""
+    lib = load(name)
+    smem = getattr(lib, f"{name}_smem_bytes")(*widths)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name} needs {smem} bytes of shared memory for "
+                         f"widths {widths}; a Hopper CTA has "
+                         f"{MAX_SMEM_BYTES}")
+    return lib
+
+
+def check_tensor(name: str, t, shape, device) -> None:
+    """Raise unless `t` is a contiguous fp32 tensor of `shape` on `device`:
+    what every kernel's C interface takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

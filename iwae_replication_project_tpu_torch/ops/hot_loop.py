@@ -34,11 +34,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import threading
 from typing import Optional
 
 import torch
 
+from iwae_replication_project_tpu_torch.ops import _kernels
 from iwae_replication_project_tpu_torch.ops.distributions import softplus
 from iwae_replication_project_tpu_torch.telemetry.registry import get_registry
 
@@ -51,23 +51,13 @@ PATH_CODES = {"reference": 0, "kernel": 2}
 KERNEL = "hot_loop_fwd"
 KERNEL_BWD = "hot_loop_bwd"
 
-#: largest dynamic shared memory a Hopper CTA may use (bytes)
-MAX_SMEM_BYTES = 232448
-
-_count_lock = threading.Lock()
-_launches = {KERNEL: 0, KERNEL_BWD: 0}
-
-
 def launch_counts() -> dict:
     """``{kernel name: launches}`` since the last :func:`reset_launch_counts`."""
-    with _count_lock:
-        return dict(_launches)
+    return _kernels.launch_counts((KERNEL, KERNEL_BWD))
 
 
 def reset_launch_counts() -> None:
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
+    _kernels.reset_launch_counts((KERNEL, KERNEL_BWD))
 
 
 def _record_path(path: str) -> None:
@@ -175,18 +165,6 @@ def _bwd_plain(h1, w1, b1, w2, b2, w3, b3, x, g, compute_dtype=None):
 # The kernel's wrapper
 # --------------------------------------------------------------------------
 
-def _check(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_dtype(compute_dtype) -> None:
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got "
@@ -207,21 +185,8 @@ def _check_block(h1, w1, b1, w2, b2, w3, b3, x, g=None) -> tuple:
     if g is not None:
         checks.append(("g", g, (k, b)))
     for name, t, shape in checks:
-        _check(name, t, shape, h1.device)
+        _kernels.check_tensor(name, t, shape, h1.device)
     return k, b, h1_dim, hid, d
-
-
-def _load_kernel(name: str, h1_dim: int, hid: int):
-    """The loaded library of kernel `name`, after checking that its tiles
-    fit a Hopper CTA's shared memory at these widths."""
-    from iwae_replication_project_tpu_torch.ops import _kernels
-    lib = _kernels.load(name)
-    smem = getattr(lib, f"{name}_smem_bytes")(h1_dim, hid)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name} needs {smem} bytes of shared memory for "
-                         f"H1={h1_dim}, hidden={hid}; a Hopper CTA has "
-                         f"{MAX_SMEM_BYTES}")
-    return lib
 
 
 def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
@@ -241,7 +206,7 @@ def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
     dev = h1.device
     if k * b == 0:
         return torch.zeros((k, b), dtype=torch.float32, device=dev)
-    lib = _load_kernel(KERNEL, h1_dim, hid)
+    lib = _kernels.load_fitting(KERNEL, h1_dim, hid)
     out = torch.empty((k, b), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -253,8 +218,7 @@ def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
     if rc != 0:
         raise RuntimeError(f"hot_loop_fwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H1={h1_dim}, hidden={hid}, D={d})")
-    with _count_lock:
-        _launches[KERNEL] += 1
+    _kernels.count(KERNEL)
     return out
 
 
@@ -279,7 +243,7 @@ def fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
     if k * b == 0:
         return (torch.zeros_like(h1),) + tuple(
             torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
-    lib = _load_kernel(KERNEL_BWD, h1_dim, hid)
+    lib = _kernels.load_fitting(KERNEL_BWD, h1_dim, hid)
     rows = k * b
     groups = lib.hot_loop_bwd_groups(rows)
     dh = torch.empty_like(h1)
@@ -296,8 +260,7 @@ def fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
     if rc != 0:
         raise RuntimeError(f"hot_loop_bwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H1={h1_dim}, hidden={hid}, D={d})")
-    with _count_lock:
-        _launches[KERNEL_BWD] += 1
+    _kernels.count(KERNEL_BWD)
     parts = torch.split(grads, sizes)
     return (dh,) + tuple(p.view(s) for p, s in zip(parts, shapes))
 

@@ -1,12 +1,18 @@
-"""Stable log-space reductions (port of ``ops/logsumexp.py``:20-31).
+"""Stable log-space reductions, including a streaming (online) logsumexp
+(port of ``ops/logsumexp.py``).
 
-Only the dense reductions are ported; the online (streaming) carries serve
-large-k evaluation and come with that slice.
+The dense reductions serve the bounds; the online carries (running max plus
+rescaled sum) serve large-k evaluation, which folds the k=5000 NLL in
+k-chunks with O(chunk) memory. Every carry is never-NaN: an all ``-inf``
+column finalizes to ``-inf`` and :func:`lse_var_stats` gives it ess 0 and se
+``+inf``. The element count ``n`` is a Python int: chunk sizes are known on
+the host.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -22,3 +28,133 @@ def logsumexp(log_w: torch.Tensor, dim: int = 0) -> torch.Tensor:
 def logmeanexp(log_w: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """``log mean exp`` along `dim`: the IWAE bound core."""
     return logsumexp(log_w, dim=dim) - math.log(float(log_w.shape[dim]))
+
+
+def _safe(m: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
+class OnlineLSE(NamedTuple):
+    """Carry of the streaming logsumexp (JAX :34-82): `m` the running max,
+    `s` the sum of ``exp(x - m)`` seen so far, `n` the element count.
+    Merging two states is associative."""
+
+    m: torch.Tensor
+    s: torch.Tensor
+    n: int
+
+
+def online_logsumexp_init(shape, dtype=torch.float32,
+                          device=None) -> OnlineLSE:
+    return OnlineLSE(m=torch.full(shape, -math.inf, dtype=dtype,
+                                  device=device),
+                     s=torch.zeros(shape, dtype=dtype, device=device), n=0)
+
+
+def online_logsumexp_update(state: OnlineLSE, log_w: torch.Tensor,
+                            dim: int = 0) -> OnlineLSE:
+    """Fold a chunk of log-weights (reduced along `dim`) into the state."""
+    new_m = torch.maximum(state.m, torch.amax(log_w, dim=dim))
+    safe_m = _safe(new_m)
+    scaled_old = state.s * torch.exp(state.m - safe_m)
+    chunk_s = torch.sum(torch.exp(log_w - safe_m.unsqueeze(dim)), dim=dim)
+    return OnlineLSE(m=new_m, s=scaled_old + chunk_s,
+                     n=state.n + log_w.shape[dim])
+
+
+def online_logsumexp_merge(a: OnlineLSE, b: OnlineLSE) -> OnlineLSE:
+    """Associative merge of two partial states."""
+    new_m = torch.maximum(a.m, b.m)
+    safe_m = _safe(new_m)
+    return OnlineLSE(m=new_m, s=a.s * torch.exp(a.m - safe_m)
+                     + b.s * torch.exp(b.m - safe_m), n=a.n + b.n)
+
+
+def online_logsumexp_finalize(state: OnlineLSE,
+                              mean: bool = False) -> torch.Tensor:
+    out = torch.log(state.s) + _safe(state.m)
+    if mean:
+        out = out - math.log(float(state.n))
+    return out
+
+
+class OnlineLSEVar(NamedTuple):
+    """The streaming carry with the second weight moment (JAX :85-148):
+    ``s2 = sum(exp(2 (x - m)))`` under the same running max, which per-row
+    ESS and standard-error estimates need (:func:`lse_var_stats`). The
+    ``(m, s)`` arithmetic is expression-identical to :class:`OnlineLSE`'s,
+    so both carries give bitwise the same ``(m, s)``."""
+
+    m: torch.Tensor
+    s: torch.Tensor
+    s2: torch.Tensor
+    n: int
+
+
+def online_lse_var_init(shape, dtype=torch.float32,
+                        device=None) -> OnlineLSEVar:
+    return OnlineLSEVar(m=torch.full(shape, -math.inf, dtype=dtype,
+                                     device=device),
+                        s=torch.zeros(shape, dtype=dtype, device=device),
+                        s2=torch.zeros(shape, dtype=dtype, device=device),
+                        n=0)
+
+
+def online_lse_var_update(state: OnlineLSEVar, log_w: torch.Tensor,
+                          dim: int = 0) -> OnlineLSEVar:
+    """Fold a chunk of log-weights into the augmented state; ``s2``
+    rescales by ``exp(2 (m_old - m_new))``."""
+    new_m = torch.maximum(state.m, torch.amax(log_w, dim=dim))
+    safe_m = _safe(new_m)
+    scaled_old = state.s * torch.exp(state.m - safe_m)
+    chunk_s = torch.sum(torch.exp(log_w - safe_m.unsqueeze(dim)), dim=dim)
+    scaled_old2 = state.s2 * torch.exp(2.0 * (state.m - safe_m))
+    chunk_s2 = torch.sum(torch.exp(2.0 * (log_w - safe_m.unsqueeze(dim))),
+                         dim=dim)
+    return OnlineLSEVar(m=new_m, s=scaled_old + chunk_s,
+                        s2=scaled_old2 + chunk_s2,
+                        n=state.n + log_w.shape[dim])
+
+
+def online_lse_var_merge(a: OnlineLSEVar, b: OnlineLSEVar) -> OnlineLSEVar:
+    """Associative merge of two augmented partial states."""
+    new_m = torch.maximum(a.m, b.m)
+    safe_m = _safe(new_m)
+    return OnlineLSEVar(
+        m=new_m,
+        s=a.s * torch.exp(a.m - safe_m) + b.s * torch.exp(b.m - safe_m),
+        s2=a.s2 * torch.exp(2.0 * (a.m - safe_m))
+        + b.s2 * torch.exp(2.0 * (b.m - safe_m)),
+        n=a.n + b.n)
+
+
+def lse_var_stats(s: torch.Tensor, s2: torch.Tensor, n) -> tuple:
+    """``(ess, se)`` from the max-subtracted sums of an augmented carry
+    (JAX :151-169): ``ess = s^2 / s2`` and the delta-method standard error
+    of ``log mean(w)`` with the n/(n-1) correction. A row with ``s == 0``
+    (all ``-inf``) gets ess 0 and se ``+inf``, never NaN."""
+    n_f = float(n)
+    pos = s > 0
+    safe_s = torch.where(pos, s, torch.ones_like(s))
+    safe_s2 = torch.where(s2 > 0, s2, torch.ones_like(s2))
+    ess = torch.where(pos, safe_s * safe_s / safe_s2, torch.zeros_like(s))
+    bessel = n_f / max(n_f - 1.0, 1.0)
+    var = torch.clamp_min(safe_s2 / (safe_s * safe_s) - 1.0 / max(n_f, 1.0),
+                          0.0) * bessel
+    se = torch.where(pos, torch.sqrt(var), torch.full_like(s, math.inf))
+    return ess, se
+
+
+def streaming_logmeanexp(log_w_fn: Callable[[int], torch.Tensor], k: int,
+                         chunk: int, shape, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """``logmeanexp`` over k samples produced chunk by chunk:
+    ``log_w_fn(i)`` returns the ``[chunk, *shape]`` log-weights of chunk i.
+    Memory is O(chunk), not O(k)."""
+    if k % chunk != 0:
+        raise ValueError(f"k={k} is not divisible by chunk={chunk}: "
+                         f"the chunk must divide k")
+    state = online_logsumexp_init(shape, dtype, device)
+    for i in range(k // chunk):
+        state = online_logsumexp_update(state, log_w_fn(i), dim=0)
+    return online_logsumexp_finalize(state, mean=True)

@@ -1,9 +1,9 @@
 """Experiment configuration (port of ``utils/config.py``, reduced to the
 fields the zoo presets set and the ported paths read: data, architecture,
-objective with switching, the training knobs of the Burda schedule,
-``compute_dtype``, ``serving_precision``, ``likelihood``,
-``fused_likelihood`` and the gradient-SNR diagnostics; evaluation,
-checkpoint, logging and mesh knobs come with their slices)."""
+objective with switching, the training knobs of the Burda schedule, the
+evaluation sizes, ``compute_dtype``, ``serving_precision``, ``likelihood``,
+``fused_likelihood`` and the diagnostics; checkpoint, logging and mesh knobs
+come with their slices)."""
 
 from __future__ import annotations
 
@@ -54,6 +54,15 @@ class ExperimentConfig:
     switch_loss: Optional[str] = None
     switch_k: Optional[int] = None
 
+    # evaluation after each stage (flexible_IWAE.py:496-526); the NLL chunk
+    # and the eval batch are clamped to divisors of nll_k and the test-set
+    # size, and each history row records the values used
+    eval_k: int = 50
+    nll_k: int = 5000
+    nll_chunk: int = 250
+    eval_batch_size: int = 500
+    activity_samples: int = 1000
+
     # None (fp32 matmuls) | "bfloat16" (bf16 operands, fp32 accumulation);
     # "float32" normalizes to None. bf16 is the production default.
     compute_dtype: Optional[str] = "bfloat16"
@@ -63,7 +72,8 @@ class ExperimentConfig:
     likelihood: str = "logits"
     # the fused hot-loop dispatcher; None = auto: "logits" and CUDA
     fused_likelihood: Optional[bool] = None
-    # gradient-SNR diagnostics over the trailing snr_window steps of a pass
+    # gradient-SNR diagnostics over the trailing snr_window steps of a pass,
+    # and the estimator diagnostics of each stage's evaluation
     diagnostics: bool = True
     snr_window: int = 50
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, the wrapper's checks, bucket independence of a row's result, the
 serving engine through the forward kernel, the backward kernel's
-determinism, and the autograd Function and a train step through both.
+determinism, and the autograd Function and a train step through both; then
+the fused Bernoulli log-likelihood's forward and backward kernels the same
+way.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one.
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -37,9 +39,10 @@ SHAPES = [(1, 1, 8, 16, 12), (3, 7, 8, 16, 130), (17, 3, 37, 70, 131),
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the hot-loop kernel has no CPU "
-                    "mode (its plain version is tested against JAX in "
-                    "test_torch_hot_loop.py)")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU "
+                    "mode (their plain versions are tested against JAX in "
+                    "test_torch_hot_loop*.py and "
+                    "test_torch_fused_likelihood.py)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -266,3 +269,106 @@ def test_train_step_launches_both_kernels(cuda):
         torch.cuda.synchronize()
         assert thl.launch_counts() == {thl.KERNEL: 1, thl.KERNEL_BWD: bwd}
         assert torch.isfinite(metrics["loss"])
+
+
+# --------------------------------------------------------------------------
+# the fused Bernoulli log-likelihood (csrc/fused_ll_fwd.cu, fused_ll_bwd.cu)
+# --------------------------------------------------------------------------
+
+#: B3/B4 vs their plain versions, fp32: the same arithmetic summed in
+#: another order (H = 200 products per logit, 784 pixel terms per row; dW
+#: sums up to R = 125000 rows of both signs). Forward: (atol, rtol) as B1's;
+#: backward: relative to each output's largest magnitude, as B2's.
+FLL_TOL = (2e-3, 1e-5)
+FLL_BWD_TOL = 1e-4
+
+FLL_SHAPES = [(5, 6, 16, 12), (13, 17, 16, 130), (3, 4, 8, 1024),
+              (17, 7, 16, 130), (13, 17, 200, 130), (50, 100, 200, 784)]
+
+
+def _fll_inputs(k, b, h, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn((k, b, h), generator=g)).cuda(),
+            (torch.randn((h, d), generator=g) * 0.1).cuda(),
+            (torch.randn((d,), generator=g) * 0.1).cuda(),
+            (torch.rand((b, d), generator=g) > 0.5).float().cuda(),
+            torch.randn((k, b), generator=g).cuda()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b,h,d", FLL_SHAPES)
+def test_fused_ll_kernels_match_plain_versions(cuda, k, b, h, d):
+    """B3 and B4 against their plain versions, with one launch each; odd k
+    and B leave a ragged last row tile, D = 130 a ragged pixel chunk."""
+    from iwae_replication_project_tpu_torch.ops import fused_likelihood as tfl
+    h1, w, bias, x, g = _fll_inputs(k, b, h, d)
+    tfl.reset_launch_counts()
+    got = tfl.fused_ll_forward(h1, w, bias, x)
+    grads = tfl.fused_ll_backward(h1, w, bias, x, g)
+    torch.cuda.synchronize()
+    assert tfl.launch_counts() == {tfl.KERNEL_FWD: 1, tfl.KERNEL_BWD: 1}
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               tfl._reference_impl(h1, w, bias, x)
+                               .cpu().numpy(), atol=FLL_TOL[0],
+                               rtol=FLL_TOL[1])
+    _assert_outputs_close(grads, tfl._bwd_plain(h1, w, bias, x, g),
+                          FLL_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_ll_bwd_is_bitwise_deterministic(cuda):
+    """No float atomics: two launches give bitwise equal dh, dW and db."""
+    from iwae_replication_project_tpu_torch.ops import fused_likelihood as tfl
+    args = _fll_inputs(50, 100, 200, 784, seed=2)
+    first = tfl.fused_ll_backward(*args)
+    second = tfl.fused_ll_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_fused_ll_row_does_not_depend_on_its_batch(cuda):
+    """Row (kk, b) of a 100-row batch equals the same row in a 7-row batch,
+    bitwise: each row's pixel sum runs in one fixed order."""
+    from iwae_replication_project_tpu_torch.ops import fused_likelihood as tfl
+    h1, w, bias, x, _ = _fll_inputs(50, 100, 200, 784, seed=3)
+    big = tfl.fused_ll_forward(h1, w, bias, x)
+    small = tfl.fused_ll_forward(h1[:, :7].contiguous(), w, bias,
+                                 x[:7].contiguous())
+    assert torch.equal(big[:, :7], small)
+
+
+@pytest.mark.cuda
+def test_fused_bernoulli_ll_on_the_card(cuda):
+    """The op's autograd Function on CUDA tensors runs B3 forward and B4
+    backward and gives the plain gradients; x gets none."""
+    from iwae_replication_project_tpu_torch.ops import fused_likelihood as tfl
+    h1, w, bias, x, g = _fll_inputs(13, 17, 200, 784, seed=4)
+    leaves = [t.clone().requires_grad_(True) for t in (h1, w, bias)]
+    tfl.reset_launch_counts()
+    got = torch.autograd.grad(tfl.fused_bernoulli_ll(*leaves, x), leaves, g)
+    assert tfl.launch_counts() == {tfl.KERNEL_FWD: 1, tfl.KERNEL_BWD: 1}
+    ref = [t.clone().requires_grad_(True) for t in (h1, w, bias)]
+    want = torch.autograd.grad(tfl._reference_impl(*ref, x), ref, g)
+    _assert_outputs_close(got, want, FLL_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_ll_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from iwae_replication_project_tpu_torch.ops import fused_likelihood as tfl
+    h1, w, bias, x, g = _fll_inputs(3, 4, 8, 12)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError, match="float32"):
+            tfl.fused_ll_forward(h1.to(dtype), w, bias, x)
+        with pytest.raises(TypeError, match="float32"):
+            tfl.fused_ll_backward(h1, w.to(dtype), bias, x, g)
+    with pytest.raises(ValueError, match="is on cpu"):
+        tfl.fused_ll_forward(h1, w, bias, x.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        tfl.fused_ll_backward(h1, w, bias, x, g[:, :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfl.fused_ll_forward(h1, w.t().contiguous().t(), bias, x)
+    big = _fll_inputs(1, 1, 2000, 12)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfl.fused_ll_forward(*big[:4])
+    with pytest.raises(ValueError, match="shared memory"):
+        tfl.fused_ll_backward(*big)

@@ -227,8 +227,11 @@ def test_output_bias_from_pixel_means():
 
 
 def _tiny(**kw):
+    """The flagship preset at test widths, with the per-stage evaluation cut
+    to a few samples (nll_k=40, 20 activity samples) to stay fast."""
     arch = dict(n_hidden_encoder=(16, 12), n_latent_encoder=(8, 5),
-                n_hidden_decoder=(12, 16), n_latent_decoder=(8, 784))
+                n_hidden_decoder=(12, 16), n_latent_decoder=(8, 784),
+                eval_k=4, nll_k=40, nll_chunk=8, activity_samples=20)
     arch.update(kw)
     return dataclasses.replace(zoo.get("northstar-iwae-2l-k50"), k=3,
                                batch_size=32, data_dir="/nonexistent", **arch)

@@ -77,6 +77,56 @@ def row_decode_noise(jcfg, base_key, seeds):
     return [torch.from_numpy(np.stack(o)) for o in out]
 
 
+def _torch(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def decode_noise(jcfg, key, batch):
+    """JAX's ``generate_x`` draws for `key` from a ``[1, B, d]`` top latent
+    (iwae.py:257-270): ``max(L-1, 1)`` keys, layer i ``[1, B, d_i]``."""
+    L = jcfg.n_stochastic
+    keys = jax.random.split(key, max(L - 1, 1))
+    return _torch(np.asarray(jax.random.normal(
+        keys[i], (1, batch, jcfg.n_latent_dec[i]), dtype=jnp.float32))
+        for i in range(L - 1))
+
+
+def chunk_noise(jcfg, key, chunk, batch):
+    """``j -> encode draws under fold_in(key, j)``: the per-chunk draws of
+    the streamed NLL (metrics.py:73), the pruned NLL (activity.py:113) and
+    the activity estimate (activity.py:46), as the port's ``noise``."""
+    return lambda j: _torch(encode_noise(jcfg, jax.random.fold_in(key, j),
+                                         chunk, batch))
+
+
+def batch_eval_noise(jcfg, key, batch, k, nll_chunk):
+    """``i -> batch i's draws`` of ``dataset_scalars`` (metrics.py:120-127):
+    ``fold_in(key, i)`` split three ways into the batch-metrics, NLL and
+    reconstruction keys; the reconstruction key split again into encoder
+    and decoder keys (iwae.py:306)."""
+    def noise(i):
+        k1, k2, k3 = jax.random.split(jax.random.fold_in(key, i), 3)
+        k_enc, k_dec = jax.random.split(k3)
+        return {"metrics": _torch(encode_noise(jcfg, k1, k, batch)),
+                "nll": chunk_noise(jcfg, k2, nll_chunk, batch),
+                "recon_enc": _torch(encode_noise(jcfg, k_enc, 1, batch)),
+                "recon_dec": decode_noise(jcfg, k_dec, batch)}
+    return noise
+
+
+def training_statistics_noise(jcfg, key, n, batch_size, k, nll_chunk,
+                              activity_chunk=10):
+    """Every draw of JAX's ``training_statistics`` (metrics.py:142-206) on
+    `n` test rows in batches of `batch_size` (both already clamped), as the
+    port's ``noise`` dict: the batches under `key`, then the activity and
+    pruned-NLL keys from ``split(fold_in(key, n_batches))``."""
+    k_au, k_pruned = jax.random.split(jax.random.fold_in(key,
+                                                         n // batch_size))
+    return {"batches": batch_eval_noise(jcfg, key, batch_size, k, nll_chunk),
+            "activity": chunk_noise(jcfg, k_au, activity_chunk, n),
+            "pruned": chunk_noise(jcfg, k_pruned, nll_chunk, batch_size)}
+
+
 def train_step_keys(key, n):
     """The model keys of `n` consecutive JAX train steps from state key
     `key` (train_step.py:69: ``key, subkey = split(key)``) and the state key
@@ -202,6 +252,8 @@ def worst_errors():
                            ("decoder_score", dec)):
             out[(what, cd or "fp32")] = tuple(max(e) for e in zip(*errs))
         out.update(_gradient_errors(cd))
+        out.update(_eval_errors(cd))
+    out.update(_fused_ll_errors())
     return out
 
 
@@ -257,6 +309,73 @@ def _gradient_errors(cd):
             for what, errs in (("objective_grads (abs, rel to leaf max)", obj),
                                ("bwd_plain vs _bwd_pallas (abs, rel to leaf "
                                 "max)", bwd))}
+
+
+def _eval_errors(cd):
+    """The eval suite's errors against JAX on replayed draws, at L = 1 and
+    2 on the inputs of test_training_statistics_matches_jax: (max abs, max
+    rel) over the seven scalars and LL_pruned, and over the variances of
+    the posterior means (abs, rel to the max)."""
+    from iwae_replication_project_tpu.evaluation import metrics as jmet
+    from iwae_replication_project_tpu_torch.evaluation import metrics as tmet
+
+    scal, var = [], []
+    for layers in (1, 2):
+        jcfg, tcfg = configs(layers, "logits", cd)
+        jp, tp = params(jcfg, seed=layers)
+        x, key = binary_rows(24, seed=8), jax.random.PRNGKey(11)
+        kw = dict(batch_size=9, nll_k=24, nll_chunk=5, activity_samples=20)
+        got, got2 = tmet.training_statistics(
+            tp, tcfg, torch.from_numpy(x), 4, **kw,
+            noise=training_statistics_noise(jcfg, key, 24, 8, 4, 4))
+        want, want2 = jmet.training_statistics(jp, jcfg, key, jnp.asarray(x),
+                                               4, **kw)
+        for name in tmet.SCALAR_NAMES + ("LL_pruned",):
+            d = abs(got[name] - want[name])
+            scal.append((d, d / max(abs(want[name]), 1e-12)))
+        var += leaf_errors(got2["variances"], want2["variances"])
+    name = cd or "fp32"
+    return {("eval scalars", name): tuple(max(e) for e in zip(*scal)),
+            ("eval variances (abs, rel to max)", name):
+                tuple(max(e) for e in zip(*var))}
+
+
+def _fused_ll_errors():
+    """``fused_bernoulli_ll`` (plain on the CPU) against JAX's op in
+    interpret mode on the inputs of test_torch_fused_likelihood.py: (max
+    abs, max rel) of the value over every odd (k, B) at D=130, and of the
+    gradients of ``sum(out ** 2)`` on the (5, 6, 16, 12) problem (rel to
+    each gradient's max)."""
+    from iwae_replication_project_tpu.ops import fused_likelihood as jfl
+    from iwae_replication_project_tpu_torch.ops import fused_likelihood as tfl
+
+    def problem(k, b, h, d, seed):
+        rs = np.random.RandomState(seed)
+        return [np.asarray(a, np.float32) for a in (
+            rs.randn(k, b, h), rs.randn(h, d) * 0.2, rs.randn(d) * 0.1,
+            rs.rand(b, d) > 0.5)]
+
+    val = []
+    for k in (1, 3, 7, 17):
+        for b in (1, 3, 7, 17):
+            a = problem(k, b, 16, 130, k * 100 + b)
+            got = tfl.fused_bernoulli_ll(*(torch.from_numpy(v) for v in a))
+            want = np.asarray(jfl.fused_bernoulli_ll(
+                *(jnp.asarray(v) for v in a), True))
+            d = np.abs(got.numpy() - want)
+            val.append((float(d.max()),
+                        float((d / np.maximum(np.abs(want), 1e-6)).max())))
+    a = problem(5, 6, 16, 12, 0)
+    leaves = [torch.from_numpy(v).requires_grad_(True) for v in a[:3]]
+    got = torch.autograd.grad(torch.sum(tfl.fused_bernoulli_ll(
+        *leaves, torch.from_numpy(a[3])) ** 2), leaves)
+    want = jax.grad(lambda h, w, bb: jnp.sum(jfl.fused_bernoulli_ll(
+        h, w, bb, jnp.asarray(a[3]), True) ** 2), argnums=(0, 1, 2))(
+        *(jnp.asarray(v) for v in a[:3]))
+    return {("fused_bernoulli_ll value", "fp32"):
+            tuple(max(e) for e in zip(*val)),
+            ("fused_bernoulli_ll VJP (abs, rel to max)", "fp32"):
+            tuple(max(e) for e in zip(*leaf_errors(got, want)))}
 
 
 if __name__ == "__main__":
