@@ -12,8 +12,16 @@ phases, one line per phase, and exits non-zero on the first failure:
    started together) and prints the build times and ptxas's
    register/shared-memory report;
 3. holds each kernel against its plain PyTorch version on the card, within
-   the stated tolerances, and times kernel and plain version with CUDA
-   events beside the kernel's bound: the hot-loop forward (``hot_loop_fwd``,
+   the stated tolerances, and times kernel and plain version two ways:
+   ``kernel_ms``/``plain_ms``, CUDA events around 20 calls issued back to
+   back (the method of every slice; where a call's host work outlasts its
+   device work the device waits and the time shows it), and
+   ``graph_ms``/``plain_graph_ms``, CUDA events around the replay of a
+   CUDA graph of 20 calls (device time alone); ``host_us`` is the host time
+   to issue one wrapper call. Beside them the kernel's bound, the achieved
+   TFLOP/s and the bound share (bound ms / kernel ms) for both times, and
+   B2's scratch bytes as its library states them: the hot-loop forward
+   (``hot_loop_fwd``,
    B1) in fp32 and bf16 at the serving shapes (k=50 x B in {1, 7, 64}), the
    train shape (k=50, B=100), an odd shape and the eval chunk (k=250,
    B=500); the hot-loop backward (``hot_loop_bwd``, B2), per output, at the
@@ -131,8 +139,10 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, torch, iters: int = 20) -> float:
-    """Mean device time of one call over `iters` back-to-back calls, after
-    warming up, measured with CUDA events."""
+    """Mean time of one call over `iters` back-to-back calls, after warming
+    up, measured with CUDA events (host launch overhead included where the
+    device waits for it): phase 3's ``kernel_ms`` and ``plain_ms``, as in
+    every slice of the port."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -141,6 +151,72 @@ def time_ms(fn, torch, iters: int = 20) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, torch, iters: int = 20, rounds: int = 5) -> float:
+    """Host time to issue one call, in microseconds: the median over
+    `rounds` of the mean over `iters` back-to-back calls, after warming up,
+    the device not waited for."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    res = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        res.append((time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return sorted(res)[rounds // 2]
+
+
+def timings(fn, plain, torch) -> dict:
+    """Phase 3's times of a kernel's wrapper `fn` and its plain version."""
+    return dict(ms=time_ms(fn, torch), graph_ms=device_ms(fn, torch),
+                plain_ms=time_ms(plain, torch),
+                plain_graph_ms=device_ms(plain, torch),
+                host_us=host_us(fn, torch))
+
+
+def timing_text(t: dict, bound: float, by: str, flops=None) -> str:
+    """The timing part of a phase-3 line."""
+    text = (f" | kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"(back to back) graph_ms={t['graph_ms']:.4f} plain_graph_ms="
+            f"{t['plain_graph_ms']:.4f} host_us={t['host_us']:.1f} "
+            f"bound_ms={bound:.5f} ({by})")
+    if flops is not None:
+        text += (f" achieved_tflops={flops / t['ms'] / 1e9:.2f} "
+                 f"bound_share={bound / t['ms']:.2%} graph_achieved_tflops="
+                 f"{flops / t['graph_ms'] / 1e9:.2f} graph_bound_share="
+                 f"{bound / t['graph_ms']:.2%}")
+    return text
+
+
+def device_ms(fn, torch, iters: int = 20) -> float:
+    """Device time of one call: CUDA events around the replay of a CUDA
+    graph of `iters` calls, captured after a warm-up on a side stream. The
+    wrappers' Python and launch overhead is not in it, for kernels and plain
+    versions alike."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -207,26 +283,26 @@ def check_hot_loop(torch, hot_loop):
                     f"{'ok' if within else 'OUT OF TOLERANCE'}")
             ok &= within
             if tag in ("serve", "train", "eval"):
-                ms = time_ms(lambda: hot_loop.fused_forward(
-                    *args, compute_dtype=cd), torch)
-                times[(dtype, tag, b)] = ms
-                plain = time_ms(lambda: hot_loop._reference_impl(
-                    *args, compute_dtype=cd), torch)
+                t = timings(
+                    lambda: hot_loop.fused_forward(*args, compute_dtype=cd),
+                    lambda: hot_loop._reference_impl(*args, compute_dtype=cd),
+                    torch)
+                times[(dtype, tag, b)] = t["ms"]
                 bound, by = hot_loop_bound_ms(k, b, w["h1"], w["hid"],
                                               w["d"], dtype)
-                line += (f" | kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                         f"bound_ms={bound:.5f} ({by})")
+                flops = 2.0 * k * b * (w["h1"] * w["hid"] + w["hid"] ** 2
+                                       + w["hid"] * w["d"])
+                line += timing_text(t, bound, by, flops)
                 if dtype == "bf16" and tag == "serve" and b == 64:
-                    main = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                bound_by=by)
+                    main = dict(t, bound_ms=bound, bound_by=by)
             print(line, flush=True)
     record = {"name": "hot_loop_fwd", "route": "cuda",
               "source": "iwae_replication_project_tpu_torch/csrc/"
                         "hot_loop_fwd.cu",
               "replaces": "iwae_replication_project_tpu/ops/hot_loop.py:633",
-              "launches": None, "max_abs_err": worst, "ms": main["ms"],
-              "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-              "bound_by": main["bound_by"], "library_ms": None}
+              "launches": None, "max_abs_err": worst, **main,
+              "library_ms": None,
+              "bound_share": main["bound_ms"] / main["ms"]}
     return record, ok, times
 
 
@@ -399,9 +475,10 @@ SCALARS = ("VAE", "IWAE", "NLL", "E_q(h|x)[log(p(x|h))]",
            "D_kl(q(h|x),p(h))", "D_kl(q(h|x),p(h|x))", "reconstruction_loss")
 
 
-def check_hot_loop_bwd(torch, hot_loop):
+def check_hot_loop_bwd(torch, hot_loop, lib):
     """Phase 3b: the backward kernel vs its plain version, per output, and
-    bitwise across two launches; returns (record for the JSON line, ok)."""
+    bitwise across two launches; returns (record for the JSON line, ok).
+    `lib` is the kernel's loaded library, which states its scratch bytes."""
     shapes = [("train", TRAIN_K, TRAIN_B, FLAGSHIP), ("odd", 13, 17, FLAGSHIP),
               ("odd-widths", 3, 5, dict(h1=37, hid=70, d=130)),
               ("eval", 250, 500, FLAGSHIP)]
@@ -442,26 +519,28 @@ def check_hot_loop_bwd(torch, hot_loop):
                     + "; ".join(parts))
             ok &= within
             if tag in ("train", "eval"):
-                ms = time_ms(lambda: hot_loop.fused_backward(
-                    *args, g, compute_dtype=cd), torch)
-                plain = time_ms(lambda: hot_loop._bwd_plain(
-                    *args, g, compute_dtype=cd), torch)
+                t = timings(
+                    lambda: hot_loop.fused_backward(*args, g, cd),
+                    lambda: hot_loop._bwd_plain(*args, g, cd), torch)
                 bound, by = hot_loop_bwd_bound_ms(k, b, w["h1"], w["hid"],
                                                   w["d"], dtype)
-                line += (f" | kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                         f"bound_ms={bound:.5f} ({by})")
+                flops = 6.0 * k * b * (w["h1"] * w["hid"] + w["hid"] ** 2
+                                       + w["hid"] * w["d"])
+                scratch = lib.hot_loop_bwd_scratch_bytes(
+                    k * b, w["h1"], w["hid"], w["d"], int(dtype == "bf16"))
+                line += (timing_text(t, bound, by, flops)
+                         + f" scratch_bytes={scratch}")
                 if dtype == "bf16" and tag == "train":
-                    main = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                bound_by=by)
+                    main = dict(t, bound_ms=bound, bound_by=by)
             print(line, flush=True)
             del args, got, again, want
     record = {"name": "hot_loop_bwd", "route": "cuda",
               "source": "iwae_replication_project_tpu_torch/csrc/"
                         "hot_loop_bwd.cu",
               "replaces": "iwae_replication_project_tpu/ops/hot_loop.py:698",
-              "launches": None, "max_abs_err": worst, "ms": main["ms"],
-              "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-              "bound_by": main["bound_by"], "library_ms": None}
+              "launches": None, "max_abs_err": worst, **main,
+              "library_ms": None,
+              "bound_share": main["bound_ms"] / main["ms"]}
     return record, ok
 
 
@@ -545,17 +624,14 @@ def check_fused_ll(torch, fl):
                      lambda: fl._reference_impl(h1, w, bias, x), False),
                     ("bwd", lambda: fl.fused_ll_backward(h1, w, bias, x, g),
                      lambda: fl._bwd_plain(h1, w, bias, x, g), True)):
-                ms, plain_ms = time_ms(fn, torch), time_ms(plain, torch)
+                t = timings(fn, plain, torch)
                 bound, by = fused_ll_bound_ms(k, b, h, d, bwd)
-                timing = (f" | kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                          f"bound_ms={bound:.5f} ({by})")
                 if bwd:
-                    bwd_line += timing
+                    bwd_line += timing_text(t, bound, by)
                 else:
-                    fwd_line += timing
+                    fwd_line += timing_text(t, bound, by)
                 if tag == "train":
-                    main[name] = dict(ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bound, bound_by=by)
+                    main[name] = dict(t, bound_ms=bound, bound_by=by)
         print(fwd_line, flush=True)
         print(bwd_line, flush=True)
         del h1, w, bias, x, g, got, want, grads, again, want_g
@@ -568,7 +644,8 @@ def check_fused_ll(torch, fl):
             "replaces": f"iwae_replication_project_tpu/ops/"
                         f"fused_likelihood.py:{line}",
             "launches": None, "max_abs_err": worst, **main[name],
-            "library_ms": None})
+            "library_ms": None,
+            "bound_share": main[name]["bound_ms"] / main[name]["ms"]})
     return records, ok
 
 
@@ -857,7 +934,8 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
           f"{diag_s:.3f}s (host clock, each ending in its one fetch); one "
           f"k={cfg.nll_k} NLL batch of {batch} rows = {batch_ms:.3f} ms "
           f"(host clock, median of 3), of which B1 {cfg.nll_k // chunk} x "
-          f"{b1_eval_ms:.4f} ms (phase 3, CUDA events) = {b1_share:.1%}",
+          f"{b1_eval_ms:.4f} ms (phase 3, CUDA events, calls back to back) "
+          f"= {b1_share:.1%}",
           flush=True)
     ref_cfg = dataclasses.replace(model_cfg, hot_loop_path="reference")
     nll_ref = float(em.streaming_nll(
@@ -921,7 +999,8 @@ def main() -> int:
     record, ok, b1_times = check_hot_loop(torch, hot_loop)
     if not ok:
         return fail("a kernel disagrees with its plain version")
-    record_bwd, ok = check_hot_loop_bwd(torch, hot_loop)
+    record_bwd, ok = check_hot_loop_bwd(torch, hot_loop,
+                                        _kernels.load(hot_loop.KERNEL_BWD))
     if not ok:
         return fail("the backward kernel disagrees with its plain version")
     fll_records, ok = check_fused_ll(torch, fl)

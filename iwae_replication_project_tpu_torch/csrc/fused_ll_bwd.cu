@@ -37,57 +37,9 @@
 // - Rows past R load h = 0 and get dl = 0, so they add exactly zero to dW and
 //   db and their dh is not written; pixels d >= D get dl = 0.
 
-#include "fused_ll_tiles.cuh"
+#include "tiles_fp32.cuh"
 
 namespace {
-
-constexpr int GROUPS = 128;  // row groups: CTAs and scratch slots, at most
-
-// out[i * ldo + j] (=, or += unless `first`) sum_{m < TM} a[m * lda + i] *
-// b[m * ldb + j] for i < M, j < N: one tile's share of dW, into this CTA's
-// own slot, rows summed in order m = 0..TM-1 by one fixed thread.
-__device__ void outer_acc(const float* a, int lda, int M, const float* b,
-                          int ldb, int N, float* __restrict__ out, int ldo,
-                          bool first) {
-  const int nbj = (N + 3) / 4, nblk = ((M + 3) / 4) * nbj;
-  for (int blk = threadIdx.x; blk < nblk; blk += THREADS) {
-    const int i0 = 4 * (blk / nbj), j0 = 4 * (blk % nbj);
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int m = 0; m < TM; ++m) {
-      const float4 av = *reinterpret_cast<const float4*>(a + m * lda + i0);
-      const float4 bv = *reinterpret_cast<const float4*>(b + m * ldb + j0);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += ai[i] * bj[j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (i0 + i < M && j0 + j < N) {
-          float* p = out + (size_t)(i0 + i) * ldo + j0 + j;
-          *p = first ? s[i][j] : *p + s[i][j];
-        }
-  }
-}
-
-// out[j] (=, or += unless `first`) sum_{m < TM} b[m * ldb + j] for j < N: a
-// tile's share of db, rows summed in order.
-__device__ void col_sum(const float* b, int ldb, int N,
-                        float* __restrict__ out, bool first) {
-  for (int j = threadIdx.x; j < N; j += THREADS) {
-    float s = 0.f;
-    for (int m = 0; m < TM; ++m) s += b[m * ldb + j];
-    out[j] = first ? s : out[j] + s;
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
     fused_ll_bwd_kernel(const float* __restrict__ h,
@@ -163,17 +115,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// out[j] = sum_{g < G} slots[g * S + j], in order g = 0..G-1.
-__global__ void reduce_slots_kernel(const float* __restrict__ slots,
-                                    float* __restrict__ out, size_t S, int G) {
-  for (size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x; j < S;
-       j += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int gi = 0; gi < G; ++gi) s += slots[(size_t)gi * S + j];
-    out[j] = s;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -186,10 +127,7 @@ size_t fused_ll_bwd_smem_bytes(int H) {
 
 // Row groups (CTAs, scratch slots) for R rows: min(GROUPS, row tiles). It
 // depends on R only, never on the device, so the summation order does not.
-int fused_ll_bwd_groups(int R) {
-  const int tiles = (R + TM - 1) / TM;
-  return tiles < GROUPS ? tiles : GROUPS;
-}
+int fused_ll_bwd_groups(int R) { return row_groups(R); }
 
 // Every pointer is a contiguous fp32 device buffer: h [R, H], w [H, D],
 // bias [D], x [B, D], g [R]; outputs dh [R, H] and grads [H * D + D] (dW
@@ -205,25 +143,15 @@ int fused_ll_bwd(const void* h, const void* w, const void* bias,
     return (int)cudaErrorInvalidValue;
   const size_t smem = fused_ll_bwd_smem_bytes(H);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  // above the default 48 KB the limit must be raised; it is an attribute of
-  // the kernel on the current device, so it is set on every launch
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ll_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = allow_smem(fused_ll_bwd_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   fused_ll_bwd_kernel<<<G, THREADS, smem, s>>>(
       (const float*)h, (const float*)w, (const float*)bias, (const float*)x,
       (const float*)g, (float*)dh, (float*)slots, R, B, H, D);
-  const cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t S = (size_t)H * D + D;
-  const size_t want = (S + 255) / 256;
-  const int blocks = want < 1024 ? (int)want : 1024;
-  reduce_slots_kernel<<<blocks, 256, 0, s>>>((const float*)slots,
-                                              (float*)grads, S, G);
-  return (int)cudaGetLastError();
+  return (int)reduce_slots((const float*)slots, (float*)grads,
+                           (size_t)H * D + D, G, s);
 }
 
 }  // extern "C"

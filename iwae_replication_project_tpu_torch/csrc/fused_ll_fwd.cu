@@ -33,7 +33,7 @@
 // - No atomics: nothing is summed across CTAs.
 // - Rows past R (the ragged last tile) compute on zeros and are not written.
 
-#include "fused_ll_tiles.cuh"
+#include "tiles_fp32.cuh"
 
 namespace {
 
@@ -99,14 +99,8 @@ int fused_ll_fwd(const void* h, const void* w, const void* bias,
   if (R <= 0 || B <= 0 || H <= 0 || D <= 0 || R % B != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = fused_ll_fwd_smem_bytes(H);
-  // above the default 48 KB the limit must be raised; it is an attribute of
-  // the kernel on the current device, so it is set on every launch
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ll_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(fused_ll_fwd_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((R + TM - 1) / TM);
   fused_ll_fwd_kernel<<<grid, THREADS, smem,
                         reinterpret_cast<cudaStream_t>(stream)>>>(

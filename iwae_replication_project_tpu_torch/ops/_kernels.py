@@ -40,13 +40,14 @@ _i = ctypes.c_int
 #: C signatures of every kernel library: name -> {function: (restype, argtypes)}
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "hot_loop_fwd": {
-        "hot_loop_fwd": (_i, [_vp] * 9 + [_i] * 6 + [_vp]),
-        "hot_loop_fwd_smem_bytes": (ctypes.c_size_t, [_i, _i]),
+        "hot_loop_fwd": (_i, [_vp] * 10 + [_i] * 6 + [_vp]),
+        "hot_loop_fwd_smem_bytes": (ctypes.c_size_t, [_i] * 3),
+        "hot_loop_fwd_scratch_bytes": (ctypes.c_size_t, [_i] * 4),
     },
     "hot_loop_bwd": {
-        "hot_loop_bwd": (_i, [_vp] * 12 + [_i] * 7 + [_vp]),
-        "hot_loop_bwd_smem_bytes": (ctypes.c_size_t, [_i, _i]),
-        "hot_loop_bwd_groups": (_i, [_i]),
+        "hot_loop_bwd": (_i, [_vp] * 12 + [_i] * 6 + [_vp]),
+        "hot_loop_bwd_smem_bytes": (ctypes.c_size_t, [_i] * 3),
+        "hot_loop_bwd_scratch_bytes": (ctypes.c_size_t, [_i] * 5),
     },
     "fused_ll_fwd": {
         "fused_ll_fwd": (_i, [_vp] * 5 + [_i] * 4 + [_vp]),
@@ -176,9 +177,27 @@ def load_fitting(name: str, *widths: int) -> ctypes.CDLL:
     return lib
 
 
+def launch(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)``: a kernel library's C entry point on `device`'s
+    current stream, with `device` made the current device around the call
+    where it is not already (a launch goes to the current device's
+    context). Returns the entry point's CUDA error code. The stream comes
+    from torch's raw-stream binding, what its own generated kernels launch
+    with: it builds no ``torch.cuda.Stream`` object, a few microseconds per
+    call less."""
+    stream = torch._C._cuda_getCurrentRawStream
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, stream(device.index))
+
+
 def check_tensor(name: str, t, shape, device) -> None:
     """Raise unless `t` is a contiguous fp32 tensor of `shape` on `device`:
     what every kernel's C interface takes."""
+    if (t.device == device and t.dtype == torch.float32 and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:

@@ -120,11 +120,9 @@ def fused_ll_forward(h1, w, bias, x) -> torch.Tensor:
         return torch.zeros((k, b), dtype=torch.float32, device=dev)
     lib = _kernels.load_fitting(KERNEL_FWD, h)
     out = torch.empty((k, b), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_ll_fwd(h1.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                              x.data_ptr(), out.data_ptr(), k * b, b, h, d,
-                              stream)
+    rc = _kernels.launch(dev, lib.fused_ll_fwd, h1.data_ptr(), w.data_ptr(),
+                         bias.data_ptr(), x.data_ptr(), out.data_ptr(), k * b,
+                         b, h, d)
     if rc != 0:
         raise RuntimeError(f"fused_ll_fwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H={h}, D={d})")
@@ -158,12 +156,10 @@ def fused_ll_backward(h1, w, bias, x, g) -> tuple:
     dh = torch.empty_like(h1)
     grads = torch.empty(h * d + d, dtype=torch.float32, device=dev)
     slots = torch.empty((groups, h * d + d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_ll_bwd(h1.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                              x.data_ptr(), g.data_ptr(), dh.data_ptr(),
-                              grads.data_ptr(), slots.data_ptr(), rows, b, h,
-                              d, groups, stream)
+    rc = _kernels.launch(dev, lib.fused_ll_bwd, h1.data_ptr(), w.data_ptr(),
+                         bias.data_ptr(), x.data_ptr(), g.data_ptr(),
+                         dh.data_ptr(), grads.data_ptr(), slots.data_ptr(),
+                         rows, b, h, d, groups)
     if rc != 0:
         raise RuntimeError(f"fused_ll_bwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H={h}, D={d})")

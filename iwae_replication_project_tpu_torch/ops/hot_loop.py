@@ -10,7 +10,9 @@ one function, selected per call:
   CUDA kernel ``csrc/hot_loop_fwd.cu`` (replaces the TPU kernel
   ``_fwd_kernel``/``_fwd_pallas``, hot_loop.py:633-695 of the JAX package)
   and whose backward is ``csrc/hot_loop_bwd.cu`` (replaces ``_bwd_kernel``/
-  ``_bwd_pallas``, :698-792), taken for CUDA tensors;
+  ``_bwd_pallas``, :698-792), taken for CUDA tensors. Their bf16 paths run
+  the products on the tensor cores (``csrc/tc_bf16.cuh``), their fp32
+  paths on the CUDA cores (``csrc/tiles_fp32.cuh``);
 * ``reference`` -- the plain PyTorch composition :func:`_reference_impl`,
   the twin of the JAX ``_reference_impl`` (:810-821), differentiated by plain
   autograd, taken for CPU tensors or under an explicit ``"reference"`` pin.
@@ -33,6 +35,7 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -189,15 +192,30 @@ def _check_block(h1, w1, b1, w2, b2, w3, b3, x, g=None) -> tuple:
     return k, b, h1_dim, hid, d
 
 
+@functools.lru_cache(maxsize=64)
+def _plan(name: str, h1_dim: int, hid: int, d: int, bf16: int,
+          *rows: int) -> tuple:
+    """``(C entry point, scratch bytes)`` of kernel `name` at these widths
+    (and, for the backward, this row count), after
+    :func:`_kernels.load_fitting`'s shared-memory check: host work that
+    every call of the same shape would repeat."""
+    lib = _kernels.load_fitting(name, h1_dim, hid, bf16)
+    return (getattr(lib, name),
+            getattr(lib, f"{name}_scratch_bytes")(*rows, h1_dim, hid, d,
+                                                  bf16))
+
+
 def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
                   compute_dtype: Optional[torch.dtype] = None
                   ) -> torch.Tensor:
     """The decoder output block's log-likelihood ``[k, B]``.
 
     On CUDA tensors this launches ``csrc/hot_loop_fwd.cu`` on the current
-    stream (no synchronisation) and counts the launch; it raises for
-    anything the kernel does not take. On CPU tensors it computes the plain
-    version :func:`_reference_impl`.
+    stream (no synchronisation) and counts one launch: in bf16 the weight
+    prep (bf16 tiles into a scratch buffer whose size the library states)
+    and the tensor-core row kernel, in fp32 the CUDA-core kernel. It raises
+    for anything the kernel does not take. On CPU tensors it computes the
+    plain version :func:`_reference_impl`.
     """
     _check_dtype(compute_dtype)
     if h1.device.type == "cpu":
@@ -206,15 +224,15 @@ def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
     dev = h1.device
     if k * b == 0:
         return torch.zeros((k, b), dtype=torch.float32, device=dev)
-    lib = _kernels.load_fitting(KERNEL, h1_dim, hid)
+    bf16 = int(compute_dtype == torch.bfloat16)
+    launch, scratch_bytes = _plan(KERNEL, h1_dim, hid, d, bf16)
     out = torch.empty((k, b), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hot_loop_fwd(
-            h1.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), x.data_ptr(),
-            out.data_ptr(), k * b, b, h1_dim, hid, d,
-            int(compute_dtype == torch.bfloat16), stream)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    rc = _kernels.launch(
+        dev, launch, h1.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), k * b, b, h1_dim,
+        hid, d, bf16)
     if rc != 0:
         raise RuntimeError(f"hot_loop_fwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H1={h1_dim}, hidden={hid}, D={d})")
@@ -227,11 +245,14 @@ def fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
     """The gradients of :func:`fused_forward` for the ``[k, B]`` cotangent
     `g`: ``(dh [k, B, H1], dW1, db1, dW2, db2, dW3, db3)``.
 
-    On CUDA tensors this launches ``csrc/hot_loop_bwd.cu`` (the per-group
-    kernel, then the fixed-order sum of its partials) on the current stream
-    and counts one launch; the six weight/bias gradients are views of one
-    contiguous buffer. It raises for anything the kernel does not take. On
-    CPU tensors it computes the plain version :func:`_bwd_plain`.
+    On CUDA tensors this launches ``csrc/hot_loop_bwd.cu`` on the current
+    stream and counts one launch: in bf16 the weight prep, the tensor-core
+    row phase, the weight-gradient phase over row splits fixed by the row
+    count and the fixed-order sum of the splits; in fp32 the per-group
+    kernel and the fixed-order sum of its partials, all in a scratch buffer
+    whose size the library states. The six weight/bias gradients are views
+    of one contiguous buffer. It raises for anything the kernel does not
+    take. On CPU tensors it computes the plain version :func:`_bwd_plain`.
     """
     _check_dtype(compute_dtype)
     if h1.device.type == "cpu":
@@ -243,20 +264,17 @@ def fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
     if k * b == 0:
         return (torch.zeros_like(h1),) + tuple(
             torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
-    lib = _kernels.load_fitting(KERNEL_BWD, h1_dim, hid)
+    bf16 = int(compute_dtype == torch.bfloat16)
     rows = k * b
-    groups = lib.hot_loop_bwd_groups(rows)
+    launch, scratch_bytes = _plan(KERNEL_BWD, h1_dim, hid, d, bf16, rows)
     dh = torch.empty_like(h1)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    slots = torch.empty((groups, sum(sizes)), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hot_loop_bwd(
-            h1.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), x.data_ptr(),
-            g.data_ptr(), dh.data_ptr(), grads.data_ptr(), slots.data_ptr(),
-            rows, b, h1_dim, hid, d, groups,
-            int(compute_dtype == torch.bfloat16), stream)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    rc = _kernels.launch(
+        dev, launch, h1.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+        x.data_ptr(), g.data_ptr(), dh.data_ptr(), grads.data_ptr(),
+        scratch.data_ptr(), rows, b, h1_dim, hid, d, bf16)
     if rc != 0:
         raise RuntimeError(f"hot_loop_bwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H1={h1_dim}, hidden={hid}, D={d})")

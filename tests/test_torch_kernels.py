@@ -32,8 +32,9 @@ from iwae_replication_project_tpu_torch.serving.engine import ServingEngine
 TOL = {None: (2e-3, 1e-5), torch.bfloat16: (1e-2, 1e-5)}
 
 SHAPES = [(1, 1, 8, 16, 12), (3, 7, 8, 16, 130), (17, 3, 37, 70, 131),
-          (10, 300, 8, 16, 12), (50, 1, 100, 200, 784),
-          (50, 64, 100, 200, 784), (13, 17, 100, 200, 784)]
+          (3, 5, 37, 70, 130), (10, 300, 8, 16, 12), (50, 1, 100, 200, 784),
+          (50, 64, 100, 200, 784), (13, 17, 100, 200, 784),
+          (250, 500, 100, 200, 784)]
 
 
 @pytest.fixture
@@ -117,6 +118,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         big = _inputs(1, 1, 2000, 1000, 12)
         thl.fused_forward(*big)
+    # the bf16 tile keeps two activation buffers and the weight ring on
+    # chip: at 64 rows a CTA with 336 hidden units is past 227 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        thl.fused_forward(*_inputs(1, 1, 100, 336, 12),
+                          compute_dtype=torch.bfloat16)
+    # 256 fit shared memory, but a layer's A fragments sit in registers,
+    # which hold reductions up to 240: the kernel refuses the launch
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        thl.fused_forward(*_inputs(1, 1, 100, 256, 12),
+                          compute_dtype=torch.bfloat16)
 
 
 def _flagship_engine(kernel_path=None, **kw):
@@ -175,7 +186,7 @@ BWD_TOL = {None: 1e-4, torch.bfloat16: 1e-2}
 
 BWD_SHAPES = [(1, 1, 8, 16, 12), (13, 17, 8, 16, 130), (3, 5, 37, 70, 130),
               (10, 300, 8, 16, 12), (13, 17, 100, 200, 784),
-              (50, 100, 100, 200, 784)]
+              (13, 17, 100, 200, 130), (50, 100, 100, 200, 784)]
 
 
 def _bwd_inputs(k, b, h1, hid, d, seed=0):
@@ -210,13 +221,66 @@ def test_bwd_kernel_matches_plain_version(cuda, k, b, h1, hid, d, cd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cd", [None, torch.bfloat16])
-def test_bwd_kernel_is_bitwise_deterministic(cuda, cd):
+@pytest.mark.parametrize("k,b,d", [(50, 100, 784), (13, 17, 130)])
+def test_bwd_kernel_is_bitwise_deterministic(cuda, k, b, d, cd):
     """No float atomics: two launches on the same inputs agree bitwise,
-    weight gradients included (fixed row groups, fixed-order sum)."""
-    args = _bwd_inputs(50, 100, 100, 200, 784, seed=5)
+    weight gradients included (fixed row groups or splits, fixed-order
+    sums)."""
+    args = _bwd_inputs(k, b, 100, 200, d, seed=5)
     first = thl.fused_backward(*args, compute_dtype=cd)
     second = thl.fused_backward(*args, compute_dtype=cd)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+def test_bwd_padding_adds_exactly_zero(cuda, cd):
+    """Padding rows and pixels add exactly zero to dW and db. Rows: 221 rows
+    (a ragged last tile) give bitwise the gradients of 224 rows whose last
+    three have a zero cotangent, with the same tiles and splits. Pixels:
+    D = 130 gives bitwise the gradients of D = 136 whose six extra pixels
+    have zero weights, x = 1 and a bias of 100, so sigmoid(l) = 1 = x and
+    their dl is exactly 0."""
+    h1, w1, b1, w2, b2, w3, b3, x, g = _bwd_inputs(1, 224, 100, 200, 130,
+                                                   seed=8)
+    g = g.clone()
+    g[:, 221:] = 0.0
+    full = thl.fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
+                              compute_dtype=cd)
+    cut = thl.fused_backward(h1[:, :221].contiguous(), w1, b1, w2, b2, w3, b3,
+                             x[:221].contiguous(), g[:, :221].contiguous(),
+                             compute_dtype=cd)
+    assert torch.equal(full[0][:, :221], cut[0])
+    assert all(torch.equal(a, c) for a, c in zip(full[1:], cut[1:]))
+
+    wide_w3 = torch.cat([w3, torch.zeros_like(w3[:, :6])], dim=1)
+    wide_b3 = torch.cat([b3, torch.full_like(b3[:6], 100.0)])
+    wide_x = torch.cat([x, torch.ones_like(x[:, :6])], dim=1)
+    wide = thl.fused_backward(h1, w1, b1, w2, b2, wide_w3.contiguous(),
+                              wide_b3, wide_x.contiguous(), g,
+                              compute_dtype=cd)
+    for a, c in zip(wide[:5], full[:5]):
+        assert torch.equal(a, c)
+    assert torch.equal(wide[5][:, :130], full[5])
+    assert torch.equal(wide[6][:130], full[6])
+    assert not wide[5][:, 130:].any() and not wide[6][130:].any()
+
+
+@pytest.mark.cuda
+def test_scratch_sizes_at_the_train_shape(cuda):
+    """The scratch the libraries ask for at the flagship's train shape
+    (k=50 x B=100, H1=100, hidden=200, D=784). B1 bf16: the prepared
+    weights, 4 + 4 + 13 tiles of [112 or 208][72] bf16; fp32 none. B2 bf16:
+    the prepared weights, bf16 operand rows, bias groups and 5 row splits of
+    the 217,984 gradient floats; fp32: 128 row groups of them."""
+    from iwae_replication_project_tpu_torch.ops import _kernels
+    fwd, bwd = _kernels.load(thl.KERNEL), _kernels.load(thl.KERNEL_BWD)
+    assert fwd.hot_loop_fwd_scratch_bytes(100, 200, 784, 1) == \
+        2 * 72 * (4 * 112 + 4 * 208 + 13 * 208)
+    assert fwd.hot_loop_fwd_scratch_bytes(100, 200, 784, 0) == 0
+    assert bwd.hot_loop_bwd_scratch_bytes(5000, 100, 200, 784, 1) == 26765056
+    assert bwd.hot_loop_bwd_scratch_bytes(5000, 100, 200, 784, 0) == \
+        128 * 217984 * 4
 
 
 @pytest.mark.cuda
@@ -248,6 +312,9 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         big = _bwd_inputs(1, 1, 2000, 1000, 12)
         thl.fused_backward(*big)
+    with pytest.raises(ValueError, match="shared memory"):
+        thl.fused_backward(*_bwd_inputs(1, 1, 100, 256, 12),
+                           compute_dtype=torch.bfloat16)
 
 
 @pytest.mark.cuda
