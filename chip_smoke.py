@@ -27,11 +27,14 @@ phases, one line per phase, and exits non-zero on the first failure:
    B=500); the hot-loop backward (``hot_loop_bwd``, B2), per output, at the
    train shape, the eval chunk, an odd shape and odd widths, and bitwise
    across two launches; the fused Bernoulli log-likelihood's forward and
-   backward (``fused_ll_fwd``, B3; ``fused_ll_bwd``, B4) in fp32 at the
-   flagship's last layer (H=200, D=784) at the train shape and the eval
-   chunk and at an odd shape (k=13, B=17, D=130), dW and db bitwise across
-   two launches; then the op's own path, ``fused_bernoulli_ll`` forward and
-   backward on the flagship's last layer at the train shape, whose launches
+   backward (``fused_ll_fwd``, B3; ``fused_ll_bwd``, B4; 3xTF32 on the
+   tensor cores) in fp32 at the flagship's last layer (H=200, D=784) at the
+   train shape and the eval chunk and at an odd shape (k=13, B=17, D=130),
+   dW and db bitwise across two launches, each timed line with both bounds
+   (3xTF32 on the tensor cores, the JSON's; fp32 on the CUDA cores) and
+   their shares, rows per CTA and B4's scratch bytes from its library;
+   then the op's own path, ``fused_bernoulli_ll`` forward and backward on
+   the flagship's last layer at the train shape, whose launches
    are counted, held against B1 (the same draws through the whole output
    block) and against B2's dW3 and db3 for the same cotangent;
 4. serves the flagship preset ``northstar-iwae-2l-k50`` at full width (fresh
@@ -83,9 +86,9 @@ from pathlib import Path
 #: kernel is off by whole nats or more.
 TOL = {"fp32": (2e-3, 1e-5), "bf16": (1e-2, 1e-5)}
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores, bf16 on
-#: the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+#: H100 SXM peaks (NVIDIA data sheet, dense): fp32 on the CUDA cores, bf16
+#: and TF32 on the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 494.7e12}
 PEAK_BYTES = 3.35e12
 
 #: backward kernel vs its plain version on the card, per output, relative
@@ -103,8 +106,9 @@ BWD_TOL = {"fp32": 1e-4, "bf16": 1e-2}
 GRAD_TOL = 2e-2
 
 #: the fused Bernoulli log-likelihood's kernels (B3, B4) vs their plain
-#: versions, fp32 only (the op takes fp32): the same arithmetic summed in
-#: another order. Forward (atol, rtol) as B1's fp32; backward relative to
+#: versions, fp32 only (the op takes fp32): 3xTF32 products, ~2^-22
+#: relative error each (tests/test_torch_tf32_split.py), summed in another
+#: order. Forward (atol, rtol) as B1's fp32; backward relative to
 #: each output's largest magnitude, as B2's fp32. The same tolerances hold
 #: B3 against B1 and B4's dW, db against B2's dW3, db3 on the same draws:
 #: there the last layer's input y2 is computed by cuBLAS on one side and
@@ -555,20 +559,25 @@ def fll_inputs(torch, k, b, h, d, seed):
             torch.randn((k, b), generator=g).cuda()]
 
 
-def fused_ll_bound_ms(k, b, h, d, backward) -> tuple:
-    """(bound_ms, bound_by) of B3 (2 * R * H * D operations) or B4 (6 *
-    R * H * D: the recompute and two backward products) in fp32 on the CUDA
-    cores; bytes: h, W, bias, x (and g) read once, out (or dh, dW, db)
-    written once, 4 bytes each."""
+def fused_ll_bounds(k, b, h, d, backward) -> dict:
+    """The bounds of B3 (2 * R * H * D operations) or B4 (6 * R * H * D: the
+    recompute and two backward products) as ``{name: (bound_ms, bound_by)}``:
+    ``"tc"``, the fp32-accurate work as the kernels do it on the tensor
+    cores, three TF32 products each (3xTF32); ``"cuda_cores"``, fp32 on the
+    CUDA cores (the yardstick kept for comparison). Bytes: h, W, bias, x
+    (and g) read once, out (or dh, dW, db) written once, 4 bytes each."""
     rows = k * b
     flops = (6.0 if backward else 2.0) * rows * h * d
     nbytes = 4.0 * (rows * h + h * d + d + b * d + rows)
     if backward:
         nbytes += 4.0 * (rows * h + h * d + d)
-    t_ops = flops / PEAK_FLOPS["fp32"]
     t_bytes = nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    out = {}
+    for name, t_ops in (("tc", 3 * flops / PEAK_FLOPS["tf32"]),
+                        ("cuda_cores", flops / PEAK_FLOPS["fp32"])):
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
 
 
 def outputs_within(torch, got, want, rel) -> tuple:
@@ -585,9 +594,12 @@ def outputs_within(torch, got, want, rel) -> tuple:
     return fine, worst, "; ".join(parts)
 
 
-def check_fused_ll(torch, fl):
+def check_fused_ll(torch, fl, libs):
     """Phase 3c: B3 and B4 vs their plain versions in fp32, B4 bitwise
-    across two launches; returns (records for the JSON line, ok)."""
+    across two launches; returns (records for the JSON line, ok). `libs`
+    are the two kernels' loaded libraries, which state B4's scratch bytes
+    and each kernel's rows per CTA."""
+    lib_f, lib_b = libs
     shapes = [("train", TRAIN_K, TRAIN_B, 200, 784),
               ("eval", 250, 500, 200, 784), ("odd", 13, 17, 200, 130)]
     ok = True
@@ -625,13 +637,26 @@ def check_fused_ll(torch, fl):
                     ("bwd", lambda: fl.fused_ll_backward(h1, w, bias, x, g),
                      lambda: fl._bwd_plain(h1, w, bias, x, g), True)):
                 t = timings(fn, plain, torch)
-                bound, by = fused_ll_bound_ms(k, b, h, d, bwd)
+                bounds = fused_ll_bounds(k, b, h, d, bwd)
+                bound, by = bounds["tc"]
+                cc, cc_by = bounds["cuda_cores"]
+                flops = (6.0 if bwd else 2.0) * k * b * h * d
+                text = (timing_text(t, bound, by, flops)
+                        + f" (3xTF32 tensor-core bound) fp32_cuda_core_"
+                        f"bound_ms={cc:.5f} ({cc_by}) fp32_cuda_core_bound_"
+                        f"share={cc / t['ms']:.2%}")
                 if bwd:
-                    bwd_line += timing_text(t, bound, by)
+                    scratch = lib_b.fused_ll_bwd_scratch_bytes(k * b, h, d)
+                    bwd_line += text + (
+                        f" scratch_bytes={scratch}"
+                        f" cta_rows={lib_b.fused_ll_bwd_cta_rows(k * b, h)}"
+                        f" splits={lib_b.fused_ll_bwd_splits(k * b)}")
                 else:
-                    fwd_line += timing_text(t, bound, by)
+                    fwd_line += text + (
+                        f" cta_rows={lib_f.fused_ll_fwd_cta_rows(k * b, h)}")
                 if tag == "train":
-                    main[name] = dict(t, bound_ms=bound, bound_by=by)
+                    main[name] = dict(t, bound_ms=bound, bound_by=by,
+                                      fp32_cuda_core_bound_ms=cc)
         print(fwd_line, flush=True)
         print(bwd_line, flush=True)
         del h1, w, bias, x, g, got, want, grads, again, want_g
@@ -1003,7 +1028,8 @@ def main() -> int:
                                         _kernels.load(hot_loop.KERNEL_BWD))
     if not ok:
         return fail("the backward kernel disagrees with its plain version")
-    fll_records, ok = check_fused_ll(torch, fl)
+    fll_records, ok = check_fused_ll(torch, fl, (
+        _kernels.load(fl.KERNEL_FWD), _kernels.load(fl.KERNEL_BWD)))
     if not ok:
         return fail("a fused-likelihood kernel disagrees with its plain "
                     "version")

@@ -1,8 +1,9 @@
 // bf16 tensor-core building blocks shared by the bf16 paths of the hot-loop
 // forward (hot_loop_fwd.cu, B1) and backward (hot_loop_bwd.cu, B2): the
 // prepared-weight layout and the kernel that writes it, the weight ring fed
-// by TMA bulk copies, the mma.sync fragment helpers, and the forward row
-// tile (a layer's product and its tanh epilogue, with B1's exact rounding).
+// by TMA bulk copies (its PTX wrappers in tma_ring.cuh), the mma.sync
+// fragment helpers, and the forward row tile (a layer's product and its tanh
+// epilogue, with B1's exact rounding).
 //
 // Products are mma.sync.m16n8k16 bf16 x bf16 -> fp32 on Hopper's tensor
 // cores. Why mma.sync and not wgmma: the activation operand of every product
@@ -34,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma_ring.cuh"
 
 namespace {
 namespace tc {
@@ -122,60 +125,14 @@ inline cudaError_t launch_prep(const float* w1, const float* w2,
 // PTX wrappers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-}
-
-// one TMA bulk copy of `bytes` (a multiple of 16) from global to shared
-// memory, its completion counted on `bar`, which expects it
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+// smem_addr, cp.async, mbarriers and the TMA bulk copy: tma_ring.cuh
+using tma::bulk_copy;
+using tma::cp_async16;
+using tma::cp_async_commit;
+using tma::cp_async_wait;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_addr;
 
 // four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8 and receives (row l / 4, columns 2 (l % 4), +1) of each

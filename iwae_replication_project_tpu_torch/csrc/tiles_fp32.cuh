@@ -1,8 +1,9 @@
-// fp32 device helpers on the CUDA cores, shared by the fp32 paths of all four
-// kernels (hot_loop_fwd.cu, hot_loop_bwd.cu, fused_ll_fwd.cu,
-// fused_ll_bwd.cu): the row tile, the weight-chunk staging, the 4x4
-// register-tile product, the per-CTA weight-gradient partials and their
-// fixed-order reduction.
+// fp32 device helpers on the CUDA cores, used by the fp32 paths of the
+// hot-loop pair (hot_loop_fwd.cu, hot_loop_bwd.cu): the row tile, the
+// weight-chunk staging, the 4x4 register-tile product, the per-CTA
+// weight-gradient partials and their fixed-order reduction. fused_ll_bwd.cu
+// (B4, on the tensor cores) uses only the fixed-order reduction
+// (reduce_slots) and allow_smem.
 //
 // A CTA of THREADS = 256 threads owns a tile of TM = 32 rows: warp w owns rows
 // 4w..4w+3 and lane t columns 4t..4t+3 of the current NT = 128-column pass.

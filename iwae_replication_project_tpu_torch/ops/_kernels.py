@@ -4,14 +4,15 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries are built at first
 use into ``_build/`` inside the package (listed in ``.gitignore``), keyed on a
-hash of the source, the local headers it includes (``csrc/*.cuh``) and the
-flags: an edited source rebuilds, an unchanged one loads the existing
-library. Nothing here runs at import time.
+hash of the source, the local headers it includes (``csrc/*.cuh``, and
+theirs) and the flags: an edited source rebuilds, an unchanged one loads the
+existing library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -50,13 +51,17 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "hot_loop_bwd_scratch_bytes": (ctypes.c_size_t, [_i] * 5),
     },
     "fused_ll_fwd": {
-        "fused_ll_fwd": (_i, [_vp] * 5 + [_i] * 4 + [_vp]),
+        "fused_ll_fwd": (_i, [_vp] * 6 + [_i] * 4 + [_vp]),
         "fused_ll_fwd_smem_bytes": (ctypes.c_size_t, [_i]),
+        "fused_ll_fwd_scratch_bytes": (ctypes.c_size_t, [_i] * 2),
+        "fused_ll_fwd_cta_rows": (_i, [_i] * 2),
     },
     "fused_ll_bwd": {
-        "fused_ll_bwd": (_i, [_vp] * 8 + [_i] * 5 + [_vp]),
+        "fused_ll_bwd": (_i, [_vp] * 8 + [_i] * 4 + [_vp]),
         "fused_ll_bwd_smem_bytes": (ctypes.c_size_t, [_i]),
-        "fused_ll_bwd_groups": (_i, [_i]),
+        "fused_ll_bwd_scratch_bytes": (ctypes.c_size_t, [_i] * 3),
+        "fused_ll_bwd_cta_rows": (_i, [_i] * 2),
+        "fused_ll_bwd_splits": (_i, [_i]),
     },
 }
 
@@ -101,12 +106,23 @@ def nvcc_path() -> str:
     return found
 
 
+def _local_headers(src: bytes, seen: List[str]) -> List[str]:
+    """The ``csrc/`` headers `src` includes, and the ones they include, each
+    once, in the order first met."""
+    for h in re.findall(rb'#include "([^"]+)"', src):
+        name = h.decode()
+        if name not in seen:
+            seen.append(name)
+            _local_headers((SRC_DIR / name).read_bytes(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for the current source."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    headers = re.findall(rb'#include "([^"]+)"', src)
+    headers = _local_headers(src, [])
     digest = hashlib.sha256(
-        src + b"".join((SRC_DIR / h.decode()).read_bytes() for h in headers)
+        src + b"".join((SRC_DIR / h).read_bytes() for h in headers)
         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -175,6 +191,17 @@ def load_fitting(name: str, *widths: int) -> ctypes.CDLL:
                          f"widths {widths}; a Hopper CTA has "
                          f"{MAX_SMEM_BYTES}")
     return lib
+
+
+@functools.lru_cache(maxsize=128)
+def plan(name: str, widths: tuple, scratch_args: tuple) -> tuple:
+    """``(C entry point, scratch bytes)`` of kernel `name`: the library's
+    ``<name>_scratch_bytes(*scratch_args)``, after :func:`load_fitting`'s
+    shared-memory check at `widths`. Host work that every call of the same
+    shape would repeat, cached."""
+    lib = load_fitting(name, *widths)
+    return (getattr(lib, name),
+            getattr(lib, f"{name}_scratch_bytes")(*scratch_args))
 
 
 def launch(device: torch.device, fn, *args) -> int:

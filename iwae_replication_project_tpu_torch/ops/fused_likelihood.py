@@ -14,7 +14,10 @@ it; :func:`fused_bernoulli_ll` is its entry point, forward and backward.
   fused_likelihood.py:206-239 of the JAX package) for CUDA tensors;
 * backward: :func:`fused_ll_backward`, which launches ``csrc/fused_ll_bwd.cu``
   (replaces ``_bwd_kernel``/``_bwd_pallas``, :242-300): dh, and dW and db
-  summed deterministically over fixed row groups;
+  summed deterministically over fixed row splits;
+* both run every product on the tensor cores in 3xTF32 (``csrc/tc_tf32.cuh``:
+  each fp32 operand split into two TF32 parts, three products), which keeps
+  fp32 accuracy;
 * :class:`FusedBernoulliLL` joins them as the custom VJP's twin
   (:310-349), with no gradient for the binary targets.
 
@@ -107,9 +110,11 @@ def fused_ll_forward(h1, w, bias, x) -> torch.Tensor:
     ``[k, B]``.
 
     On CUDA tensors this launches ``csrc/fused_ll_fwd.cu`` on the current
-    stream (no synchronisation) and counts the launch; it raises for
-    anything the kernel does not take. On CPU tensors it computes the plain
-    version :func:`_reference_impl`. Either way the inputs must be fp32.
+    stream (no synchronisation) and counts one launch: the weight prep (fp32
+    tiles into a scratch buffer whose size the library states) and the row
+    kernel. It raises for anything the kernel does not take. On CPU tensors
+    it computes the plain version :func:`_reference_impl`. Either way the
+    inputs must be fp32.
     """
     if h1.device.type == "cpu":
         _check_fp32(h1=h1, w=w, bias=bias, x=x)
@@ -118,11 +123,12 @@ def fused_ll_forward(h1, w, bias, x) -> torch.Tensor:
     dev = h1.device
     if k * b == 0:
         return torch.zeros((k, b), dtype=torch.float32, device=dev)
-    lib = _kernels.load_fitting(KERNEL_FWD, h)
+    launch, scratch_bytes = _kernels.plan(KERNEL_FWD, (h,), (h, d))
     out = torch.empty((k, b), dtype=torch.float32, device=dev)
-    rc = _kernels.launch(dev, lib.fused_ll_fwd, h1.data_ptr(), w.data_ptr(),
-                         bias.data_ptr(), x.data_ptr(), out.data_ptr(), k * b,
-                         b, h, d)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    rc = _kernels.launch(dev, launch, h1.data_ptr(), w.data_ptr(),
+                         bias.data_ptr(), x.data_ptr(), out.data_ptr(),
+                         scratch.data_ptr(), k * b, b, h, d)
     if rc != 0:
         raise RuntimeError(f"fused_ll_fwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H={h}, D={d})")
@@ -134,9 +140,11 @@ def fused_ll_backward(h1, w, bias, x, g) -> tuple:
     """The gradients of :func:`fused_ll_forward` for the ``[k, B]``
     cotangent `g`: ``(dh [k, B, H], dW [H, D], db [D])``.
 
-    On CUDA tensors this launches ``csrc/fused_ll_bwd.cu`` (the per-group
-    kernel, then the fixed-order sum of its partials) on the current stream
-    and counts one launch; dW and db are views of one contiguous buffer. It
+    On CUDA tensors this launches ``csrc/fused_ll_bwd.cu`` on the current
+    stream and counts one launch: the weight prep, the row phase, the
+    weight-gradient phase over row splits fixed by the row count and the
+    fixed-order sum of the splits, all in a scratch buffer whose size the
+    library states; dW and db are views of one contiguous buffer. It
     raises for anything the kernel does not take. On CPU tensors it computes
     the plain version :func:`_bwd_plain`. Either way the inputs must be
     fp32.
@@ -150,16 +158,15 @@ def fused_ll_backward(h1, w, bias, x, g) -> tuple:
         return (torch.zeros_like(h1),
                 torch.zeros((h, d), dtype=torch.float32, device=dev),
                 torch.zeros((d,), dtype=torch.float32, device=dev))
-    lib = _kernels.load_fitting(KERNEL_BWD, h)
     rows = k * b
-    groups = lib.fused_ll_bwd_groups(rows)
+    launch, scratch_bytes = _kernels.plan(KERNEL_BWD, (h,), (rows, h, d))
     dh = torch.empty_like(h1)
     grads = torch.empty(h * d + d, dtype=torch.float32, device=dev)
-    slots = torch.empty((groups, h * d + d), dtype=torch.float32, device=dev)
-    rc = _kernels.launch(dev, lib.fused_ll_bwd, h1.data_ptr(), w.data_ptr(),
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    rc = _kernels.launch(dev, launch, h1.data_ptr(), w.data_ptr(),
                          bias.data_ptr(), x.data_ptr(), g.data_ptr(),
-                         dh.data_ptr(), grads.data_ptr(), slots.data_ptr(),
-                         rows, b, h, d, groups)
+                         dh.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
+                         rows, b, h, d)
     if rc != 0:
         raise RuntimeError(f"fused_ll_bwd launch failed with CUDA error {rc} "
                            f"(k={k}, B={b}, H={h}, D={d})")

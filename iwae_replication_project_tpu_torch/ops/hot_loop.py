@@ -35,7 +35,6 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Optional
 
@@ -192,19 +191,6 @@ def _check_block(h1, w1, b1, w2, b2, w3, b3, x, g=None) -> tuple:
     return k, b, h1_dim, hid, d
 
 
-@functools.lru_cache(maxsize=64)
-def _plan(name: str, h1_dim: int, hid: int, d: int, bf16: int,
-          *rows: int) -> tuple:
-    """``(C entry point, scratch bytes)`` of kernel `name` at these widths
-    (and, for the backward, this row count), after
-    :func:`_kernels.load_fitting`'s shared-memory check: host work that
-    every call of the same shape would repeat."""
-    lib = _kernels.load_fitting(name, h1_dim, hid, bf16)
-    return (getattr(lib, name),
-            getattr(lib, f"{name}_scratch_bytes")(*rows, h1_dim, hid, d,
-                                                  bf16))
-
-
 def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
                   compute_dtype: Optional[torch.dtype] = None
                   ) -> torch.Tensor:
@@ -225,7 +211,8 @@ def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
     if k * b == 0:
         return torch.zeros((k, b), dtype=torch.float32, device=dev)
     bf16 = int(compute_dtype == torch.bfloat16)
-    launch, scratch_bytes = _plan(KERNEL, h1_dim, hid, d, bf16)
+    launch, scratch_bytes = _kernels.plan(KERNEL, (h1_dim, hid, bf16),
+                                          (h1_dim, hid, d, bf16))
     out = torch.empty((k, b), dtype=torch.float32, device=dev)
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     rc = _kernels.launch(
@@ -266,7 +253,8 @@ def fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
             torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
     bf16 = int(compute_dtype == torch.bfloat16)
     rows = k * b
-    launch, scratch_bytes = _plan(KERNEL_BWD, h1_dim, hid, d, bf16, rows)
+    launch, scratch_bytes = _kernels.plan(KERNEL_BWD, (h1_dim, hid, bf16),
+                                          (rows, h1_dim, hid, d, bf16))
     dh = torch.empty_like(h1)
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)

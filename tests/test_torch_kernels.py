@@ -342,15 +342,24 @@ def test_train_step_launches_both_kernels(cuda):
 # the fused Bernoulli log-likelihood (csrc/fused_ll_fwd.cu, fused_ll_bwd.cu)
 # --------------------------------------------------------------------------
 
-#: B3/B4 vs their plain versions, fp32: the same arithmetic summed in
-#: another order (H = 200 products per logit, 784 pixel terms per row; dW
-#: sums up to R = 125000 rows of both signs). Forward: (atol, rtol) as B1's;
-#: backward: relative to each output's largest magnitude, as B2's.
+#: B3/B4 vs their plain versions, fp32: the kernels' 3xTF32 products carry
+#: ~2^-22 relative error per product (tests/test_torch_tf32_split.py), below
+#: the fp32 rounding of the sums, which run in another order (H = 200
+#: products per logit, 784 pixel terms per row; dW sums up to R = 125000
+#: rows of both signs). Forward: (atol, rtol) as B1's; backward: relative to
+#: each output's largest magnitude, as B2's.
 FLL_TOL = (2e-3, 1e-5)
 FLL_BWD_TOL = 1e-4
 
+#: odd k and B leave a ragged last CTA; D = 130 a ragged pixel tile; H = 13
+#: a hidden width that is not a multiple of the MMA's k of 8 (and h rows
+#: that are not 16-byte aligned for the weight-gradient phase's copies);
+#: k = B = 1 a single row; 41 x 25 = 1025 rows, just past the first row
+#: split boundary of B4's weight-gradient phase (1024 rows: one split, 1025:
+#: two)
 FLL_SHAPES = [(5, 6, 16, 12), (13, 17, 16, 130), (3, 4, 8, 1024),
-              (17, 7, 16, 130), (13, 17, 200, 130), (50, 100, 200, 784)]
+              (17, 7, 16, 130), (13, 17, 200, 130), (50, 100, 200, 784),
+              (5, 6, 13, 130), (1, 1, 200, 784), (41, 25, 200, 784)]
 
 
 def _fll_inputs(k, b, h, d, seed=0):
@@ -380,6 +389,33 @@ def test_fused_ll_kernels_match_plain_versions(cuda, k, b, h, d):
                                rtol=FLL_TOL[1])
     _assert_outputs_close(grads, tfl._bwd_plain(h1, w, bias, x, g),
                           FLL_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_ll_scratch_at_the_train_shape(cuda):
+    """The scratch B3 and B4 take at the flagship's train shape (R = 5000,
+    H = 200, D = 784), as their libraries state it and the wrappers
+    allocate it. B3: the prepared weights, 13 tiles of [200][72] fp32. B4:
+    those, the fp32 dl rows [5000][784], one db slot of 784 floats per
+    16-row group (313) and 5 row splits of H D + D floats, each part
+    256-byte aligned: under 30 MB."""
+    from iwae_replication_project_tpu_torch.ops import _kernels
+    from iwae_replication_project_tpu_torch.ops import fused_likelihood as tfl
+    fwd, bwd = _kernels.load(tfl.KERNEL_FWD), _kernels.load(tfl.KERNEL_BWD)
+
+    def align(v):
+        return (v + 255) // 256 * 256
+
+    prep = 13 * 200 * 72 * 4
+    o_db = align(prep + 5000 * 784 * 4)
+    o_slots = align(o_db + 313 * 784 * 4)
+    want = align(o_slots + 5 * (200 * 784 + 784) * 4)
+    assert fwd.fused_ll_fwd_scratch_bytes(200, 784) == prep
+    assert bwd.fused_ll_bwd_splits(5000) == 5
+    assert bwd.fused_ll_bwd_scratch_bytes(5000, 200, 784) == want == 20562432
+    assert want <= 30e6
+    assert _kernels.plan(tfl.KERNEL_BWD, (200,), (5000, 200, 784))[1] == want
+    assert _kernels.plan(tfl.KERNEL_FWD, (200,), (200, 784))[1] == prep
 
 
 @pytest.mark.cuda
