@@ -46,13 +46,20 @@ phases, one line per phase, and exits non-zero on the first failure:
    checks that every result is finite;
 5. trains the same preset at full width with ``zoo.train`` for two Burda
    stages (1 + 3 passes over the synthetic set: 40 steps of k=50, B=100,
-   bf16): per-pass losses (finite, falling), ms per step, a breakdown of one
-   step, the per-stage evaluation run_experiment makes on the 256 synthetic
-   test rows (the seven scalars at nll_k=5000), launches of both kernels (B2
-   equal to the step count; B1 the step count plus the eval launches derived
-   from the config); then holds a step's per-leaf gradients against a
+   bf16), each pass replaying the step's CUDA graph (its first step runs
+   eagerly before the capture): per-pass losses (finite, falling), ms per
+   step, a breakdown of one eager step, the per-stage evaluation
+   run_experiment makes on the 256 synthetic test rows (the seven scalars
+   at nll_k=5000), launches of both kernels across the replays (B2 equal to
+   the step count; B1 the step count plus the eval launches derived from
+   the config); then holds a step's per-leaf gradients against a
    ``hot_loop_path="reference"`` run on the same draws, and runs one DReG
    step at 1-layer width, which must launch the backward kernel twice;
+   then (5b) four passes replayed from the graph against the same passes
+   run eagerly from the same seed, bitwise equal in parameters, Adam
+   moments, generator and losses, with each path's ms per step; and (5c)
+   a bf16 model with a 256-wide output block, which the kernels refuse,
+   training a pass and scoring through the reference path with no launch;
 6. evaluates the trained flagship at full width with ``training_statistics``
    (eval_k=50, nll_k=5000 in chunks of 250, batches of 500) and the
    estimator diagnostics on 1000 synthetic test rows made from a seed:
@@ -61,7 +68,16 @@ phases, one line per phase, and exits non-zero on the first failure:
    B1's launches (equal to the count derived from the config; B2 none), and
    one batch's NLL against a ``hot_loop_path="reference"`` model on the same
    generator seed;
-7. prints the kernels' JSON record and, last, the contract line
+7. runs the staged driver, ``run_experiment`` of the flagship with its
+   checkpoints under a temporary directory and ``PASS_BLOCK`` set to 3: an
+   uninterrupted 3-stage run, a run preempted by a ``sigterm`` fault point
+   after stage 3's first block (the mid-stage checkpoint saved,
+   ``TrainingPreempted`` raised), and its resume, whose parameters, Adam
+   moments and generator must equal the uninterrupted run's bit for bit;
+   the launches over the three runs (B2 once per step, B1 once per step
+   plus each stage evaluation's count), the host ms per step of each stage,
+   and of one dispatch of the real ``PASS_BLOCK`` (27 passes);
+8. prints the kernels' JSON record and, last, the contract line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -73,6 +89,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -753,11 +770,9 @@ def step_breakdown(torch, state, cfg, spec, x, hot_loop):
                      iters=10)
     bwd_ms = time_ms(lambda: hot_loop.fused_backward(h1, *w, x, g, cd), torch,
                      iters=10)
-    leaves = state.optimizer.param_groups[0]["params"]
-    for p in leaves:
-        p.grad = torch.zeros_like(p)
+    for p in state.optimizer.param_groups[0]["params"]:
+        p.grad.zero_()  # the state's static buffers: a graph reads them
     adam_ms = time_ms(lambda: state.optimizer.step(), torch, iters=10)
-    state.optimizer.zero_grad(set_to_none=True)
     return step_ms, fwd_ms, bwd_ms, adam_ms
 
 
@@ -776,10 +791,19 @@ def train(torch, np, zoo, hot_loop):
 
     hot_loop.reset_launch_counts()
     t0 = time.perf_counter()
-    state, history = zoo.train(PRESET, n_stages=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        state, history = zoo.train(PRESET, n_stages=2, log_dir=tmp + "/runs",
+                                   checkpoint_dir=tmp + "/ckpt")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = hot_loop.launch_counts()
+    graphs = [c for e in state.graphs.values() for c in e.steps.values()]
+    captured = sum(len(c.launches) > 0 for c in graphs)
+    print(f"train: {len(graphs)} CUDA graph(s) of the step captured, "
+          f"{captured} holding kernel launches", flush=True)
+    if not state.graphs:
+        print("FAIL: the training run did not replay a captured step")
+        return launches, state, False
     ok = True
     losses = [v for h in history for v in h["pass_losses"]]
     steps = state.step
@@ -880,6 +904,227 @@ def train(torch, np, zoo, hot_loop):
           f"{'ok' if dreg_ok else 'FAIL: expected 1 forward, 2 backward'}",
           flush=True)
     return launches, state, ok and dreg_ok and scalars_ok
+
+
+def graph_vs_eager(torch, zoo, hot_loop):
+    """Phase 5b: the train step replayed from its CUDA graph against the
+    same step run eagerly, on two states made from one seed: bitwise equal
+    parameters, Adam moments and step counts, generator and losses after
+    every pass, and each path's ms per step (CUDA events around a pass of
+    10 steps, mean of 3 passes after one warm pass). Returns (ok, eager ms,
+    graph ms)."""
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.training import epoch as te
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+    from iwae_replication_project_tpu_torch.utils.tree import tree_leaves
+
+    cfg = zoo.get(PRESET)
+    model_cfg = cfg.model_config("cuda")
+    ds = load_dataset(cfg.dataset, data_dir=cfg.data_dir)
+    n = len(ds.x_train) // TRAIN_B * TRAIN_B
+    x = torch.as_tensor(ds.x_train[:n].reshape(n, -1),
+                        dtype=torch.float32).cuda()
+    spec = cfg.objective_spec(1)
+    fns = [te.make_epoch_fn(spec, model_cfg, n, TRAIN_B,
+                            diagnostics=cfg.diagnostics_config(),
+                            cuda_graph=g) for g in (False, True)]
+    states = [ts.create_train_state(cfg.seed, model_cfg,
+                                    output_bias=ds.output_bias)
+              for _ in fns]
+
+    def same():
+        a, b = states
+        tensors = [(p.detach(), q.detach()) for p, q in
+                   zip(tree_leaves(a.params), tree_leaves(b.params))]
+        for p, q in zip(tree_leaves(a.params), tree_leaves(b.params)):
+            tensors += [(a.optimizer.state[p][k], b.optimizer.state[q][k])
+                        for k in ("exp_avg", "exp_avg_sq", "step")]
+        return all(torch.equal(u, v) for u, v in tensors) and \
+            torch.equal(a.generator.get_state(), b.generator.get_state()) \
+            and a.step == b.step
+
+    ok, ms = True, [0.0, 0.0]
+    for rep in range(4):
+        outs = []
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            states[i], out = fn(states[i], x)
+            end.record()
+            torch.cuda.synchronize()
+            outs.append(out[0])
+            if rep:
+                ms[i] += start.elapsed_time(end) / (3 * (n // TRAIN_B))
+        ok &= same() and torch.equal(*outs)
+    print(f"train: graph replay vs eager, 4 passes of {n // TRAIN_B} steps "
+          f"k={spec.k} B={TRAIN_B} bf16 with diagnostics: params, Adam "
+          f"moments and steps, generator and losses bitwise equal: {ok}; "
+          f"ms per step (CUDA events over a pass, mean of 3 after a warm "
+          f"pass) eager {ms[0]:.4f}, graph {ms[1]:.4f}", flush=True)
+    return ok, ms[0], ms[1]
+
+
+def wide_block(torch, np, hot_loop):
+    """Phase 5c (C5): a bf16 model with a 256-wide output block, which B1's
+    and B2's register budgets refuse, trains one pass and scores through the
+    reference path: no kernel launch, ``kernel_path/reference`` recorded,
+    while the flagship's widths still take the kernels. Returns ok."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.training import epoch as te
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+    from iwae_replication_project_tpu_torch.utils.config import (
+        ExperimentConfig)
+
+    cfg = ExperimentConfig(n_hidden_decoder=(100, 256))
+    model_cfg = cfg.model_config("cuda")
+    why = hot_loop.block_refusal(hot_loop.library_limits(100, 256, True))
+    before = hot_loop.path_counters().get("reference", 0)
+    x = (torch.rand((3 * TRAIN_B, 784),
+                    generator=torch.Generator().manual_seed(3))
+         > 0.5).float().cuda()
+    hot_loop.reset_launch_counts()
+    fn = te.make_epoch_fn(cfg.objective_spec(1), model_cfg, 3 * TRAIN_B,
+                          TRAIN_B)
+    state = ts.create_train_state(0, model_cfg)
+    state, losses = fn(state, x)
+    eng = ServingEngine(params=state.params, model_config=model_cfg,
+                        k=TRAIN_K, timeout_s=None)
+    scores = eng.score(x[:5].cpu().numpy())
+    torch.cuda.synchronize()
+    launches = hot_loop.launch_counts()
+    refs = hot_loop.path_counters().get("reference", 0) - before
+    flagship = hot_loop.select_path(torch.device("cuda"),
+                                    widths=(100, 200, True))
+    ok = (why is not None and launches == {hot_loop.KERNEL: 0,
+                                           hot_loop.KERNEL_BWD: 0}
+          and refs > 0 and flagship == "kernel"
+          and bool(torch.isfinite(losses).all())
+          and bool(np.isfinite(scores).all()))
+    print(f"c5: bf16 output block 100->(256, 256)->784: refused ({why}); "
+          f"one pass of 3 steps and a 5-row score through kernel_path/"
+          f"reference ({refs} selections), launches {launches}; the "
+          f"flagship's widths take the {flagship} path "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def driver(torch, np, zoo, hot_loop):
+    """Phase 7: the staged driver on the card, ``run_experiment`` of the
+    flagship with checkpoints under a temporary directory and PASS_BLOCK=3:
+    an uninterrupted 3-stage run; a run with a save every 2 passes whose
+    ``sigterm`` fault point after stage 3's first block is absorbed into a
+    mid-stage checkpoint and ``TrainingPreempted``; its resume, bitwise
+    equal to the uninterrupted run. Launches over the three runs: B2 once
+    per step, B1 once per step plus each stage evaluation's count. Then the
+    host ms per step over one dispatch of 27 passes (the real PASS_BLOCK)
+    on the trained state. Returns ({kernel: launches}, ok)."""
+    import dataclasses
+    import io
+    from contextlib import redirect_stdout
+
+    import iwae_replication_project_tpu_torch.experiment as exp
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.utils import faults
+    from iwae_replication_project_tpu_torch.utils.tree import tree_leaves
+
+    block, real_block = 3, exp.PASS_BLOCK
+    exp.PASS_BLOCK = block
+    base = zoo.get(PRESET)
+    ok = True
+    hot_loop.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        def cfg(sub, **kw):
+            return dataclasses.replace(base, n_stages=3,
+                                       log_dir=f"{tmp}/{sub}/runs",
+                                       checkpoint_dir=f"{tmp}/{sub}/ckpt",
+                                       **kw)
+        t0 = time.perf_counter()
+        state_a, hist_a = exp.run_experiment(cfg("A", resume=False))
+        wall_a = time.perf_counter() - t0
+        cfg_b = cfg("B", checkpoint_every_passes=2)
+        rule = faults.FaultRule(
+            faults.SITE_TRAIN_PASS, faults.sigterm(),
+            match=lambda c: c["stage"] == 3 and c["done"] == block)
+        preempted = None
+        with faults.installed(faults.FaultSchedule([rule])):
+            try:
+                exp.run_experiment(cfg_b)
+            except exp.TrainingPreempted as e:
+                preempted = e
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            state_b, hist_b = exp.run_experiment(cfg_b)
+        print(buf.getvalue(), end="", flush=True)
+        steps_b = state_b.step
+    exp.PASS_BLOCK = real_block
+    torch.cuda.synchronize()
+    launches = hot_loop.launch_counts()
+
+    pairs = [(p.detach(), q.detach()) for p, q in
+             zip(tree_leaves(state_a.params), tree_leaves(state_b.params))]
+    for p, q in zip(tree_leaves(state_a.params), tree_leaves(state_b.params)):
+        pairs += [(state_a.optimizer.state[p][k],
+                   state_b.optimizer.state[q][k])
+                  for k in ("exp_avg", "exp_avg_sq", "step")]
+    bitwise = all(torch.equal(u, v) for u, v in pairs) and torch.equal(
+        state_a.generator.get_state(), state_b.generator.get_state())
+    resumed = f"continuing at stage 3, pass {block + 1}" in buf.getvalue()
+    ok &= preempted is not None and resumed and bitwise \
+        and hist_a[-1]["NLL"] == hist_b[-1]["NLL"]
+    print(f"driver: uninterrupted 3 stages ({state_a.step} steps, "
+          f"PASS_BLOCK={block}) in {wall_a:.3f}s; preempted by a sigterm "
+          f"fault point: {preempted}; resumed at stage 3, pass {block + 1}: "
+          f"{resumed}; final params, Adam moments and steps, generator "
+          f"bitwise equal to the uninterrupted run: {bitwise}; NLL "
+          f"{hist_a[-1]['NLL']:.4f} vs {hist_b[-1]['NLL']:.4f}", flush=True)
+    prev = 0
+    for h in hist_a:
+        per_step = h["stage_train_seconds"] / (h["steps"] - prev) * 1e3
+        prev = h["steps"]
+        print(f"driver: stage {h['stage']} {h['passes']} passes "
+              f"({h['passes'] // block} dispatches of {block} + "
+              f"{h['passes'] % block} single) host ms per step "
+              f"{per_step:.4f} (host clock over the stage, one fetch)",
+              flush=True)
+
+    # launches: the killed run and its resume together ran the steps of
+    # the uninterrupted one; B evaluated the stages before the kill
+    ds = load_dataset(base.dataset, data_dir=base.data_dir)
+    per_eval = eval_b1_launches(base, len(ds.x_test), diagnostics=True)
+    steps = state_a.step + steps_b
+    evals = len(hist_a) + len(hist_b) + (preempted.stage - 1 if preempted
+                                         else 0)
+    want = {hot_loop.KERNEL: steps + evals * per_eval,
+            hot_loop.KERNEL_BWD: steps}
+    launch_ok = launches == want
+    print(f"driver: launches over the three runs {launches} (expected "
+          f"{want}: {steps} steps, {evals} stage evaluations of {per_eval}) "
+          f"{'ok' if launch_ok else 'FAIL'}", flush=True)
+    ok &= launch_ok
+
+    # one dispatch of the real PASS_BLOCK on the trained state
+    from iwae_replication_project_tpu_torch.training import epoch as te
+    model_cfg = base.model_config("cuda")
+    n = len(ds.x_train) // TRAIN_B * TRAIN_B
+    x = torch.as_tensor(ds.x_train[:n].reshape(n, -1),
+                        dtype=torch.float32).cuda()
+    fn = te.make_epoch_fn(base.objective_spec(3), model_cfg, n, TRAIN_B,
+                          diagnostics=base.diagnostics_config(),
+                          epochs_per_call=real_block)
+    state_a, _ = fn(state_a, x)  # captures this function's graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_a, (out, _) = fn(state_a, x)
+    out.cpu()
+    block_ms = (time.perf_counter() - t0) * 1e3 / (real_block * n // TRAIN_B)
+    print(f"driver: one dispatch of PASS_BLOCK={real_block} passes "
+          f"({real_block * n // TRAIN_B} steps, one fetch): host ms per "
+          f"step {block_ms:.4f}", flush=True)
+    ok &= bool(torch.isfinite(out).all())
+    return launches, ok
+
 
 
 def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
@@ -1048,10 +1293,21 @@ def main() -> int:
     if not ok:
         return fail("the training phase failed")
     record_bwd["launches"] = train_launches[hot_loop.KERNEL_BWD]
+    ok, _, _ = graph_vs_eager(torch, zoo, hot_loop)
+    if not ok:
+        return fail("the graph replay of the step differs from the eager "
+                    "step")
+    if not wide_block(torch, np, hot_loop):
+        return fail("the 256-wide bf16 block did not take the reference "
+                    "path")
 
     if not evaluate(torch, np, zoo, hot_loop, state,
                     b1_times[("bf16", "eval", 500)]):
         return fail("the evaluation phase failed")
+
+    _, ok = driver(torch, np, zoo, hot_loop)
+    if not ok:
+        return fail("the driver phase failed")
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records}),

@@ -13,8 +13,12 @@ What is ported so far:
   -> ``serving.programs`` -> ``models.iwae.log_weights`` ->
   ``ops.hot_loop.decoder_score``, whose forward is the hand-written CUDA
   kernel in ``csrc/hot_loop_fwd.cu``;
-* training: ``zoo.train`` -> ``experiment.run_experiment`` (the Burda
-  stages) -> ``training.epoch`` -> ``training.train_step`` ->
+* training: ``python -m iwae_replication_project_tpu_torch`` or
+  ``zoo.train`` -> ``experiment.run_experiment`` (the Burda stages, in
+  dispatches of ``PASS_BLOCK`` passes, with checkpoints and bitwise resume
+  in ``utils.checkpoint``, preemption grace, and JSONL/TensorBoard logs in
+  ``utils.logging``) -> ``training.epoch`` (on CUDA the step captured
+  once as a CUDA graph and replayed) -> ``training.train_step`` ->
   ``objectives.gradients`` -> the same ``decoder_score``, whose
   ``FusedBlockLL`` autograd Function runs the backward kernel in
   ``csrc/hot_loop_bwd.cu``;

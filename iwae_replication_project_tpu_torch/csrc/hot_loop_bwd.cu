@@ -465,14 +465,18 @@ cudaError_t launch_rows(const float* h1, const float* b1, const float* b2,
   return cudaGetLastError();
 }
 
+// A row-phase thread holds (KPMAX + 7) / 8 fragments of a reduction: the
+// instantiations take up to 30 (reductions up to 240 wide).
+inline bool rows_fit(int kpmax) { return (kpmax + 7) / 8 <= 30; }
+
 cudaError_t launch_tc(const float* h1, const float* w1, const float* b1,
                       const float* w2, const float* b2, const float* w3,
                       const float* b3, const float* x, const float* g,
                       float* dh, float* grads, unsigned char* scratch, int R,
                       int B, int H1, int HID, int D, cudaStream_t s) {
   const BwdLayout L(R, H1, HID, D);
+  if (!rows_fit(L.d.KPMAX)) return cudaErrorInvalidValue;
   const int need = (L.d.KPMAX + 7) / 8;
-  if (need > 30) return cudaErrorInvalidValue;
   cudaError_t e = tc::launch_prep(w1, w2, w3, at<tc::bf16>(scratch, L.o_prep),
                                   L.d, s);
   if (e != cudaSuccess) return e;
@@ -643,6 +647,13 @@ extern "C" {
 size_t hot_loop_bwd_smem_bytes(int H1, int HID, int bf16) {
   return bf16 ? tc::Dims(H1, HID, 1).smem_bytes(tc::MAX_ROWS)
               : fp32_smem_bytes(H1, HID);
+}
+
+// 1 when the register budget takes these widths (bf16: reductions up to
+// 240 wide, see rows_fit; fp32 has no such limit). The host's path
+// selection reads it, and hot_loop_bwd refuses the widths it rejects.
+int hot_loop_bwd_fits(int H1, int HID, int bf16) {
+  return !bf16 || rows_fit(tc::Dims(H1, HID, 1).KPMAX);
 }
 
 // Bytes of the scratch buffer a call over R rows takes: the bf16 path's

@@ -236,6 +236,14 @@ size_t hot_loop_fwd_smem_bytes(int H1, int HID, int bf16) {
               : fp32_smem_bytes(H1, HID);
 }
 
+// 1 when the register budget takes these widths: in bf16 a layer's A
+// fragments sit in registers, so every reduction (H1 and HID rounded up to
+// 16) is at most 16 * MAXK16 = 240 wide; fp32 has no such limit. The host's
+// path selection reads it, and hot_loop_fwd refuses the widths it rejects.
+int hot_loop_fwd_fits(int H1, int HID, int bf16) {
+  return !bf16 || tc::Dims(H1, HID, 1).KPMAX <= 16 * tc::MAXK16;
+}
+
 // Bytes of the scratch buffer a call takes: the prepared bf16 weights (bf16
 // path), nothing in fp32.
 size_t hot_loop_fwd_scratch_bytes(int H1, int HID, int D, int bf16) {
@@ -271,8 +279,7 @@ int hot_loop_fwd(const void* h1, const void* w1, const void* b1,
     return (int)cudaGetLastError();
   }
   const tc::Dims d(H1, HID, D);
-  // the A fragments of a layer sit in registers: reductions up to 240
-  if (d.KPMAX > 16 * tc::MAXK16) return (int)cudaErrorInvalidValue;
+  if (!hot_loop_fwd_fits(H1, HID, 1)) return (int)cudaErrorInvalidValue;
   tc::bf16* wp = (tc::bf16*)scratch;
   cudaError_t e = tc::launch_prep((const float*)w1, (const float*)w2,
                                   (const float*)w3, wp, d, s);

@@ -153,7 +153,7 @@ def _kernel_path_code(cfg: model.ModelConfig, device) -> float:
     if not cfg.fused_likelihood:
         return float(hot_loop.PATH_CODES["reference"])
     return float(hot_loop.PATH_CODES[hot_loop.select_path(
-        device, cfg.hot_loop_path)])
+        device, cfg.hot_loop_path, widths=hot_loop.block_widths(cfg))])
 
 
 @torch.no_grad()

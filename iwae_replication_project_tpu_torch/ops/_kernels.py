@@ -43,11 +43,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "hot_loop_fwd": {
         "hot_loop_fwd": (_i, [_vp] * 10 + [_i] * 6 + [_vp]),
         "hot_loop_fwd_smem_bytes": (ctypes.c_size_t, [_i] * 3),
+        "hot_loop_fwd_fits": (_i, [_i] * 3),
         "hot_loop_fwd_scratch_bytes": (ctypes.c_size_t, [_i] * 4),
     },
     "hot_loop_bwd": {
         "hot_loop_bwd": (_i, [_vp] * 12 + [_i] * 6 + [_vp]),
         "hot_loop_bwd_smem_bytes": (ctypes.c_size_t, [_i] * 3),
+        "hot_loop_bwd_fits": (_i, [_i] * 3),
         "hot_loop_bwd_scratch_bytes": (ctypes.c_size_t, [_i] * 5),
     },
     "fused_ll_fwd": {
@@ -92,6 +94,22 @@ def reset_launch_counts(names) -> None:
     with _count_lock:
         for name in names:
             _launches[name] = 0
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x `counts` to the launch counts: a CUDA-graph replay
+    launches what its capture counted, and a capture itself launches
+    nothing (``times=-1`` takes back what the wrappers counted while it
+    was being recorded)."""
+    with _count_lock:
+        for name, n in counts.items():
+            _launches[name] += times * n
+
+
+def all_launch_counts() -> Dict[str, int]:
+    """``{name: launches}`` of every kernel."""
+    with _count_lock:
+        return dict(_launches)
 
 
 def nvcc_path() -> str:

@@ -15,7 +15,10 @@ one function, selected per call:
   paths on the CUDA cores (``csrc/tiles_fp32.cuh``);
 * ``reference`` -- the plain PyTorch composition :func:`_reference_impl`,
   the twin of the JAX ``_reference_impl`` (:810-821), differentiated by plain
-  autograd, taken for CPU tensors or under an explicit ``"reference"`` pin.
+  autograd, taken for CPU tensors, under an explicit ``"reference"`` pin, and
+  on CUDA at widths either kernel refuses (:func:`block_refusal`, from the
+  numbers the kernel libraries state), as the JAX ``select_path`` (:918-983)
+  leaves the Pallas kernel where no tile fits.
 
 :func:`fused_forward` and :func:`fused_backward` are the kernels' wrappers:
 each launches its kernel for CUDA tensors (or raises) and uses its plain
@@ -35,6 +38,7 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -75,18 +79,81 @@ def path_counters() -> dict:
             if name.startswith("kernel_path/")}
 
 
-def select_path(device: torch.device, force: Optional[str] = None) -> str:
+@dataclasses.dataclass(frozen=True)
+class BlockLimits:
+    """What the two kernel libraries state for one output block's widths:
+    each kernel's dynamic shared memory per CTA (``*_smem_bytes``) and
+    whether its register budget takes the widths (``*_fits``)."""
+
+    fwd_smem: int
+    bwd_smem: int
+    fwd_fits: bool
+    bwd_fits: bool
+
+
+def block_refusal(limits: BlockLimits,
+                  max_smem: int = _kernels.MAX_SMEM_BYTES) -> Optional[str]:
+    """Why the kernel pair cannot take a block with these `limits`, or None
+    when both kernels take it: a pure function of the libraries' numbers."""
+    for name, smem, fits in ((KERNEL, limits.fwd_smem, limits.fwd_fits),
+                             (KERNEL_BWD, limits.bwd_smem, limits.bwd_fits)):
+        if not fits:
+            return f"{name}: a reduction wider than its register budget"
+        if smem > max_smem:
+            return (f"{name} needs {smem} bytes of shared memory per CTA; a "
+                    f"Hopper CTA has {max_smem}")
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def library_limits(h1_dim: int, hidden: int, bf16: bool) -> BlockLimits:
+    """:class:`BlockLimits` as the built libraries state them (building them
+    first if needed)."""
+    fwd, bwd = _kernels.load(KERNEL), _kernels.load(KERNEL_BWD)
+    b = int(bf16)
+    return BlockLimits(
+        fwd_smem=int(fwd.hot_loop_fwd_smem_bytes(h1_dim, hidden, b)),
+        bwd_smem=int(bwd.hot_loop_bwd_smem_bytes(h1_dim, hidden, b)),
+        fwd_fits=bool(fwd.hot_loop_fwd_fits(h1_dim, hidden, b)),
+        bwd_fits=bool(bwd.hot_loop_bwd_fits(h1_dim, hidden, b)))
+
+
+def block_widths(cfg) -> tuple:
+    """``(H1, hidden, bf16)`` of a ModelConfig's output block (duck-typed:
+    ops/ does not import models/), as ``models.iwae.init_params`` sizes it."""
+    h1 = cfg.n_latent_dec[-2] if len(cfg.n_latent_dec) > 1 \
+        else cfg.n_latent_enc[-1]
+    return h1, cfg.n_hidden_dec[-1], cfg.compute_dtype == "bfloat16"
+
+
+def select_path(device: torch.device, force: Optional[str] = None,
+                widths: Optional[tuple] = None) -> str:
     """``kernel`` for CUDA tensors, ``reference`` for CPU tensors or under a
     ``"reference"`` pin. A ``"kernel"`` pin on the CPU is an error: there
     is no kernel there, and serving the plain version under the kernel's
-    name would mislabel every stamp."""
+    name would mislabel every stamp.
+
+    With `widths` (``(H1, hidden, bf16)`` of the output block, as
+    :func:`block_widths` gives them) a CUDA device takes the kernel only
+    where :func:`block_refusal` finds nothing in :func:`library_limits`;
+    otherwise ``reference``, and a ``"kernel"`` pin at such widths is an
+    error."""
     if force not in (None, "kernel", "reference"):
         raise ValueError(f"hot-loop path {force!r}: expected None | kernel "
                          f"| reference")
     if force == "reference":
         return "reference"
     if torch.device(device).type == "cuda":
-        return "kernel"
+        if widths is None:
+            return "kernel"
+        why = block_refusal(library_limits(*widths))
+        if why is None:
+            return "kernel"
+        if force == "kernel":
+            raise ValueError(f"hot-loop path 'kernel' pinned at widths "
+                             f"(H1, hidden, bf16)={tuple(widths)} that the "
+                             f"kernel refuses: {why}")
+        return "reference"
     if force == "kernel":
         raise ValueError("hot-loop path 'kernel' needs CUDA tensors; the "
                          "CPU runs the reference path")
@@ -99,14 +166,15 @@ def serving_dispatch_config(cfg, *, device: torch.device,
 
     Models with ``likelihood="clamp"`` and an explicit ``"reference"``
     force keep `cfg` unchanged (the unfused program); otherwise the choice
-    of :func:`select_path` is baked into the config's
-    ``fused_likelihood``/``hot_loop_path`` pins. Unlike the JAX gate it
-    needs no shape: the kernel takes every serving (k, bucket). `cfg` is
-    duck-typed on the ModelConfig fields (ops/ does not import models/).
+    of :func:`select_path` at the model's block widths is baked into the
+    config's ``fused_likelihood``/``hot_loop_path`` pins. Unlike the JAX
+    gate it needs no batch shape: the kernel takes every serving (k,
+    bucket) at the widths it takes. `cfg` is duck-typed on the ModelConfig
+    fields (ops/ does not import models/).
     """
     if getattr(cfg, "likelihood", None) != "logits" or force == "reference":
         return cfg, "reference"
-    path = select_path(device, force)
+    path = select_path(device, force, widths=block_widths(cfg))
     if path == "reference":
         return cfg, "reference"
     return dataclasses.replace(cfg, fused_likelihood=True,
@@ -306,7 +374,9 @@ def decoder_score(out_params, x, h1, *,
     w1, b1 = out_params["l1"]["w"], out_params["l1"]["b"]
     w2, b2 = out_params["l2"]["w"], out_params["l2"]["b"]
     w3, b3 = out_params["out"]["w"], out_params["out"]["b"]
-    path = select_path(h1.device, force_path)
+    path = select_path(h1.device, force_path,
+                       widths=(h1.shape[-1], w1.shape[1],
+                               compute_dtype == torch.bfloat16))
     _record_path(path)
     if path == "kernel":
         return FusedBlockLL.apply(h1.contiguous(), w1, b1, w2, b2, w3, b3,

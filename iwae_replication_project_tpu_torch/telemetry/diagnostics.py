@@ -52,13 +52,14 @@ def grad_accum_init(params) -> Tuple:
                      params))
 
 
-def grad_accum_update(acc: Tuple, grads, include: bool = True) -> Tuple:
-    """Fold one step's grads in (in place) when `include`; the window mask
-    is known on the host, so an excluded step costs nothing."""
-    if include:
-        s1, s2 = acc
-        tree_map(lambda a, g: a.add_(g), s1, grads)
-        tree_map(lambda a, g: a.addcmul_(g, g), s2, grads)
+def grad_accum_update(acc: Tuple, grads) -> Tuple:
+    """Fold one step's grads into the ``(sum g, sum g^2)`` accumulators in
+    place, as two multi-tensor ops over all leaves. The caller folds in only
+    the window's steps (JAX :157-162 weights every step by a 0/1 mask)."""
+    s1, s2 = acc
+    g = tree_leaves(grads)
+    torch._foreach_add_(tree_leaves(s1), g)
+    torch._foreach_addcmul_(tree_leaves(s2), g, g)
     return acc
 
 

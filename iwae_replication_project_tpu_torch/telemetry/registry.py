@@ -202,6 +202,21 @@ class MetricRegistry:
         return {"counters": counters, "gauges": gauges,
                 "histograms": {k: h.summary() for k, h in sorted(hists)}}
 
+    def rows(self, prefix: str = "") -> Dict[str, float]:
+        """Flat ``name -> float`` rows for ``utils.logging.MetricsLogger``:
+        counters and gauges verbatim, histograms as ``<name>/<stat>``."""
+        snap = self.snapshot()
+        out: Dict[str, float] = {}
+        for k, v in snap["counters"].items():
+            out[prefix + k] = float(v)
+        for k, v in snap["gauges"].items():
+            out[prefix + k] = float(v)
+        for name, summary in snap["histograms"].items():
+            for stat, v in summary.items():
+                if v is not None:
+                    out[f"{prefix}{name}/{stat}"] = float(v)
+        return out
+
 
 #: the process-default registry: spans, training-loop diagnostics, and anything
 #: cross-cutting report here; subsystem-scoped registries are built per owner

@@ -11,6 +11,15 @@ moments carry over (JAX :48-58).
 The state is mutable: the step updates the parameters and moments in place
 (``torch.optim.Adam``), where the JAX step returns a new state. Nothing in
 a step synchronises with the host; the loss comes back as a device tensor.
+
+On CUDA a step can be captured in a CUDA graph (``training/epoch.py``), so
+there the state is built for it, eager steps included (the two must give
+the same bits): Adam is ``capturable`` (its step counts live on the device),
+the learning rate is a 0-d device tensor that :func:`set_learning_rate`
+fills in place, so a replay reads the stage's rate and one capture serves
+every stage, and each parameter's ``.grad`` is a static buffer that
+:func:`apply_gradients` overwrites. On the CPU Adam is the plain one with a
+float learning rate.
 """
 
 from __future__ import annotations
@@ -49,6 +58,9 @@ class TrainState:
     optimizer: torch.optim.Adam
     generator: torch.Generator
     step: int = 0
+    #: CUDA graphs captured against this state's tensors, keyed by the
+    #: epoch function that owns each (``training/epoch.py``); never saved
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -57,7 +69,15 @@ class TrainState:
 
 def make_adam(leaves, lr: float = 1e-3, eps: float = ADAM_EPS
               ) -> torch.optim.Adam:
-    return torch.optim.Adam(leaves, lr=lr, betas=ADAM_BETAS, eps=eps)
+    """Adam over `leaves`; on CUDA the capturable form with the learning
+    rate as a 0-d device tensor (see the module note)."""
+    leaves = list(leaves)
+    dev = leaves[0].device
+    if dev.type != "cuda":
+        return torch.optim.Adam(leaves, lr=lr, betas=ADAM_BETAS, eps=eps)
+    return torch.optim.Adam(
+        leaves, lr=torch.tensor(lr, dtype=torch.float32, device=dev),
+        betas=ADAM_BETAS, eps=eps, capturable=True)
 
 
 def create_train_state(seed: int, cfg: model.ModelConfig, output_bias=None,
@@ -78,19 +98,25 @@ def create_train_state(seed: int, cfg: model.ModelConfig, output_bias=None,
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
-    """Stage-boundary LR update that keeps the Adam moments."""
+    """Stage-boundary LR update that keeps the Adam moments (on CUDA written
+    into the device tensor a captured step reads)."""
     for group in state.optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
     return state
 
 
 def apply_gradients(state: TrainState, grads) -> None:
     """One Adam step that ascends the bound: the optimizer descends, so it
-    is handed the negated gradients (JAX :70-71)."""
+    is handed the negated gradients (JAX :70-71), written into each
+    parameter's static ``.grad`` buffer (made on first use)."""
     for p, g in zip(tree_leaves(state.params), tree_leaves(grads)):
-        p.grad = -g
+        if p.grad is None:
+            p.grad = torch.empty_like(p)
+        torch.neg(g, out=p.grad)
     state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
     state.step += 1
 
 

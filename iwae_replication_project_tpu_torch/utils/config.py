@@ -1,13 +1,22 @@
-"""Experiment configuration (port of ``utils/config.py``, reduced to the
-fields the zoo presets set and the ported paths read: data, architecture,
-objective with switching, the training knobs of the Burda schedule, the
-evaluation sizes, ``compute_dtype``, ``serving_precision``, ``likelihood``,
-``fused_likelihood`` and the diagnostics; checkpoint, logging and mesh knobs
-come with their slices)."""
+"""Experiment configuration and its command line (port of
+``utils/config.py``).
+
+The fields are the JAX config's, less the execution knobs the port has no
+counterpart for yet: ``backend`` (ROADMAP A6), the mesh and multihost
+fields (A7), ``compile_cache_dir`` and ``donate_buffers`` (A10) and
+``save_figures`` (the stage figures, A5). :meth:`ExperimentConfig.run_name`
+gives the JAX name for the same science fields, so the two packages name a
+run's checkpoint and log directories alike, and :func:`build_argparser`
+takes the JAX flags of every field the port has; a flag of a field it lacks
+is an error that names its ROADMAP item.
+"""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import hashlib
+import json
 from typing import Optional, Tuple
 
 import torch
@@ -17,6 +26,29 @@ from iwae_replication_project_tpu_torch.objectives.estimators import (
     ObjectiveSpec,
 )
 from iwae_replication_project_tpu_torch.utils.dtypes import validate_precision
+
+#: the config fields that define an experiment's identity (the JAX list)
+SCIENCE_FIELDS = (
+    "dataset", "n_hidden_encoder", "n_hidden_decoder",
+    "n_latent_encoder", "n_latent_decoder", "loss_function", "k", "p",
+    "alpha", "beta", "k2", "batch_size", "adam_eps",
+    "seed", "switch_stage", "switch_loss", "switch_k", "likelihood",
+    "passes_scale")
+
+#: JAX config fields the port does not have: field -> (the JAX default, the
+#: ROADMAP item that brings it). A config JSON may carry one at its default
+#: (a JAX-written config does); any other value is refused.
+JAX_ONLY_FIELDS = {
+    "backend": ("jax", "A6"),
+    "mesh_dp": (None, "A7"), "mesh_sp": (1, "A7"),
+    "multihost": (False, "A7"), "coordinator": (None, "A7"),
+    "num_processes": (None, "A7"), "process_id": (None, "A7"),
+    "compile_cache_dir": (None, "A10"), "donate_buffers": (True, "A10"),
+    "save_figures": (True, "A5"),
+}
+
+_TUPLE_FIELDS = ("n_hidden_encoder", "n_hidden_decoder", "n_latent_encoder",
+                 "n_latent_decoder")
 
 
 @dataclasses.dataclass
@@ -77,6 +109,17 @@ class ExperimentConfig:
     diagnostics: bool = True
     snr_window: int = 50
 
+    # persistence: logs and checkpoints go under <dir>/<run_name()>
+    log_dir: str = "runs"
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_keep: int = 3
+    resume: bool = True
+    # also checkpoint inside a stage, at the first dispatch boundary at
+    # least this many passes after the last save (0 = stage boundaries only)
+    checkpoint_every_passes: int = 0
+    # absorb SIGTERM/SIGINT, finish the dispatch, save, exit 75
+    preemption_grace: bool = True
+
     def __post_init__(self):
         if self.compute_dtype == "float32":
             self.compute_dtype = None
@@ -86,6 +129,10 @@ class ExperimentConfig:
                 f"{self.compute_dtype!r}")
         if self.serving_precision is not None:
             validate_precision(self.serving_precision)
+        if self.checkpoint_every_passes < 0:
+            raise ValueError(
+                f"checkpoint_every_passes must be >= 0 (0 = stage boundaries "
+                f"only), got {self.checkpoint_every_passes}")
 
     def model_config(self, device=None) -> ModelConfig:
         """The architecture as a :class:`ModelConfig`. With
@@ -126,3 +173,176 @@ class ExperimentConfig:
             k = self.switch_k if self.switch_k is not None else k
         return ObjectiveSpec(name=name, k=k, p=self.p, alpha=self.alpha,
                              beta=self.beta, k2=self.k2)
+
+    def science_fields(self) -> dict:
+        """The fields that define the experiment's identity: not the output
+        paths, the execution knobs or ``n_stages`` (extending the schedule
+        and resuming is the intended workflow)."""
+        return {f: getattr(self, f) for f in SCIENCE_FIELDS}
+
+    def run_name(self) -> str:
+        """``IWAE-2L-k_50-binarized_mnist-s0-1a2b3c4d``: the JAX package's
+        name for these science fields (a hash of all of them), so that
+        configs differing in any of them never share a run directory."""
+        ident = hashlib.sha1(
+            json.dumps(self.science_fields(), sort_keys=True, default=list)
+            .encode()).hexdigest()[:8]
+        return (f"{self.loss_function}-{len(self.n_hidden_encoder)}L-k_{self.k}"
+                f"-{self.dataset}-s{self.seed}-{ident}")
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "ExperimentConfig":
+        """The config of a JSON document, this package's or the JAX
+        package's: a JAX-only field (:data:`JAX_ONLY_FIELDS`) at its JAX
+        default is dropped, at any other value refused."""
+        d = json.loads(s)
+        for key, (default, item) in JAX_ONLY_FIELDS.items():
+            if key in d:
+                v = d.pop(key)
+                if v != default and key != "save_figures":
+                    raise ValueError(
+                        f"{key}={v!r} is not supported by the PyTorch port "
+                        f"yet (ROADMAP {item})")
+        for key in _TUPLE_FIELDS:
+            d[key] = tuple(d[key])
+        return ExperimentConfig(**d)
+
+
+def _int_list(s: str) -> Tuple[int, ...]:
+    return tuple(int(v) for v in s.split(",") if v)
+
+
+def _not_ported(item: str, takes_value: bool):
+    """An argparse action refusing a JAX flag whose field the port lacks."""
+    class NotPorted(argparse.Action):
+        def __init__(self, option_strings, dest, **kw):
+            kw.pop("nargs", None)
+            super().__init__(option_strings, dest,
+                             nargs="?" if takes_value else 0, **kw)
+
+        def __call__(self, parser, namespace, values, option_string=None):
+            parser.error(f"{option_string} is not supported by the PyTorch "
+                         f"port yet (ROADMAP {item})")
+    return NotPorted
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    """The JAX runner's flags for every field the port has, the refused
+    ones of the fields it lacks, and ``--device``."""
+    ap = argparse.ArgumentParser(
+        prog="iwae_replication_project_tpu_torch",
+        description="IWAE experiment runner (PyTorch/CUDA port)")
+    ap.add_argument("--config", type=str, default=None,
+                    help="JSON config file; CLI flags override it")
+    ap.add_argument("--preset", type=str, default=None,
+                    help="named experiment from the zoo (reference Tables "
+                         "1-10); CLI flags override it")
+    ap.add_argument("--list-presets", action="store_true", default=False,
+                    help="print all zoo preset names and exit")
+    ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                    help="where to run (default: the CUDA card; a missing "
+                         "card is an error, never a fall back to the CPU)")
+    ap.add_argument("--dataset", default=None, type=str)
+    ap.add_argument("--data-dir", dest="data_dir", default=None, type=str)
+    ap.add_argument("--loss-function", dest="loss_function", default=None,
+                    type=str)
+    ap.add_argument("--k", default=None, type=int)
+    ap.add_argument("--k2", default=None, type=int)
+    ap.add_argument("--p", default=None, type=float)
+    ap.add_argument("--alpha", default=None, type=float)
+    ap.add_argument("--beta", default=None, type=float)
+    ap.add_argument("--batch-size", dest="batch_size", default=None, type=int)
+    ap.add_argument("--n-stages", dest="n_stages", default=None, type=int)
+    ap.add_argument("--passes-scale", dest="passes_scale", default=None,
+                    type=float)
+    ap.add_argument("--seed", default=None, type=int)
+    for flag, item, takes_value in (
+            ("--backend", "A6", True), ("--mesh-dp", "A7", True),
+            ("--mesh-sp", "A7", True), ("--multihost", "A7", False),
+            ("--coordinator", "A7", True), ("--num-processes", "A7", True),
+            ("--process-id", "A7", True),
+            ("--compile-cache-dir", "A10", True),
+            ("--no-donate-buffers", "A10", False)):
+        ap.add_argument(flag, action=_not_ported(item, takes_value),
+                        default=None, help=f"not ported yet (ROADMAP {item})")
+    ap.add_argument("--compute-dtype", dest="compute_dtype", default=None,
+                    type=str)
+    ap.add_argument("--serving-precision", dest="serving_precision",
+                    default=None, type=str,
+                    help="serving precision policy for this config "
+                         "(fp32 | bf16 | int8); read by zoo.serving_engine, "
+                         "never by training")
+    ap.add_argument("--likelihood", default=None, type=str)
+    ap.add_argument("--fused-likelihood", dest="fused_likelihood",
+                    action="store_true", default=None)
+    ap.add_argument("--no-fused-likelihood", dest="fused_likelihood",
+                    action="store_false", default=None)
+    ap.add_argument("--log-dir", dest="log_dir", default=None, type=str)
+    ap.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None,
+                    type=str)
+    ap.add_argument("--checkpoint-every-passes",
+                    dest="checkpoint_every_passes", default=None, type=int,
+                    help="also checkpoint every N passes inside a stage "
+                         "(0 = stage boundaries only)")
+    ap.add_argument("--no-diagnostics", dest="diagnostics",
+                    action="store_false", default=None,
+                    help="disable the estimator diagnostics (ESS, "
+                         "log-weight variance, grad SNR)")
+    ap.add_argument("--snr-window", dest="snr_window", default=None, type=int,
+                    help="trailing train steps in the gradient-SNR estimate")
+    ap.add_argument("--no-preemption-grace", dest="preemption_grace",
+                    action="store_false", default=None,
+                    help="die immediately on SIGTERM/SIGINT instead of "
+                         "finishing the dispatch, saving a mid-stage "
+                         "checkpoint and exiting 75")
+    ap.add_argument("--no-resume", dest="resume", action="store_false",
+                    default=None)
+    ap.add_argument("--no-figures", dest="no_figures", action="store_true",
+                    default=None,
+                    help="accepted for the JAX runner's command lines: the "
+                         "port makes no stage figures yet (ROADMAP A5)")
+    ap.add_argument("--hidden-encoder", dest="n_hidden_encoder", default=None,
+                    type=_int_list)
+    ap.add_argument("--hidden-decoder", dest="n_hidden_decoder", default=None,
+                    type=_int_list)
+    ap.add_argument("--latent-encoder", dest="n_latent_encoder", default=None,
+                    type=_int_list)
+    ap.add_argument("--latent-decoder", dest="n_latent_decoder", default=None,
+                    type=_int_list)
+    ap.add_argument("--eval-k", dest="eval_k", default=None, type=int)
+    ap.add_argument("--nll-k", dest="nll_k", default=None, type=int)
+    ap.add_argument("--nll-chunk", dest="nll_chunk", default=None, type=int)
+    return ap
+
+
+def parse_args(argv=None) -> Tuple[argparse.Namespace, ExperimentConfig]:
+    """``(namespace, config)`` of a command line: the preset or config file,
+    then every flag given on top of it (``--list-presets`` prints the zoo
+    and exits)."""
+    ns = build_argparser().parse_args(argv)
+    if ns.list_presets:
+        from iwae_replication_project_tpu_torch import zoo
+        for name in zoo.configs():
+            print(name)
+        raise SystemExit(0)
+    if ns.preset:
+        from iwae_replication_project_tpu_torch import zoo
+        cfg = zoo.get(ns.preset)
+    elif ns.config:
+        with open(ns.config) as f:
+            cfg = ExperimentConfig.from_json(f.read())
+    else:
+        cfg = ExperimentConfig()
+    for field in dataclasses.fields(ExperimentConfig):
+        v = getattr(ns, field.name, None)
+        if v is not None:
+            setattr(cfg, field.name, v)
+    cfg.__post_init__()  # flags bypass construction: validate again
+    return ns, cfg
+
+
+def config_from_args(argv=None) -> ExperimentConfig:
+    return parse_args(argv)[1]

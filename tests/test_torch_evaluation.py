@@ -345,7 +345,8 @@ def test_eval_never_differentiates_and_counts_its_forwards(monkeypatch):
     tp = tree_map(lambda t: t.requires_grad_(True), tp)
     calls = []
     real = thl.fused_forward
-    monkeypatch.setattr(thl, "select_path", lambda dev, force=None: "kernel")
+    monkeypatch.setattr(thl, "select_path",
+                        lambda dev, force=None, widths=None: "kernel")
     monkeypatch.setattr(thl, "fused_forward",
                         lambda *a: calls.append(1) or real(*a))
 
@@ -377,7 +378,7 @@ def test_eval_generator_streams():
             4, generator=tmet.eval_generator(*other, "cpu")))
 
 
-def test_run_experiment_rows_carry_the_eval_scalars():
+def test_run_experiment_rows_carry_the_eval_scalars(tmp_path):
     """run_experiment evaluates after each stage: every row carries the
     seven scalars (finite), the pruned NLL, the sizes used, active-unit
     counts, the estimator diagnostics and both stage timers; the eval batch
@@ -387,7 +388,9 @@ def test_run_experiment_rows_carry_the_eval_scalars():
     cfg = dataclasses.replace(
         zoo.get("northstar-iwae-2l-k50"), k=3, batch_size=32,
         data_dir="/nonexistent", n_stages=2, eval_k=4, nll_k=40,
-        nll_chunk=16, eval_batch_size=100, activity_samples=20, **arch)
+        nll_chunk=16, eval_batch_size=100, activity_samples=20,
+        log_dir=str(tmp_path / "runs"), checkpoint_dir=str(tmp_path / "ckpt"),
+        **arch)
     _, history = zoo.train(cfg, device="cpu", max_batches_per_pass=2)
     assert [h["stage"] for h in history] == [1, 2]
     for row in history:

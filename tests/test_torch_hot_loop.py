@@ -114,10 +114,15 @@ def test_path_selection_and_counters():
     ("clamp", "cuda", None, "reference"),
     ("clamp", "cuda", "kernel", "reference"),
 ])
-def test_serving_gate_outcomes(likelihood, device, force, path):
+def test_serving_gate_outcomes(likelihood, device, force, path,
+                               monkeypatch):
     """The JAX gate's rule (hot_loop.py:483-484): clamp models and a
     reference force keep the unfused config; logits models on CUDA bake the
-    kernel pin into the dispatch config."""
+    kernel pin into the dispatch config. The gate reads the kernel
+    libraries' numbers at the model's widths, stubbed here as "both
+    kernels take them" (no library is built on the CPU)."""
+    monkeypatch.setattr(thl, "library_limits",
+                        lambda *w: thl.BlockLimits(1024, 1024, True, True))
     cfg = ModelConfig.two_layer(likelihood=likelihood)
     out, got = thl.serving_dispatch_config(cfg, device=torch.device(device),
                                            force=force)

@@ -226,19 +226,23 @@ def test_output_bias_from_pixel_means():
     assert not zero["out"]["out"]["b"].any()
 
 
-def _tiny(**kw):
+def _tiny(tmp_path, **kw):
     """The flagship preset at test widths, with the per-stage evaluation cut
-    to a few samples (nll_k=40, 20 activity samples) to stay fast."""
+    to a few samples (nll_k=40, 20 activity samples) to stay fast, logging
+    and checkpointing under `tmp_path`."""
     arch = dict(n_hidden_encoder=(16, 12), n_latent_encoder=(8, 5),
                 n_hidden_decoder=(12, 16), n_latent_decoder=(8, 784),
-                eval_k=4, nll_k=40, nll_chunk=8, activity_samples=20)
+                eval_k=4, nll_k=40, nll_chunk=8, activity_samples=20,
+                log_dir=str(tmp_path / "runs"),
+                checkpoint_dir=str(tmp_path / "ckpt"))
     arch.update(kw)
     return dataclasses.replace(zoo.get("northstar-iwae-2l-k50"), k=3,
                                batch_size=32, data_dir="/nonexistent", **arch)
 
 
-def test_run_experiment_on_cpu_two_stages():
-    state, history = run_experiment(dataclasses.replace(_tiny(), n_stages=2),
+def test_run_experiment_on_cpu_two_stages(tmp_path):
+    state, history = run_experiment(dataclasses.replace(_tiny(tmp_path),
+                                                        n_stages=2),
                                     max_batches_per_pass=3, device="cpu")
     assert [h["stage"] for h in history] == [1, 2]
     assert [h["passes"] for h in history] == [1, 3]
@@ -252,9 +256,9 @@ def test_run_experiment_on_cpu_two_stages():
         tschedule.burda_stage_lr(2)
 
 
-def test_objective_switching_changes_the_spec():
-    cfg = _tiny(switch_stage=2, switch_loss="VAE", switch_k=1, n_stages=2,
-                diagnostics=False)
+def test_objective_switching_changes_the_spec(tmp_path):
+    cfg = _tiny(tmp_path, switch_stage=2, switch_loss="VAE", switch_k=1,
+                n_stages=2, diagnostics=False)
     assert cfg.objective_spec(1) == ObjectiveSpec(name="IWAE", k=3)
     assert cfg.objective_spec(2) == ObjectiveSpec(name="VAE", k=1)
     assert cfg.objective_spec() == cfg.objective_spec(1)
