@@ -77,8 +77,26 @@ phases, one line per phase, and exits non-zero on the first failure:
    the launches over the three runs (B2 once per step, B1 once per step
    plus each stage evaluation's count), the host ms per step of each stage,
    and of one dispatch of the real ``PASS_BLOCK`` (27 passes);
-8. prints the kernels' JSON record and, last, the contract line
-   ``{"ok": true, "device": {...}}``.
+8. parallel, at flagship width: (a) an NCCL world of one process on mesh
+   (1, 1): the parallel epoch replayed from its CUDA graph, the
+   ``all_reduce`` captured in it, against the same passes run eagerly,
+   bitwise, with B1 and B2 launched exactly once per step on both paths,
+   and one pass on injected draws against the single-device epoch,
+   bitwise; (b) a gloo world of 4 processes on the one card, mesh (2, 2):
+   one IWAE and one DReG step's bound and per-leaf gradients against the
+   single-process step on the same per-shard draws, and the sharded k=5000
+   NLL of 500 rows against the single-device NLL on the same draws, with
+   each rank's host ms per eager step (not speed numbers: gloo copies
+   through the host); (c) ``python -m iwae_replication_project_tpu_torch
+   --mesh-dp 1 --mesh-sp 1`` for 2 stages (one spawned NCCL rank);
+9. the ``FlexibleModel`` facade at the example's architecture: at its
+   defaults (no kernel) compile, fit one epoch, the k=5000 NLL of 100 rows
+   and the statistics suite; a weights round trip, bitwise; one epoch with
+   ``likelihood="logits"`` in bf16 (B1 and B2 once per step); and
+   ``examples/experiment_example_torch.py --smoke``;
+10. prints the kernels' JSON record (launches of the serving and training
+   runs, and per path of phases 8-9 under ``launches_by_path``) and, last,
+   the contract line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -144,6 +162,15 @@ TRAIN_K, TRAIN_B = 50, 100
 #: the full-width evaluation: synthetic test rows, and the generator seed of
 #: the NLL held against the reference path
 EVAL_ROWS, NLL_SEED = 1000, 5
+#: the shapes B1 and B2 take on one rank of the phase-8 meshes: the train
+#: step on dp=2 (k=50 x B=50) and on dp=2 x sp=2 (k=25 x B=50), and the
+#: k=5000 NLL chunk on dp=2 (250 x 250)
+RANK_SHAPES_FWD = [("rank-train-dp2", 50, 50, FLAGSHIP),
+                   ("rank-train-dp2sp2", 25, 50, FLAGSHIP),
+                   ("rank-eval-dp2", 250, 250, FLAGSHIP)]
+RANK_SHAPES_BWD = RANK_SHAPES_FWD[:2]
+#: phase 8b: the gloo mesh on the one card, and the sharded NLL's rows
+GLOO_MESH, NLL_ROWS, NLL_K, NLL_CHUNK = (2, 2), 500, 5000, 250
 
 
 def fail(msg: str) -> int:
@@ -277,7 +304,7 @@ def check_hot_loop(torch, hot_loop):
               ("serve", 50, 64, FLAGSHIP), ("train", TRAIN_K, TRAIN_B, FLAGSHIP),
               ("odd", 13, 17, FLAGSHIP),
               ("odd-widths", 3, 5, dict(h1=37, hid=70, d=130)),
-              ("eval", 250, 500, FLAGSHIP)]
+              ("eval", 250, 500, FLAGSHIP)] + RANK_SHAPES_FWD
     ok = True
     worst = 0.0
     main = None
@@ -303,7 +330,7 @@ def check_hot_loop(torch, hot_loop):
                     f"tol=({atol:g} + {rtol:g}*|ref|) "
                     f"{'ok' if within else 'OUT OF TOLERANCE'}")
             ok &= within
-            if tag in ("serve", "train", "eval"):
+            if tag in ("serve", "train", "eval") or tag.startswith("rank"):
                 t = timings(
                     lambda: hot_loop.fused_forward(*args, compute_dtype=cd),
                     lambda: hot_loop._reference_impl(*args, compute_dtype=cd),
@@ -502,7 +529,7 @@ def check_hot_loop_bwd(torch, hot_loop, lib):
     `lib` is the kernel's loaded library, which states its scratch bytes."""
     shapes = [("train", TRAIN_K, TRAIN_B, FLAGSHIP), ("odd", 13, 17, FLAGSHIP),
               ("odd-widths", 3, 5, dict(h1=37, hid=70, d=130)),
-              ("eval", 250, 500, FLAGSHIP)]
+              ("eval", 250, 500, FLAGSHIP)] + RANK_SHAPES_BWD
     ok = True
     worst = 0.0
     main = None
@@ -539,7 +566,7 @@ def check_hot_loop_bwd(torch, hot_loop, lib):
                     f"{'ok' if within else 'OUT OF TOLERANCE'} | "
                     + "; ".join(parts))
             ok &= within
-            if tag in ("train", "eval"):
+            if tag in ("train", "eval") or tag.startswith("rank"):
                 t = timings(
                     lambda: hot_loop.fused_backward(*args, g, cd),
                     lambda: hot_loop._bwd_plain(*args, g, cd), torch)
@@ -1221,6 +1248,395 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
     return ok and within
 
 
+def _state_tensors(state):
+    """Every tensor and generator state of a rank's train state, in a fixed
+    order: parameters, Adam moments and steps, the generator, the streams."""
+    from iwae_replication_project_tpu_torch.utils.tree import tree_leaves
+    out = [p.detach() for p in tree_leaves(state.params)]
+    for p in tree_leaves(state.params):
+        out += [state.optimizer.state[p][k]
+                for k in ("exp_avg", "exp_avg_sq", "step")]
+    out.append(state.generator.get_state())
+    out += [state.streams[k].get_state() for k in sorted(state.streams)]
+    return out
+
+
+def parallel_nccl(torch, np, zoo, hot_loop, tmp):
+    """Phase 8a: an NCCL world of one process on mesh (1, 1), the flagship
+    preset: the parallel epoch replayed from its CUDA graph (the
+    all_reduce captured in it) against the same passes run eagerly, bitwise
+    in parameters, Adam moments, generators and losses, with the launches
+    of B1 and B2 exact across the replays; then one pass on injected draws
+    against the single-device epoch on the same draws, bitwise. Returns
+    ({kernel: launches of the graph passes}, ok)."""
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.parallel import dp as pdp
+    from iwae_replication_project_tpu_torch.parallel import (
+        make_mesh, multihost)
+    from iwae_replication_project_tpu_torch.training import epoch as te
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+
+    cfg = zoo.get(PRESET)
+    model_cfg = cfg.model_config("cuda")
+    spec = cfg.objective_spec(1)
+    diag = cfg.diagnostics_config()
+    ds = load_dataset(cfg.dataset, data_dir=cfg.data_dir)
+    n = len(ds.x_train) // TRAIN_B * TRAIN_B
+    x = torch.as_tensor(ds.x_train[:n].reshape(n, -1),
+                        dtype=torch.float32).cuda()
+    steps = n // TRAIN_B
+    info = multihost.initialize(f"file://{tmp}/nccl-rendezvous", 1, 0,
+                                device="cuda")
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        print(f"parallel: NCCL world {info}, mesh (dp, sp) = "
+              f"({mesh.dp}, {mesh.sp}), backend {mesh.backend}", flush=True)
+
+        def fresh():
+            return pdp.parallel_train_state(mesh, ts.create_train_state(
+                cfg.seed, model_cfg, output_bias=ds.output_bias))
+
+        fns = [pdp.make_parallel_epoch_fn(spec, model_cfg, mesh, n, TRAIN_B,
+                                          diagnostics=diag, cuda_graph=g)
+               for g in (False, True)]
+        states = [fresh(), fresh()]
+        ok, ms = True, [0.0, 0.0]
+        launches = [{}, {}]
+        for rep in range(4):
+            outs = []
+            for i, fn in enumerate(fns):
+                hot_loop.reset_launch_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                states[i], out = fn(states[i], x)
+                end.record()
+                torch.cuda.synchronize()
+                got = hot_loop.launch_counts()
+                for k_, v in got.items():
+                    launches[i][k_] = launches[i].get(k_, 0) + v
+                ok &= got == {hot_loop.KERNEL: steps,
+                              hot_loop.KERNEL_BWD: steps}
+                outs.append(out[0])
+                if rep:
+                    ms[i] += start.elapsed_time(end) / (3 * steps)
+            ok &= torch.equal(*outs) and all(
+                torch.equal(a, b) for a, b in zip(
+                    _state_tensors(states[0]), _state_tensors(states[1])))
+        graphs = sum(len(e.steps) for e in states[1].graphs.values())
+        ok &= graphs > 0 and not states[0].graphs
+        print(f"parallel: NCCL (1, 1) graph replay vs eager, 4 passes of "
+              f"{steps} steps k={spec.k} B={TRAIN_B} bf16 with diagnostics "
+              f"({graphs} captured step graph(s), all_reduce inside): "
+              f"params, Adam moments, generators and losses bitwise equal, "
+              f"launches B1 = B2 = {steps} per pass on both paths: {ok}; "
+              f"launches {launches[1]} (graph) {launches[0]} (eager); ms "
+              f"per step (CUDA events over a pass, mean of 3 after a warm "
+              f"pass) eager {ms[0]:.4f}, graph {ms[1]:.4f}", flush=True)
+
+        # injected draws: the mesh of one against the single-device epoch
+        g = torch.Generator().manual_seed(17)
+        perm = torch.randperm(n, generator=g)
+        noise = [[torch.randn((spec.k, TRAIN_B, d), generator=g).cuda()
+                  for d in model_cfg.n_latent_enc] for _ in range(steps)]
+        single = te.make_epoch_fn(spec, model_cfg, n, TRAIN_B,
+                                  diagnostics=diag)
+        a, b = fresh(), ts.create_train_state(cfg.seed, model_cfg,
+                                              output_bias=ds.output_bias)
+        a, out_a = fns[1](a, x, perm=perm, noise=noise)
+        b, out_b = single(b, x, perm=perm, noise=noise)
+        torch.cuda.synchronize()
+        same = torch.equal(out_a[0], out_b[0]) and all(
+            torch.equal(u, v) for u, v in zip(_state_tensors(a)[:-3],
+                                              _state_tensors(b)[:-1]))
+        print(f"parallel: NCCL (1, 1) epoch on injected draws vs the "
+              f"single-device epoch, one pass of {steps} steps: losses, "
+              f"params and Adam moments bitwise equal: {same}", flush=True)
+        return launches[1], ok and same
+    finally:
+        multihost.shutdown()
+
+
+def _gloo_rank(rank, world, init, out):
+    """One rank of phase 8b (a process of its own; gloo on the one card)."""
+    import json as _json
+
+    import torch
+
+    from iwae_replication_project_tpu_torch import zoo
+    from iwae_replication_project_tpu_torch.evaluation import metrics as ev
+    from iwae_replication_project_tpu_torch.objectives import (
+        ObjectiveSpec, objective_value_and_grad)
+    from iwae_replication_project_tpu_torch.ops import hot_loop
+    from iwae_replication_project_tpu_torch.parallel import dp as pdp
+    from iwae_replication_project_tpu_torch.parallel import eval as peval
+    from iwae_replication_project_tpu_torch.parallel import (
+        make_mesh, multihost)
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+    from iwae_replication_project_tpu_torch.utils.tree import (
+        tree_leaves, tree_map)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    multihost.initialize(init, world, rank, backend="gloo", device=dev)
+    res = {"rank": rank}
+    try:
+        mesh = make_mesh(*GLOO_MESH, device=dev)
+        probe = mesh.all_reduce(torch.tensor([float(rank)], device=dev),
+                                "max")
+        res["max_ok"] = float(probe) == world - 1
+        cfg = zoo.get(PRESET)
+        model_cfg = cfg.model_config("cuda")
+        state = pdp.parallel_train_state(mesh, ts.create_train_state(
+            cfg.seed, model_cfg))
+        # the steps timed below update the state's parameters in place
+        params = tree_map(lambda t: t.detach().clone(), state.params)
+        g = torch.Generator().manual_seed(23)
+        x = (torch.rand((TRAIN_B, 784), generator=g) > 0.5).float().cuda()
+        eps_full = [torch.randn((TRAIN_K, TRAIN_B, d), generator=g).cuda()
+                    for d in model_cfg.n_latent_enc]
+        b, kl = TRAIN_B // mesh.dp, TRAIN_K // mesh.sp
+        rows = slice(mesh.dp_rank * b, (mesh.dp_rank + 1) * b)
+        ks = slice(mesh.sp_rank * kl, (mesh.sp_rank + 1) * kl)
+        eps = [e[ks, rows].contiguous() for e in eps_full]
+        x_local = x[rows]
+        hot_loop.reset_launch_counts()
+        got = {}
+        for name in ("IWAE", "DReG"):
+            spec = ObjectiveSpec(name=name, k=TRAIN_K)
+            vg = pdp.make_parallel_value_and_grad(spec, model_cfg, mesh,
+                                                  TRAIN_B)
+            got[name] = vg(params, x_local, eps=eps)
+        # ms per step of this rank: the parallel step with Adam, eagerly
+        step = pdp.make_parallel_train_step(cfg.objective_spec(1),
+                                            model_cfg, mesh, TRAIN_B)
+        for _ in range(2):
+            state, _ = step(state, x_local)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, m = step(state, x_local)
+        float(m["loss"])
+        res["step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+
+        # the sharded k=5000 NLL: rows over dp, samples over sp
+        xn = (torch.rand((NLL_ROWS, 784), generator=g) > 0.5).float().cuda()
+        lat = model_cfg.n_latent_enc
+
+        def chunk(c):
+            gc = torch.Generator(device=dev).manual_seed(1000 + c)
+            return [torch.randn((NLL_CHUNK, NLL_ROWS, d), generator=gc,
+                                device=dev) for d in lat]
+
+        nb = NLL_ROWS // mesh.dp
+        nrows = slice(mesh.dp_rank * nb, (mesh.dp_rank + 1) * nb)
+        per_rank = NLL_K // mesh.sp // NLL_CHUNK
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log_px = peval.parallel_streaming_log_px(
+            params, model_cfg, mesh, xn[nrows], NLL_K, NLL_CHUNK,
+            noise=lambda j: [t[:, nrows].contiguous() for t in
+                             chunk(mesh.sp_rank * per_rank + j)])
+        total = mesh.all_reduce(log_px.sum().reshape(1), axis="dp")
+        nll = -float(total) / NLL_ROWS
+        res["nll_ms"] = (time.perf_counter() - t0) * 1e3
+        res["nll"] = nll
+        res["launches"] = hot_loop.launch_counts()
+        res["bounds"] = {k: float(v[0]) for k, v in got.items()}
+        if rank == 0:  # the single-process references, not counted
+            for name in ("IWAE", "DReG"):
+                spec = ObjectiveSpec(name=name, k=TRAIN_K)
+                bound, grads = objective_value_and_grad(
+                    spec, params, model_cfg, x, eps=eps_full)
+                worst = max(float((a - c).abs().max())
+                            / max(float(c.abs().max()), 1e-12)
+                            for a, c in zip(tree_leaves(got[name][1]),
+                                            tree_leaves(grads)))
+                res[f"ref_{name}"] = (float(bound), worst)
+            res["ref_nll"] = -float(ev.streaming_log_px(
+                params, model_cfg, xn, NLL_K, NLL_CHUNK,
+                noise=chunk).mean())
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            _json.dump(res, f)
+    finally:
+        multihost.shutdown()
+
+
+def parallel_gloo(torch, np, hot_loop, tmp):
+    """Phase 8b: a gloo world of 4 processes on the one card, mesh (2, 2),
+    at flagship width: one step's loss and per-leaf gradients for IWAE and
+    DReG against the single-process step on the whole batch with the same
+    per-shard draws; the sharded k=5000 NLL of 500 rows (2500 samples per
+    rank in chunks of 250) against the single-device NLL on the same draws.
+    Returns ({kernel: launches summed over the ranks}, ok)."""
+    from iwae_replication_project_tpu_torch.parallel import multihost
+
+    world = GLOO_MESH[0] * GLOO_MESH[1]
+    t0 = time.perf_counter()
+    codes = multihost.spawn(_gloo_rank, world,
+                            (f"file://{tmp}/gloo-rendezvous", tmp),
+                            timeout=600, grace=30)
+    wall = time.perf_counter() - t0
+    if codes != [0] * world:
+        print(f"FAIL: the gloo ranks exited {codes}", flush=True)
+        return {}, False
+    ranks = []
+    for r in range(world):
+        with open(f"{tmp}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in r0["launches"]}
+    ok = all(r["max_ok"] for r in ranks)
+    if not ok:
+        print("FAIL: gloo's all_reduce on CUDA tensors did not take the MAX")
+    same = all(r["bounds"] == r0["bounds"] and r["nll"] == r0["nll"]
+               for r in ranks)
+    ok &= same
+    atol, _ = TOL["bf16"]
+    for name in ("IWAE", "DReG"):
+        want, worst = r0[f"ref_{name}"]
+        err = abs(-r0["bounds"][name] + want)
+        fine = err <= atol and worst <= GRAD_TOL
+        ok &= fine
+        print(f"parallel: gloo {GLOO_MESH} one {name} step k={TRAIN_K} "
+              f"B={TRAIN_B} bf16 (each rank k={TRAIN_K // GLOO_MESH[1]} x "
+              f"B={TRAIN_B // GLOO_MESH[0]}) vs the single-process step on "
+              f"the same draws: bound abs err {err:.3e} (tol {atol:g}), "
+              f"worst per-leaf max_abs_err/max|ref| {worst:.3e} (tol "
+              f"{GRAD_TOL:g}) {'ok' if fine else 'OUT OF TOLERANCE'}",
+              flush=True)
+    nll_err = abs(r0["nll"] - r0["ref_nll"])
+    nll_ok = nll_err <= NLL_TOL[0] + NLL_TOL[1] * abs(r0["ref_nll"])
+    ok &= nll_ok
+    print(f"parallel: gloo {GLOO_MESH} sharded NLL of {NLL_ROWS} rows, "
+          f"k={NLL_K} ({NLL_K // GLOO_MESH[1]} samples per rank, chunk "
+          f"{NLL_CHUNK}, B1 at {NLL_CHUNK} x {NLL_ROWS // GLOO_MESH[0]}): "
+          f"{r0['nll']:.4f} vs single-device {r0['ref_nll']:.4f} on the "
+          f"same draws, abs err {nll_err:.3e} (tol {NLL_TOL[0]:g} + "
+          f"{NLL_TOL[1]:g}*|ref|) {'ok' if nll_ok else 'OUT OF TOLERANCE'}; "
+          f"every rank the same results: {same}", flush=True)
+    print("parallel: gloo per-rank host ms per eager step k=50 B=100 (gloo "
+          "copies every collective through the host and 4 ranks share one "
+          "card: not speed numbers) "
+          + " ".join(f"rank{r['rank']}={r['step_ms']:.2f}" for r in ranks)
+          + "; sharded NLL ms per rank "
+          + " ".join(f"rank{r['rank']}={r['nll_ms']:.1f}" for r in ranks)
+          + f"; world wall {wall:.1f}s", flush=True)
+    want_ok = launches.get(hot_loop.KERNEL, 0) > 0 and \
+        launches.get(hot_loop.KERNEL_BWD, 0) > 0
+    print(f"parallel: gloo launches summed over the ranks {launches} "
+          f"{'ok' if want_ok else 'FAIL: a kernel of the path never ran'}",
+          flush=True)
+    return launches, ok and want_ok
+
+
+def parallel_cli(np, tmp):
+    """Phase 8c: ``python -m iwae_replication_project_tpu_torch --mesh-dp 1
+    --mesh-sp 1``, 2 stages of the flagship: one spawned rank on NCCL,
+    whose step is the captured graph with its all_reduce. Returns ok."""
+    cmd = [sys.executable, "-m", "iwae_replication_project_tpu_torch",
+           "--mesh-dp", "1", "--mesh-sp", "1", "--n-stages", "2",
+           "--log-dir", f"{tmp}/cli/runs",
+           "--checkpoint-dir", f"{tmp}/cli/ckpt"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=str(Path(__file__).resolve().parent))
+    wall = time.perf_counter() - t0
+    stages = [ln for ln in proc.stdout.splitlines()
+              if ln.startswith("stage ")]
+    rows = []
+    for d in Path(f"{tmp}/cli/runs").glob("*/metrics.jsonl"):
+        rows += [json.loads(ln) for ln in d.read_text().splitlines()]
+    ok = proc.returncode == 0 and len(stages) == 2 and \
+        [r["stage"] for r in rows] == [1.0, 2.0] and \
+        all(np.isfinite(r["NLL"]) for r in rows)
+    for ln in stages:
+        print(f"parallel: cli {ln}", flush=True)
+    print(f"parallel: cli --mesh-dp 1 --mesh-sp 1 --n-stages 2 exit "
+          f"{proc.returncode} in {wall:.1f}s (spawn, NCCL init, 2 stages and "
+          f"their evaluation), {len(rows)} logged rows "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+    return ok
+
+
+def facade(torch, np, hot_loop, tmp):
+    """Phase 9: the FlexibleModel facade at the example's architecture on
+    the card, at its defaults (clamp likelihood, fp32: no kernel, as the JAX
+    facade): compile, fit one epoch, the k=5000 NLL of 100 rows and the
+    statistics suite; a save_weights/load_weights round trip, bitwise; one
+    epoch with likelihood="logits" and bf16, which runs B1 and B2; then
+    ``examples/experiment_example_torch.py --smoke``. Returns ({kernel:
+    launches of the logits epoch}, ok)."""
+    from iwae_replication_project_tpu_torch.api import FlexibleModel
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.utils.tree import tree_leaves
+
+    arch = ([200, 100], [100, 200], [100, 50], [100, 784])
+    ds = load_dataset("binarized_mnist", data_dir="data")
+    hot_loop.reset_launch_counts()
+    t0 = time.perf_counter()
+    mdl = FlexibleModel(*arch, dataset_bias=None, pixel_means=ds.bias_means,
+                        loss_function="IWAE", k=TRAIN_K).compile()
+    hist = mdl.fit(ds.x_train, epochs=1, batch_size=TRAIN_B,
+                   binarization=ds.binarization)
+    nll = float(mdl.get_NLL(ds.x_test[:100], k=5000))
+    res, res2 = mdl.get_training_statistics(ds.x_test[:100], TRAIN_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    none = hot_loop.launch_counts()
+    ok = none == {hot_loop.KERNEL: 0, hot_loop.KERNEL_BWD: 0} and \
+        np.isfinite(hist["loss"][0]) and np.isfinite(nll) and \
+        all(np.isfinite(res[n]) for n in SCALARS)
+    print(f"facade: defaults (clamp, fp32) compile + fit 1 epoch "
+          f"(loss {hist['loss'][0]:.4f}) + get_NLL k=5000 on 100 rows "
+          f"({nll:.4f}) + get_training_statistics (NLL {res['NLL']:.4f}, "
+          f"IWAE {res['IWAE']:.4f}, active "
+          f"{res2['number_of_active_units']}) in {wall:.1f}s; launches "
+          f"{none} (none expected) {'ok' if ok else 'FAIL'}", flush=True)
+    path = mdl.save_weights(f"{tmp}/facade_weights")
+    other = FlexibleModel(*arch, dataset_bias=None, seed=5).compile()
+    other.load_weights(path)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(other.params),
+                                                 tree_leaves(mdl.params)))
+    ok &= same
+    print(f"facade: save_weights/load_weights round trip ({path.split('/')[-1]}"
+          f", the JAX facade's .npz) bitwise: {same}", flush=True)
+    fast = FlexibleModel(*arch, dataset_bias=None, pixel_means=ds.bias_means,
+                         loss_function="IWAE", k=TRAIN_K,
+                         likelihood="logits",
+                         compute_dtype="bfloat16").compile()
+    hot_loop.reset_launch_counts()
+    hist = fast.fit(ds.x_train, epochs=1, batch_size=TRAIN_B,
+                    binarization=ds.binarization)
+    torch.cuda.synchronize()
+    launches = hot_loop.launch_counts()
+    steps = len(ds.x_train) // TRAIN_B
+    fast_ok = launches == {hot_loop.KERNEL: steps,
+                           hot_loop.KERNEL_BWD: steps} and \
+        np.isfinite(hist["loss"][0])
+    ok &= fast_ok
+    print(f"facade: likelihood=logits bf16 fit 1 epoch of {steps} steps "
+          f"(loss {hist['loss'][0]:.4f}): launches {launches} "
+          f"{'ok' if fast_ok else 'FAIL'}", flush=True)
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(here / "examples" / "experiment_example_torch.py"),
+         "--smoke", "--out-dir", f"{tmp}/example"], cwd=str(here),
+        capture_output=True, text=True, timeout=600)
+    ex_ok = proc.returncode == 0 and "done: 2 stages" in proc.stdout
+    ok &= ex_ok
+    print(f"facade: examples/experiment_example_torch.py --smoke exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if ex_ok else 'FAIL'}", flush=True)
+    if not ex_ok:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+    return launches, ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1308,6 +1724,24 @@ def main() -> int:
     _, ok = driver(torch, np, zoo, hot_loop)
     if not ok:
         return fail("the driver phase failed")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl_launches, ok = parallel_nccl(torch, np, zoo, hot_loop, tmp)
+        if not ok:
+            return fail("the NCCL mesh phase failed")
+        gloo_launches, ok = parallel_gloo(torch, np, hot_loop, tmp)
+        if not ok:
+            return fail("the gloo mesh phase failed")
+        if not parallel_cli(np, tmp):
+            return fail("the mesh command line failed")
+        facade_launches, ok = facade(torch, np, hot_loop, tmp)
+        if not ok:
+            return fail("the facade phase failed")
+    for rec in (record, record_bwd):
+        rec["launches_by_path"] = {
+            "parallel_nccl_1x1": nccl_launches.get(rec["name"], 0),
+            "parallel_gloo_2x2": gloo_launches.get(rec["name"], 0),
+            "facade_logits_bf16": facade_launches.get(rec["name"], 0)}
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records}),

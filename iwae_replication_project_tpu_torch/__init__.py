@@ -29,7 +29,13 @@ What is ported so far:
   forward kernel;
 * the fused Bernoulli likelihood of the decoder's last layer,
   ``ops.fused_likelihood.fused_bernoulli_ll``, with its forward and
-  backward kernels in ``csrc/fused_ll_fwd.cu`` and ``csrc/fused_ll_bwd.cu``.
+  backward kernels in ``csrc/fused_ll_fwd.cu`` and ``csrc/fused_ll_bwd.cu``;
+* data and sample parallelism over ``torch.distributed``: ``parallel``
+  (the ``(dp, sp)`` mesh, the sharded step, epoch and evaluation, the
+  processes and their group, the DDP-placed step), which the driver takes
+  under its mesh flags;
+* the reference's facade, ``api.FlexibleModel``
+  (``examples/experiment_example_torch.py``).
 
 The package imports ``torch`` and ``numpy`` only: never ``jax`` and nothing
 of the JAX package. Entry points run on ``cuda`` unless the caller passes

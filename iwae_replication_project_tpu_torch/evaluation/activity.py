@@ -21,6 +21,7 @@ from iwae_replication_project_tpu_torch.models.mlp import (
 )
 from iwae_replication_project_tpu_torch.ops import distributions as dist
 from iwae_replication_project_tpu_torch.ops.logsumexp import (
+    OnlineLSE,
     streaming_logmeanexp,
 )
 from iwae_replication_project_tpu_torch.utils.sizes import largest_divisor_leq
@@ -45,6 +46,18 @@ def posterior_mean_activity(params, cfg: model.ModelConfig, x: torch.Tensor,
     encoder samples (``noise(i)`` injects them); a chunk that does not
     divide `n_samples` is clamped to the largest divisor.
     """
+    sums = posterior_sample_sums(params, cfg, x, n_samples, chunk,
+                                 generator=generator, noise=noise)
+    return activity_from_means([s / n_samples for s in sums])
+
+
+@torch.no_grad()
+def posterior_sample_sums(params, cfg: model.ModelConfig, x: torch.Tensor,
+                          n_samples: int, chunk: int = 10, *,
+                          generator: Optional[torch.Generator] = None,
+                          noise: Optional[Callable[[int], Eps]] = None):
+    """Per layer, the ``[N, d_i]`` sum of `n_samples` encoder samples, in
+    chunks of `chunk` (clamped to the largest divisor of `n_samples`)."""
     chunk = largest_divisor_leq(n_samples, chunk)
     sums = [torch.zeros((x.shape[0], d), device=x.device)
             for d in cfg.n_latent_enc]
@@ -53,7 +66,12 @@ def posterior_mean_activity(params, cfg: model.ModelConfig, x: torch.Tensor,
                                eps=None if noise is None else noise(i))
         for s, hi in zip(sums, h):
             s += torch.sum(hi, dim=0)
-    means = [s / n_samples for s in sums]
+    return sums
+
+
+def activity_from_means(means):
+    """``(variances, eigenvalues)`` of per-layer ``[N, d_i]`` posterior
+    means."""
     variances = tuple(torch.var(m, dim=0, correction=0) for m in means)
     eigenvalues = tuple(pca_eigenvalues(m) for m in means)
     return variances, eigenvalues
@@ -111,15 +129,18 @@ def nll_without_inactive_units(params, cfg: model.ModelConfig,
                                x: torch.Tensor, masks, k: int = 5000,
                                chunk: int = 250, *,
                                generator: Optional[torch.Generator] = None,
-                               noise: Optional[Callable[[int], Eps]] = None
+                               noise: Optional[Callable[[int], Eps]] = None,
+                               merge: Optional[Callable[[OnlineLSE],
+                                                        OnlineLSE]] = None
                                ) -> torch.Tensor:
     """0-d ``-L_k`` with pruned latents, streamed in k-chunks like the
     unpruned NLL (JAX :98-119); a chunk that does not divide k is clamped to
-    the largest divisor. ``noise(j)`` injects chunk j's draws."""
+    the largest divisor. ``noise(j)`` injects chunk j's draws; `merge` is
+    :func:`..metrics.streaming_log_px`'s."""
     chunk = largest_divisor_leq(k, chunk)
     log_px = streaming_logmeanexp(
         lambda j: _masked_log_weights(params, cfg, x, masks, chunk,
                                       generator=generator,
                                       eps=None if noise is None else noise(j)),
-        k, chunk, (x.shape[0],), device=x.device)
+        k, chunk, (x.shape[0],), device=x.device, merge=merge)
     return -torch.mean(log_px)

@@ -38,6 +38,7 @@ from iwae_replication_project_tpu_torch.objectives import estimators as est
 from iwae_replication_project_tpu_torch.ops import distributions as dist
 from iwae_replication_project_tpu_torch.ops import hot_loop
 from iwae_replication_project_tpu_torch.ops.logsumexp import (
+    OnlineLSE,
     streaming_logmeanexp,
 )
 from iwae_replication_project_tpu_torch.utils.sizes import largest_divisor_leq
@@ -78,16 +79,19 @@ def batch_metrics(params, cfg: model.ModelConfig, x: torch.Tensor, k: int, *,
 def streaming_log_px(params, cfg: model.ModelConfig, x: torch.Tensor,
                      k: int = 5000, chunk: int = 250, *,
                      generator: Optional[torch.Generator] = None,
-                     noise: Optional[Callable[[int], Eps]] = None
+                     noise: Optional[Callable[[int], Eps]] = None,
+                     merge: Optional[Callable[[OnlineLSE], OnlineLSE]] = None
                      ) -> torch.Tensor:
     """Per-example IWAE-k log-likelihood estimate ``[B]``, O(chunk) memory.
 
     Chunk j draws `chunk` fresh importance samples (``noise(j)`` injects
-    them) and folds their log-weights into the online carry."""
+    them) and folds their log-weights into the online carry. `merge` turns
+    the carry of these k samples into that of all the ranks' samples
+    (``parallel/eval.py``; the estimate then averages over them all)."""
     return streaming_logmeanexp(
         lambda j: model.log_weights(params, cfg, x, chunk, generator=generator,
                                     eps=None if noise is None else noise(j)),
-        k, chunk, (x.shape[0],), device=x.device)
+        k, chunk, (x.shape[0],), device=x.device, merge=merge)
 
 
 def streaming_nll(params, cfg: model.ModelConfig, x: torch.Tensor,

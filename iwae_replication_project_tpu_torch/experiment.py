@@ -31,14 +31,26 @@ The evaluation is the full suite of
 on, :func:`..telemetry.diagnostics.estimator_diagnostics`, fetched with the
 grad-SNR scalars of the stage's last dispatch. It draws from its own
 generators (:func:`..evaluation.metrics.eval_generator`), never from the
-training stream. Stage figures, the mesh, multihost, the compile cache and
-the eager backends are not ported (ROADMAP A5, A7, A10, A6).
+training stream.
+
+**Under a mesh** (any of ``mesh_dp``, ``mesh_sp > 1``, ``multihost``; JAX
+:141-150) every rank runs :func:`run_experiment` in a process of its own,
+in the process group :func:`main` made: the passes through
+``parallel.dp.make_parallel_epoch_fn``, the evaluation through
+``parallel.eval.parallel_training_statistics`` (JAX :354-366). Only rank 0
+prints, logs and writes ``results.pkl``; checkpoints gather every rank's
+generators and rank 0 writes them (``utils/checkpoint.py``). The ranks
+agree on a preemption at every dispatch boundary (one MAX ``all_reduce``),
+so a signal that reaches one rank stops them all at the same pass. The
+estimator diagnostics are skipped under ``multihost``, as in JAX (:382).
+Stage figures and the compile cache are not ported (ROADMAP A5, A10).
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import tempfile
 import time
 from typing import Optional
 
@@ -48,6 +60,15 @@ from iwae_replication_project_tpu_torch.data import load_dataset
 from iwae_replication_project_tpu_torch.evaluation.metrics import (
     eval_generator,
     training_statistics,
+)
+from iwae_replication_project_tpu_torch.parallel import (
+    make_mesh,
+    make_parallel_epoch_fn,
+    multihost,
+    parallel_train_state,
+)
+from iwae_replication_project_tpu_torch.parallel.eval import (
+    parallel_training_statistics,
 )
 from iwae_replication_project_tpu_torch.telemetry.diagnostics import (
     estimator_diagnostics,
@@ -95,11 +116,17 @@ class TrainingPreempted(RuntimeError):
         self.step = step
 
 
-def _resume(cfg: ExperimentConfig, state, ckpt_dir: str, stages) -> tuple:
+def _signal_name(guard) -> str:
+    return str(guard.signum) if guard.signum is not None \
+        else "(on another rank)"
+
+
+def _resume(cfg: ExperimentConfig, state, ckpt_dir: str, stages,
+            mesh=None, say=print) -> tuple:
     """Restore the newest intact checkpoint into `state`; returns
     ``(start stage, passes already done in it)``."""
     restored = restore_latest(ckpt_dir, state,
-                              expect_config_json=cfg.to_json())
+                              expect_config_json=cfg.to_json(), mesh=mesh)
     if restored is None:
         # run_name() hashes the science fields, so another config's
         # checkpoints are invisible to resume: name the near misses
@@ -111,18 +138,18 @@ def _resume(cfg: ExperimentConfig, state, ckpt_dir: str, stages) -> tuple:
             if stale:
                 shown = ", ".join(stale[:3]) + (", ..." if len(stale) > 3
                                                 else "")
-                print(f"note: no checkpoint under {ckpt_dir}, but "
-                      f"{len(stale)} same-prefix run dir(s) exist ({shown}): "
-                      f"they belong to a different config hash and will NOT "
-                      f"be resumed")
+                say(f"note: no checkpoint under {ckpt_dir}, but "
+                    f"{len(stale)} same-prefix run dir(s) exist ({shown}): "
+                    f"they belong to a different config hash and will NOT "
+                    f"be resumed")
         return 1, 0
     _, _, stage, passes_done = restored
     lengths = {s: n for s, _, n in stages}
     if passes_done is not None and passes_done < lengths.get(stage, 0):
-        print(f"resumed from mid-stage checkpoint; continuing at stage "
-              f"{stage}, pass {passes_done + 1}")
+        say(f"resumed from mid-stage checkpoint; continuing at stage "
+            f"{stage}, pass {passes_done + 1}")
         return stage, passes_done
-    print(f"resumed from checkpoint; continuing at stage {stage + 1}")
+    say(f"resumed from checkpoint; continuing at stage {stage + 1}")
     return stage + 1, 0
 
 
@@ -131,7 +158,10 @@ def run_experiment(cfg: ExperimentConfig,
     """Run the staged experiment; returns ``(state, history)``.
 
     `device` None means the card (a missing card raises); pass ``"cpu"`` to
-    run on the CPU, where the kernels use their plain versions.
+    run on the CPU, where the kernels use their plain versions. A config
+    that asks for a mesh runs on the mesh of the current process group (a
+    world of one needs none): each rank calls this, and every rank returns
+    the same history.
     `max_batches_per_pass` cuts the training set to that many batches, for
     smoke runs. ``history`` has one dict per stage run here (a resumed run
     skips the stages its checkpoint holds): ``stage``, ``learning_rate``,
@@ -148,6 +178,12 @@ def run_experiment(cfg: ExperimentConfig,
     ``synthetic_data``, ``raw_means_bias`` and ``bfloat16``.
     """
     dev = resolve_device(device)
+    mesh = make_mesh(cfg.mesh_dp, cfg.mesh_sp, device=dev) \
+        if cfg.uses_mesh() else None
+    if mesh is not None:
+        dev = mesh.device
+    primary = mesh is None or mesh.rank == 0
+    say = print if primary else (lambda *a, **kw: None)
     ds = load_dataset(cfg.dataset, data_dir=cfg.data_dir,
                       allow_synthetic=cfg.allow_synthetic)
     model_cfg = cfg.model_config(dev)
@@ -155,6 +191,8 @@ def run_experiment(cfg: ExperimentConfig,
     state = create_train_state(cfg.seed, model_cfg,
                                output_bias=ds.output_bias, lr=stages[0][1],
                                device=dev, eps=cfg.adam_eps)
+    if mesh is not None:
+        state = parallel_train_state(mesh, state)
     n_train = len(ds.x_train)
     if max_batches_per_pass is not None:
         n_train = min(n_train, max_batches_per_pass * cfg.batch_size)
@@ -171,14 +209,27 @@ def run_experiment(cfg: ExperimentConfig,
     def epoch_fn_for(spec, epochs_per_call):
         key = (spec, epochs_per_call)
         if key not in epoch_fns:
+            kw = dict(stochastic_binarization=stoch_bin,
+                      diagnostics=diag_cfg, epochs_per_call=epochs_per_call)
             epoch_fns[key] = make_epoch_fn(
-                spec, model_cfg, n_train, cfg.batch_size,
-                stochastic_binarization=stoch_bin, diagnostics=diag_cfg,
-                epochs_per_call=epochs_per_call)
+                spec, model_cfg, n_train, cfg.batch_size, **kw) \
+                if mesh is None else make_parallel_epoch_fn(
+                    spec, model_cfg, mesh, n_train, cfg.batch_size, **kw)
         return epoch_fns[key]
 
+    def stop_requested() -> bool:
+        """Whether to stop at this boundary; under a process group the
+        ranks agree (any rank signalled stops all)."""
+        if guard is None:
+            return False
+        if mesh is None or mesh.device_mesh is None:
+            return guard.requested
+        flag = torch.tensor([float(guard.requested)], device=dev)
+        return bool(mesh.all_reduce(flag, "max").item())
+
     ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.run_name())
-    start_stage, start_offset = (_resume(cfg, state, ckpt_dir, stages)
+    start_stage, start_offset = (_resume(cfg, state, ckpt_dir, stages, mesh,
+                                         say)
                                  if cfg.resume else (1, 0))
 
     # opened lazily: a resumed, already complete run touches no run dir
@@ -189,7 +240,7 @@ def run_experiment(cfg: ExperimentConfig,
         for stage, lr, passes in stages:
             if stage < start_stage:
                 continue
-            if logger is None:
+            if logger is None and primary:
                 logger = MetricsLogger(cfg.log_dir, run_name=cfg.run_name())
             state = set_learning_rate(state, lr)
             spec = cfg.objective_spec(stage)
@@ -201,7 +252,8 @@ def run_experiment(cfg: ExperimentConfig,
                 t_ck = time.perf_counter()
                 save_checkpoint(ckpt_dir, state.step, state, stage,
                                 config_json=cfg.to_json(),
-                                keep=cfg.checkpoint_keep, passes_done=done)
+                                keep=cfg.checkpoint_keep, passes_done=done,
+                                mesh=mesh)
                 ckpt_s += time.perf_counter() - t_ck
                 since_save = 0
 
@@ -210,11 +262,11 @@ def run_experiment(cfg: ExperimentConfig,
                 # mid-stage state and stop), then the cadence save; a signal
                 # at the stage's last boundary waits for the stage's own save
                 fault_point(SITE_TRAIN_PASS, stage=stage, done=done)
-                if guard is not None and guard.requested and done < passes:
+                if done < passes and stop_requested():
                     save_mid_stage()
-                    print(f"preemption grace: signal {guard.signum} "
-                          f"absorbed; mid-stage checkpoint saved at stage "
-                          f"{stage}, pass {done} (step {state.step})")
+                    say(f"preemption grace: signal {_signal_name(guard)} "
+                        f"absorbed; mid-stage checkpoint saved at stage "
+                        f"{stage}, pass {done} (step {state.step})")
                     raise TrainingPreempted(stage, done, state.step)
                 if cfg.checkpoint_every_passes and done < passes \
                         and since_save >= cfg.checkpoint_every_passes:
@@ -250,19 +302,22 @@ def run_experiment(cfg: ExperimentConfig,
                    "raw_means_bias": ds.bias_source == "raw",
                    "bfloat16": cfg.compute_dtype == "bfloat16"}
             t_eval = time.perf_counter()
+            eval_kw = dict(batch_size=eval_batch, nll_k=cfg.nll_k,
+                           nll_chunk=cfg.nll_chunk,
+                           activity_samples=cfg.activity_samples,
+                           generator=eval_generator(cfg.seed, stage, dev))
             res, res2 = training_statistics(
-                state.params, model_cfg, x_test, cfg.eval_k,
-                batch_size=eval_batch, nll_k=cfg.nll_k,
-                nll_chunk=cfg.nll_chunk,
-                activity_samples=cfg.activity_samples,
-                generator=eval_generator(cfg.seed, stage, dev))
+                state.params, model_cfg, x_test, cfg.eval_k, **eval_kw) \
+                if mesh is None else parallel_training_statistics(
+                    state.params, model_cfg, mesh, x_test, cfg.eval_k,
+                    **eval_kw)
             row.update(res)
             row["number_of_active_units"] = res2["number_of_active_units"]
             row["number_of_PCA_active_units"] = \
                 res2["number_of_PCA_active_units"]
             if diag_cfg is not None:
                 ebs = largest_divisor_leq(n_test, eval_batch)
-                diag_vals = estimator_diagnostics(
+                diag_vals = {} if cfg.multihost else estimator_diagnostics(
                     state.params, model_cfg,
                     x_test.reshape(n_test // ebs, ebs, -1), cfg.eval_k,
                     diag_cfg,
@@ -275,28 +330,31 @@ def run_experiment(cfg: ExperimentConfig,
                     reg.gauge(key).set(v)
             row["stage_eval_seconds"] = time.perf_counter() - t_eval
             history.append(row)
-            print(f"stage {stage}: lr={lr:.2e} objective {spec.name} "
-                  f"k={spec.k} passes={passes} steps={state.step} "
-                  f"loss={row['pass_losses'][-1]:.4f} "
-                  f"NLL={row['NLL']:.4f} IWAE={row['IWAE']:.4f} "
-                  f"active={row['number_of_active_units']}", flush=True)
+            say(f"stage {stage}: lr={lr:.2e} objective {spec.name} "
+                f"k={spec.k} passes={passes} steps={state.step} "
+                f"loss={row['pass_losses'][-1]:.4f} "
+                f"NLL={row['NLL']:.4f} IWAE={row['IWAE']:.4f} "
+                f"active={row['number_of_active_units']}", flush=True)
 
-            if diag_cfg is not None:
-                if telem_logger is None:
-                    telem_logger = MetricsLogger(logger.dir,
-                                                 run_name="telemetry")
-                telem_logger.log_registry(get_registry(), step=state.step)
-            logger.log(row, step=state.step)
-            with open(os.path.join(logger.dir, "results.pkl"), "wb") as f:
-                pickle.dump(history, f)
+            if logger is not None:
+                if diag_cfg is not None:
+                    if telem_logger is None:
+                        telem_logger = MetricsLogger(logger.dir,
+                                                     run_name="telemetry")
+                    telem_logger.log_registry(get_registry(),
+                                              step=state.step)
+                logger.log(row, step=state.step)
+                with open(os.path.join(logger.dir, "results.pkl"),
+                          "wb") as f:
+                    pickle.dump(history, f)
 
             save_checkpoint(ckpt_dir, state.step, state, stage,
                             config_json=cfg.to_json(),
-                            keep=cfg.checkpoint_keep)
-            if guard is not None and guard.requested:
-                print(f"preemption grace: signal {guard.signum} absorbed; "
-                      f"stage {stage} completed and saved (step "
-                      f"{state.step})")
+                            keep=cfg.checkpoint_keep, mesh=mesh)
+            if stop_requested():
+                say(f"preemption grace: signal {_signal_name(guard)} absorbed; "
+                    f"stage {stage} completed and saved (step "
+                    f"{state.step})")
                 raise TrainingPreempted(stage, passes, state.step)
     finally:
         if guard is not None:
@@ -307,18 +365,83 @@ def run_experiment(cfg: ExperimentConfig,
     return state, history
 
 
+def _run_or_exit(cfg: ExperimentConfig, device) -> None:
+    try:
+        run_experiment(cfg, device=device)
+    except TrainingPreempted as e:
+        if multihost.process_info()["process_index"] == 0:
+            print(f"exiting {PREEMPTED_EXIT_CODE} (preempted): {e}",
+                  flush=True)
+        raise SystemExit(PREEMPTED_EXIT_CODE) from None
+
+
+def _rank_main(rank: int, world: int, cfg_json: str, device,
+               init_method: str) -> None:
+    """One spawned rank of :func:`main`'s single-host mesh."""
+    dev = torch.device("cpu") if resolve_device(device).type == "cpu" \
+        else torch.device("cuda", rank)
+    if dev.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    multihost.initialize(init_method, world, rank, device=dev)
+    try:
+        _run_or_exit(ExperimentConfig.from_json(cfg_json), dev)
+    finally:
+        multihost.shutdown()
+
+
+def local_world(cfg: ExperimentConfig, device) -> int:
+    """The ranks a single-host mesh of `cfg` takes: ``dp x sp``, with dp
+    None absorbing the local cards (one rank per card; on the CPU, dp 1)."""
+    dev = resolve_device(device)
+    sp = cfg.mesh_sp
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        dp = cfg.mesh_dp if cfg.mesh_dp is not None else cards // sp
+        if dp < 1 or dp * sp > cards:
+            raise ValueError(f"mesh {cfg.mesh_dp}x{sp} needs one card per "
+                             f"rank; this host has {cards}")
+        return dp * sp
+    return (cfg.mesh_dp if cfg.mesh_dp is not None else 1) * sp
+
+
 def main(argv=None):
     """``python -m iwae_replication_project_tpu_torch [flags]``: the JAX
     runner's command line (``utils/config.build_argparser``) plus
-    ``--device``; exits :data:`PREEMPTED_EXIT_CODE` when preempted."""
+    ``--device``; exits :data:`PREEMPTED_EXIT_CODE` when preempted.
+
+    A mesh flag without ``--multihost`` starts one rank per local card
+    (on the CPU, ``dp x sp`` ranks) and waits for them; ``--multihost``
+    joins this process to a cluster as one rank (``--coordinator``,
+    ``--num-processes``, ``--process-id``, or torchrun's environment)."""
     from iwae_replication_project_tpu_torch.utils.config import parse_args
 
     ns, cfg = parse_args(argv)
-    try:
-        run_experiment(cfg, device=ns.device)
-    except TrainingPreempted as e:
-        print(f"exiting {PREEMPTED_EXIT_CODE} (preempted): {e}", flush=True)
-        raise SystemExit(PREEMPTED_EXIT_CODE) from None
+    if cfg.multihost:
+        multihost.initialize(cfg.coordinator, cfg.num_processes,
+                             cfg.process_id, device=ns.device)
+        try:
+            _run_or_exit(cfg, ns.device)
+        finally:
+            multihost.shutdown()
+        return
+    if not cfg.uses_mesh():
+        _run_or_exit(cfg, ns.device)
+        return
+    world = local_world(cfg, ns.device)
+    if resolve_device(ns.device).type == "cuda" and \
+            cfg.model_config("cuda").fused_likelihood:
+        # build the kernels once here, not in every rank at once
+        from iwae_replication_project_tpu_torch.ops import _kernels, hot_loop
+        _kernels.build([hot_loop.KERNEL, hot_loop.KERNEL_BWD])
+    with tempfile.TemporaryDirectory() as d:
+        codes = multihost.spawn(
+            _rank_main, world,
+            (cfg.to_json(), ns.device, f"file://{d}/rendezvous"))
+    if any(c == PREEMPTED_EXIT_CODE for c in codes):
+        raise SystemExit(PREEMPTED_EXIT_CODE)
+    bad = [c for c in codes if c != 0]
+    if bad:
+        raise SystemExit(f"ranks exited with {codes}")
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ the host.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -147,14 +147,20 @@ def lse_var_stats(s: torch.Tensor, s2: torch.Tensor, n) -> tuple:
 
 def streaming_logmeanexp(log_w_fn: Callable[[int], torch.Tensor], k: int,
                          chunk: int, shape, dtype=torch.float32,
-                         device=None) -> torch.Tensor:
+                         device=None,
+                         merge: Optional[Callable[[OnlineLSE], OnlineLSE]]
+                         = None) -> torch.Tensor:
     """``logmeanexp`` over k samples produced chunk by chunk:
     ``log_w_fn(i)`` returns the ``[chunk, *shape]`` log-weights of chunk i.
-    Memory is O(chunk), not O(k)."""
+    Memory is O(chunk), not O(k). `merge` maps the carry of these k samples
+    to that of all samples before it is finalised (``parallel/eval.py``
+    merges the carries of the ranks that share the sample axis)."""
     if k % chunk != 0:
         raise ValueError(f"k={k} is not divisible by chunk={chunk}: "
                          f"the chunk must divide k")
     state = online_logsumexp_init(shape, dtype, device)
     for i in range(k // chunk):
         state = online_logsumexp_update(state, log_w_fn(i), dim=0)
+    if merge is not None:
+        state = merge(state)
     return online_logsumexp_finalize(state, mean=True)

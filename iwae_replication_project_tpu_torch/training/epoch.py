@@ -32,6 +32,14 @@ work whatever step it is, and on CUDA it is captured once as a CUDA graph
   added once per replay (``ops/_kernels.add_launches``);
 * a failed capture raises: there is no quiet eager fall back.
 
+A rank of a ``(dp, sp)`` mesh runs this same machinery
+(``parallel/dp.make_parallel_epoch_fn``) through two arguments: its
+value-and-grad, which reduces the gradients over the ranks before Adam
+(``value_and_grad``), and the columns of each batch it takes (``shard``).
+The pass's permutation is drawn whole (every rank the same) and only the
+rank's columns are kept. The shuffle and the binarization draw from
+``state.streams`` where the state has them, else from ``state.generator``.
+
 With a :class:`~..telemetry.diagnostics.DiagnosticsConfig` the pass also
 accumulates the first and second gradient moments over its trailing
 ``snr_window`` steps and returns the gradient-SNR scalars of the call's
@@ -44,7 +52,7 @@ the diagnostics.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,11 +76,11 @@ class _Buffers:
     pass's batch indices, the step counter within the pass, the position in
     the call's loss buffer, the loss buffer and the SNR accumulators."""
 
-    def __init__(self, state, x_train, n_batches: int, batch_size: int,
+    def __init__(self, state, x_train, n_batches: int, batch_rows: int,
                  n_losses: int, diag_on: bool):
         dev = x_train.device
         self.x = x_train
-        self.idx = torch.zeros((n_batches, batch_size), dtype=torch.int64,
+        self.idx = torch.zeros((n_batches, batch_rows), dtype=torch.int64,
                                device=dev)
         self.i = torch.zeros(1, dtype=torch.int64, device=dev)
         self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -119,12 +127,18 @@ class _StepGraphs:
         _kernels.add_launches(step.launches)
 
 
+def _binarize_generator(state) -> torch.Generator:
+    return state.streams.get("binarize", state.generator)
+
+
 def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
                   batch_size: int, stochastic_binarization: bool = False,
                   shuffle: bool = True,
                   diagnostics: Optional[DiagnosticsConfig] = None,
                   epochs_per_call: int = 1,
-                  cuda_graph: bool = True) -> Callable:
+                  cuda_graph: bool = True, *,
+                  value_and_grad: Optional[Callable] = None,
+                  shard: Optional[Tuple[int, int]] = None) -> Callable:
     """Build ``epoch(state, x_train) -> (state, losses)``.
 
     `x_train` is the full ``[n_train, x_dim]`` set on the state's device;
@@ -141,6 +155,11 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
     permutation), ``noise`` (per step, the list of encoder noise tensors)
     and ``uniforms`` (per step, the ``[batch_size, x_dim]`` uniforms of the
     binarization: ``batch = (u < batch)``).
+
+    `value_and_grad` replaces the step's (``train_step.make_train_step``);
+    `shard` ``(lo, hi)`` makes each step take columns ``lo:hi`` of its
+    batch of the pass's permutation (injected ``uniforms`` are then
+    ``[hi - lo, x_dim]``).
     """
     n_batches = n_train // batch_size
     if n_batches == 0:
@@ -150,8 +169,13 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
     diag_on = diagnostics is not None
     window = min(diagnostics.snr_window, n_batches) if diag_on else 0
     first_in_window = n_batches - window
-    step = make_train_step(spec, cfg)
+    step = make_train_step(spec, cfg) if value_and_grad is None \
+        else make_train_step(spec, cfg, value_and_grad)
     n_losses = n_batches * epochs_per_call
+    lo, hi = shard if shard is not None else (0, batch_size)
+    if not 0 <= lo < hi <= batch_size:
+        raise ValueError(f"shard {shard} is not a column range of a batch "
+                         f"of {batch_size}")
 
     def run_step(state, b: _Buffers, accumulate: bool, eps=None,
                  u=None) -> None:
@@ -159,7 +183,8 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
         batch = b.x.index_select(0, rows)
         if stochastic_binarization:
             if u is None:
-                u = torch.rand(batch.shape, generator=state.generator,
+                u = torch.rand(batch.shape,
+                               generator=_binarize_generator(state),
                                device=batch.device)
             batch = (u < batch).to(torch.float32)
         state, metrics = step(state, batch, eps=eps)
@@ -184,6 +209,9 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
             entry = _StepGraphs(b, state)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(state.generator)
+        if stochastic_binarization and \
+                _binarize_generator(state) is not state.generator:
+            graph.register_generator_state(_binarize_generator(state))
         before, steps = _kernels.all_launch_counts(), state.step
         with torch.cuda.graph(graph):
             run_step(state, b, accumulate)
@@ -199,7 +227,8 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
               perm: Optional[torch.Tensor] = None,
               noise: Optional[Sequence[Sequence[torch.Tensor]]] = None,
               uniforms: Optional[Sequence[torch.Tensor]] = None):
-        dev, gen = x_train.device, state.generator
+        dev = x_train.device
+        gen = state.streams.get("shuffle", state.generator)
         injected = perm is not None or noise is not None \
             or uniforms is not None
         if injected and epochs_per_call != 1:
@@ -210,7 +239,7 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
             entry = None
             del state.graphs[epoch]
         b = entry.bufs if entry is not None else _Buffers(
-            state, x_train, n_batches, batch_size, n_losses, diag_on)
+            state, x_train, n_batches, hi - lo, n_losses, diag_on)
         b.pos.zero_()
         for _ in range(epochs_per_call):
             if perm is None:
@@ -219,7 +248,7 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
             else:
                 perm_e = perm.to(dev)
             b.idx.copy_(perm_e[: n_batches * batch_size]
-                        .view(n_batches, batch_size))
+                        .view(n_batches, batch_size)[:, lo:hi])
             b.i.zero_()
             if diag_on:
                 torch._foreach_zero_(tree_leaves(b.acc))

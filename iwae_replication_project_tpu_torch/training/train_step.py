@@ -52,12 +52,17 @@ class TrainState:
     """``params``: the parameter tree, leaves are leaf tensors with
     ``requires_grad``; ``optimizer``: the Adam over those leaves;
     ``generator``: the training stream on the state's device (model noise,
-    shuffles, binarization); ``step``: optimizer steps taken."""
+    and shuffles and binarization unless `streams` takes them over);
+    ``step``: optimizer steps taken; ``streams``: generators of their own
+    for ``"shuffle"`` and ``"binarize"`` draws (a rank of a mesh keeps one
+    of each, ``parallel/dp.py``; empty on one device)."""
 
     params: Any
     optimizer: torch.optim.Adam
     generator: torch.Generator
     step: int = 0
+    streams: Dict[str, torch.Generator] = dataclasses.field(
+        default_factory=dict)
     #: CUDA graphs captured against this state's tensors, keyed by the
     #: epoch function that owns each (``training/epoch.py``); never saved
     graphs: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -120,7 +125,8 @@ def apply_gradients(state: TrainState, grads) -> None:
     state.step += 1
 
 
-def make_train_step(spec: ObjectiveSpec, cfg: model.ModelConfig
+def make_train_step(spec: ObjectiveSpec, cfg: model.ModelConfig,
+                    value_and_grad: Optional[Callable] = None
                     ) -> Callable[..., Tuple[TrainState, Dict[str, Any]]]:
     """``step(state, batch, eps=None) -> (state, metrics)``.
 
@@ -130,12 +136,21 @@ def make_train_step(spec: ObjectiveSpec, cfg: model.ModelConfig
     device tensor under ``"loss"`` and the objective's name. The step's
     gradients (of the bound, before negation) are in ``metrics["grads"]``
     for callers that accumulate diagnostics.
+
+    `value_and_grad` ``(params, batch, *, generator, eps) -> (bound,
+    grads)`` replaces :func:`..objectives.objective_value_and_grad` of
+    `spec`: the seam through which ``parallel/dp.py`` hands in the
+    mesh's, whose gradients are already reduced over the ranks.
     """
+    if value_and_grad is None:
+        def value_and_grad(params, batch, *, generator=None, eps=None):
+            return objective_value_and_grad(spec, params, cfg, batch,
+                                            generator=generator, eps=eps)
+
     def step(state: TrainState, batch: torch.Tensor,
              eps: Optional[Sequence[torch.Tensor]] = None):
-        bound, grads = objective_value_and_grad(
-            spec, state.params, cfg, batch, generator=state.generator,
-            eps=eps)
+        bound, grads = value_and_grad(state.params, batch,
+                                      generator=state.generator, eps=eps)
         apply_gradients(state, grads)
         loss = -bound
         return state, {"loss": loss, spec.name: loss, "grads": grads}

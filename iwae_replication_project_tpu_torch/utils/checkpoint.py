@@ -19,6 +19,14 @@ older step reproduces bitwise the run the newer one would have.
 Restore writes into a state built like the one saved (the parameters and,
 on CUDA, the generator stay the same tensors and object), on the run's
 device, before any CUDA graph is captured against that state.
+
+**Under a mesh** (``parallel/``) every rank calls :func:`save_checkpoint`
+and :func:`restore_latest` with its ``mesh``. The parameters and Adam
+moments are replicated, but each rank's generators (its noise, shuffle and
+binarization streams) are its own: rank 0 gathers them all into the
+checkpoint and writes it alone (JAX :209, :244), and on restore each rank
+takes its own back. A checkpoint resumes only under the mesh shape that
+wrote it.
 """
 
 from __future__ import annotations
@@ -192,26 +200,50 @@ def _integrity_warn(directory: str, step: int, problem: str) -> None:
 # save / restore
 # ---------------------------------------------------------------------------
 
-def _payload(state: TrainState) -> dict:
+def _streams(state: TrainState) -> dict:
+    """This rank's generator states: the training generator and the
+    streams."""
+    return {"generator": state.generator.get_state(),
+            "streams": {name: g.get_state()
+                        for name, g in sorted(state.streams.items())}}
+
+
+def _payload(state: TrainState, mesh=None) -> dict:
     leaves = tree_leaves(state.params)
     opt = [state.optimizer.state.get(p, {}) for p in leaves]
     cpu = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
-    return {
+    out = {
         "params": [cpu(p) for p in leaves],
         "exp_avg": [cpu(s["exp_avg"]) if s else None for s in opt],
         "exp_avg_sq": [cpu(s["exp_avg_sq"]) if s else None for s in opt],
         "adam_step": [cpu(s["step"]) if s else None for s in opt],
-        "generator": state.generator.get_state(),
         "step": int(state.step),
+        **_streams(state),
     }
+    if _distributed(mesh):
+        import torch.distributed as dist
+        ranks = [None] * mesh.size
+        dist.all_gather_object(ranks, _streams(state))
+        out["mesh"] = [mesh.dp, mesh.sp]
+        out["ranks"] = ranks
+    return out
+
+
+def _distributed(mesh) -> bool:
+    return mesh is not None and mesh.device_mesh is not None
 
 
 def save_checkpoint(directory: str, step: int, state: TrainState, stage: int,
                     config_json: str = "", keep: int = 3,
-                    passes_done: Optional[int] = None) -> None:
+                    passes_done: Optional[int] = None, mesh=None) -> None:
     """Save `state` as step `step`. `passes_done` = passes completed within
     `stage` at save time; None means the stage finished (resume continues
-    at the next stage). A step that already exists is replaced."""
+    at the next stage). A step that already exists is replaced. Under a
+    process group every rank of `mesh` calls this; rank 0 writes."""
+    payload = _payload(state, mesh)
+    if _distributed(mesh) and mesh.rank != 0:
+        mesh.barrier()  # rank 0's write is durable past this point
+        return
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     meta = {"config": config_json, "stage": int(stage), "step": int(step)}
@@ -220,7 +252,7 @@ def save_checkpoint(directory: str, step: int, state: TrainState, stage: int,
     tmp = os.path.join(directory, f".tmp-{int(step)}-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(_payload(state), os.path.join(tmp, STATE_FILE))
+    torch.save(payload, os.path.join(tmp, STATE_FILE))
     with open(os.path.join(tmp, META_FILE), "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=1, sort_keys=True)
     dest = _step_dir(directory, step)
@@ -239,6 +271,8 @@ def save_checkpoint(directory: str, step: int, state: TrainState, stage: int,
     # fires with the save durable: a fault here models corruption landing
     # after a successful write
     fault_point(SITE_CKPT_SAVE, directory=directory, step=int(step))
+    if _distributed(mesh):
+        mesh.barrier()
 
 
 def _read_meta(directory: str, step: int) -> dict:
@@ -248,7 +282,7 @@ def _read_meta(directory: str, step: int) -> dict:
 
 
 def restore_latest(directory: str, template: TrainState, *,
-                   expect_config_json: Optional[str] = None
+                   expect_config_json: Optional[str] = None, mesh=None
                    ) -> Optional[Tuple[int, TrainState, int, Optional[int]]]:
     """Restore ``(step, state, stage, passes_done)`` from the newest intact
     checkpoint into `template` (a state built like the saved one), or None.
@@ -258,7 +292,8 @@ def restore_latest(directory: str, template: TrainState, *,
     :class:`CheckpointConfigMismatch`. A step that fails its manifest, or
     has none and cannot be read, is passed over with a warning; a step its
     manifest vouches for that still cannot be read raises (a bug, not
-    corruption).
+    corruption). Under a process group each rank of `mesh` restores its
+    own generators.
     """
     for step in checkpoint_steps(directory):
         problem = verify_checkpoint(directory, step)
@@ -268,7 +303,7 @@ def restore_latest(directory: str, template: TrainState, *,
         vouched = os.path.isfile(_manifest_path(directory, step))
         try:
             return _restore_step(directory, step, template,
-                                 expect_config_json)
+                                 expect_config_json, mesh)
         except CheckpointConfigMismatch:
             raise
         except Exception as e:
@@ -280,7 +315,7 @@ def restore_latest(directory: str, template: TrainState, *,
 
 
 def _restore_step(directory: str, step: int, template: TrainState,
-                  expect_config_json: Optional[str]
+                  expect_config_json: Optional[str], mesh=None
                   ) -> Tuple[int, TrainState, int, Optional[int]]:
     meta = _read_meta(directory, step)
     stage = int(meta["stage"])
@@ -325,7 +360,23 @@ def _restore_step(directory: str, step: int, template: TrainState,
                 "step": step_t,
                 "exp_avg": payload["exp_avg"][i].to(p.device),
                 "exp_avg_sq": payload["exp_avg_sq"][i].to(p.device)}
-    template.generator.set_state(payload["generator"])
+    saved_mesh = payload.get("mesh")
+    here = [mesh.dp, mesh.sp] if _distributed(mesh) else None
+    if saved_mesh != here:
+        raise CheckpointConfigMismatch(
+            f"checkpoint step {step} at {directory!r} was written under "
+            f"mesh {saved_mesh or 'none'} (dp, sp), this run has "
+            f"{here or 'none'}: each rank's generators resume only under "
+            f"the mesh that wrote them")
+    own = payload["ranks"][mesh.rank] if here else payload
+    template.generator.set_state(own["generator"])
+    streams = own.get("streams", {})
+    if sorted(streams) != sorted(template.streams):
+        raise ValueError(f"checkpoint step {step} holds generator streams "
+                         f"{sorted(streams)}, the state "
+                         f"{sorted(template.streams)}")
+    for name, st in streams.items():
+        template.streams[name].set_state(st)
     template.step = int(payload["step"])
     template.graphs.clear()  # captured against the tensors just replaced
     return step, template, stage, passes_done

@@ -2,13 +2,16 @@
 ``utils/config.py``).
 
 The fields are the JAX config's, less the execution knobs the port has no
-counterpart for yet: ``backend`` (ROADMAP A6), the mesh and multihost
-fields (A7), ``compile_cache_dir`` and ``donate_buffers`` (A10) and
-``save_figures`` (the stage figures, A5). :meth:`ExperimentConfig.run_name`
-gives the JAX name for the same science fields, so the two packages name a
-run's checkpoint and log directories alike, and :func:`build_argparser`
-takes the JAX flags of every field the port has; a flag of a field it lacks
-is an error that names its ROADMAP item.
+counterpart for: ``backend``, ``compile_cache_dir`` and ``donate_buffers``
+(ROADMAP A10) and ``save_figures`` (the stage figures, A5). The JAX
+``backend`` switch picks the eager oracles ``backends/torch_ref.py`` and
+``tf2_ref.py``, the JAX package's cross-check backends; the port runs
+itself, on the card or (``--device cpu``) the CPU.
+:meth:`ExperimentConfig.run_name` gives the JAX name for the same science
+fields, so the two packages name a run's checkpoint and log directories
+alike, and :func:`build_argparser` takes the JAX flags of every field the
+port has, the mesh and multihost ones included; a flag of a field it lacks
+is an error that says why.
 """
 
 from __future__ import annotations
@@ -35,16 +38,23 @@ SCIENCE_FIELDS = (
     "seed", "switch_stage", "switch_loss", "switch_k", "likelihood",
     "passes_scale")
 
-#: JAX config fields the port does not have: field -> (the JAX default, the
-#: ROADMAP item that brings it). A config JSON may carry one at its default
-#: (a JAX-written config does); any other value is refused.
+#: why the port refuses the JAX ``backend`` switch
+BACKEND_REFUSAL = (
+    "the eager oracles backends/torch_ref.py and tf2_ref.py are the JAX "
+    "package's cross-check backends; the port runs itself, on the card or "
+    "the CPU (--device)")
+
+#: JAX config fields the port does not have: field -> (the JAX default, why
+#: the port lacks it). A config JSON may carry one at its default (a
+#: JAX-written config does); any other value is refused.
 JAX_ONLY_FIELDS = {
-    "backend": ("jax", "A6"),
-    "mesh_dp": (None, "A7"), "mesh_sp": (1, "A7"),
-    "multihost": (False, "A7"), "coordinator": (None, "A7"),
-    "num_processes": (None, "A7"), "process_id": (None, "A7"),
-    "compile_cache_dir": (None, "A10"), "donate_buffers": (True, "A10"),
-    "save_figures": (True, "A5"),
+    "backend": ("jax", BACKEND_REFUSAL),
+    "compile_cache_dir": (None, "not supported by the PyTorch port yet "
+                                "(ROADMAP A10)"),
+    "donate_buffers": (True, "not supported by the PyTorch port yet "
+                             "(ROADMAP A10)"),
+    "save_figures": (True, "not supported by the PyTorch port yet "
+                           "(ROADMAP A5)"),
 }
 
 _TUPLE_FIELDS = ("n_hidden_encoder", "n_hidden_decoder", "n_latent_encoder",
@@ -95,6 +105,19 @@ class ExperimentConfig:
     eval_batch_size: int = 500
     activity_samples: int = 1000
 
+    # the (dp, sp) mesh (parallel/): with mesh_dp or mesh_sp > 1 the run
+    # takes the parallel path; mesh_dp None absorbs the ranks. Without
+    # --multihost the CLI starts one rank per local card (or CPU rank);
+    # with it this process joins a cluster as rank process_id of
+    # num_processes through the coordinator host:port (None: torchrun's
+    # RANK/WORLD_SIZE/MASTER_ADDR)
+    mesh_dp: Optional[int] = None
+    mesh_sp: int = 1
+    multihost: bool = False
+    coordinator: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
     # None (fp32 matmuls) | "bfloat16" (bf16 operands, fp32 accumulation);
     # "float32" normalizes to None. bf16 is the production default.
     compute_dtype: Optional[str] = "bfloat16"
@@ -133,6 +156,11 @@ class ExperimentConfig:
             raise ValueError(
                 f"checkpoint_every_passes must be >= 0 (0 = stage boundaries "
                 f"only), got {self.checkpoint_every_passes}")
+
+    def uses_mesh(self) -> bool:
+        """Whether the run takes the parallel path: any mesh flag, even at
+        (1, 1), as the JAX driver decides (experiment.py:142)."""
+        return self.multihost or self.mesh_dp is not None or self.mesh_sp > 1
 
     def model_config(self, device=None) -> ModelConfig:
         """The architecture as a :class:`ModelConfig`. With
@@ -199,13 +227,11 @@ class ExperimentConfig:
         package's: a JAX-only field (:data:`JAX_ONLY_FIELDS`) at its JAX
         default is dropped, at any other value refused."""
         d = json.loads(s)
-        for key, (default, item) in JAX_ONLY_FIELDS.items():
+        for key, (default, why) in JAX_ONLY_FIELDS.items():
             if key in d:
                 v = d.pop(key)
                 if v != default and key != "save_figures":
-                    raise ValueError(
-                        f"{key}={v!r} is not supported by the PyTorch port "
-                        f"yet (ROADMAP {item})")
+                    raise ValueError(f"{key}={v!r}: {why}")
         for key in _TUPLE_FIELDS:
             d[key] = tuple(d[key])
         return ExperimentConfig(**d)
@@ -215,18 +241,17 @@ def _int_list(s: str) -> Tuple[int, ...]:
     return tuple(int(v) for v in s.split(",") if v)
 
 
-def _not_ported(item: str, takes_value: bool):
+def _refused(why: str, takes_value: bool):
     """An argparse action refusing a JAX flag whose field the port lacks."""
-    class NotPorted(argparse.Action):
+    class Refused(argparse.Action):
         def __init__(self, option_strings, dest, **kw):
             kw.pop("nargs", None)
             super().__init__(option_strings, dest,
                              nargs="?" if takes_value else 0, **kw)
 
         def __call__(self, parser, namespace, values, option_string=None):
-            parser.error(f"{option_string} is not supported by the PyTorch "
-                         f"port yet (ROADMAP {item})")
-    return NotPorted
+            parser.error(f"{option_string}: {why}")
+    return Refused
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -259,15 +284,31 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--passes-scale", dest="passes_scale", default=None,
                     type=float)
     ap.add_argument("--seed", default=None, type=int)
-    for flag, item, takes_value in (
-            ("--backend", "A6", True), ("--mesh-dp", "A7", True),
-            ("--mesh-sp", "A7", True), ("--multihost", "A7", False),
-            ("--coordinator", "A7", True), ("--num-processes", "A7", True),
-            ("--process-id", "A7", True),
-            ("--compile-cache-dir", "A10", True),
-            ("--no-donate-buffers", "A10", False)):
-        ap.add_argument(flag, action=_not_ported(item, takes_value),
-                        default=None, help=f"not ported yet (ROADMAP {item})")
+    for flag, field, takes_value in (
+            ("--backend", "backend", True),
+            ("--compile-cache-dir", "compile_cache_dir", True),
+            ("--no-donate-buffers", "donate_buffers", False)):
+        why = JAX_ONLY_FIELDS[field][1]
+        ap.add_argument(flag, action=_refused(why, takes_value),
+                        default=None, help=f"refused: {why}")
+    ap.add_argument("--mesh-dp", dest="mesh_dp", default=None, type=int,
+                    help="data-parallel ranks (default: the ranks --mesh-sp "
+                         "leaves)")
+    ap.add_argument("--mesh-sp", dest="mesh_sp", default=None, type=int,
+                    help="sample-parallel ranks (the k axis)")
+    ap.add_argument("--multihost", dest="multihost", default=None,
+                    action="store_true",
+                    help="join a cluster as one rank (one process per "
+                         "card) before building the mesh; without it a "
+                         "mesh flag starts one rank per local card")
+    ap.add_argument("--coordinator", default=None, type=str,
+                    help="rank 0's host:port (default: torchrun's "
+                         "MASTER_ADDR/MASTER_PORT)")
+    ap.add_argument("--num-processes", dest="num_processes", default=None,
+                    type=int, help="ranks in the cluster (default: "
+                                   "WORLD_SIZE)")
+    ap.add_argument("--process-id", dest="process_id", default=None,
+                    type=int, help="this process's rank (default: RANK)")
     ap.add_argument("--compute-dtype", dest="compute_dtype", default=None,
                     type=str)
     ap.add_argument("--serving-precision", dest="serving_precision",

@@ -85,29 +85,57 @@ def test_run_name_and_json_match_jax(over):
 
 def test_json_refuses_what_the_port_cannot_run():
     d = json.loads(jconfig.ExperimentConfig().to_json())
-    for key, value in (("backend", "torch"), ("mesh_sp", 2),
-                       ("multihost", True), ("donate_buffers", False)):
+    for key, value, why in (("backend", "torch", "cross-check backends"),
+                            ("donate_buffers", False, "ROADMAP A10")):
         bad = dict(d, **{key: value})
-        with pytest.raises(ValueError, match="ROADMAP A"):
+        with pytest.raises(ValueError, match=why):
             ExperimentConfig.from_json(json.dumps(bad))
+    # the mesh fields load as the JAX config holds them
+    mesh = dict(d, mesh_dp=2, mesh_sp=2, multihost=True,
+                coordinator="h:1", num_processes=4, process_id=3)
+    got = ExperimentConfig.from_json(json.dumps(mesh))
+    want = jconfig.ExperimentConfig.from_json(json.dumps(mesh))
+    for key in ("mesh_dp", "mesh_sp", "multihost", "coordinator",
+                "num_processes", "process_id"):
+        assert getattr(got, key) == getattr(want, key) == mesh[key], key
+    assert got.uses_mesh() and got.run_name() == want.run_name()
     # figures are not made either way
     ExperimentConfig.from_json(json.dumps(dict(d, save_figures=False)))
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--backend", "torch"], "A6"), (["--mesh-dp", "4"], "A7"),
-    (["--mesh-sp", "2"], "A7"), (["--multihost"], "A7"),
-    (["--coordinator", "h:1"], "A7"), (["--num-processes", "2"], "A7"),
-    (["--process-id", "0"], "A7"), (["--compile-cache-dir", "off"], "A10"),
-    (["--no-donate-buffers"], "A10"),
+@pytest.mark.parametrize("argv,why", [
+    (["--backend", "torch"], "cross-check backends"),
+    (["--compile-cache-dir", "off"], "ROADMAP A10"),
+    (["--no-donate-buffers"], "ROADMAP A10"),
 ])
-def test_refused_flags_name_their_roadmap_item(argv, item, capsys):
+def test_refused_flags_name_their_roadmap_item(argv, why, capsys):
+    """The JAX flags of fields the port lacks are refused with the reason:
+    ``--backend`` picks the JAX package's eager cross-check oracles, and
+    the compile cache's flags wait for ROADMAP A10."""
     with pytest.raises(SystemExit) as e:
         tconfig.config_from_args(argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert f"ROADMAP {item}" in err and argv[0] in err
+    assert why in err and argv[0] in err
     jconfig.config_from_args(argv)  # the JAX runner takes them
+
+
+@pytest.mark.parametrize("argv,field,value", [
+    (["--mesh-dp", "4"], "mesh_dp", 4), (["--mesh-sp", "2"], "mesh_sp", 2),
+    (["--multihost"], "multihost", True),
+    (["--coordinator", "h:1"], "coordinator", "h:1"),
+    (["--num-processes", "2"], "num_processes", 2),
+    (["--process-id", "0"], "process_id", 0),
+])
+def test_mesh_flags_parse_into_the_config(argv, field, value):
+    """The mesh and multihost flags, once refused, parse as the JAX runner
+    parses them; any of them but ``--mesh-sp 1`` takes the parallel path."""
+    got = tconfig.config_from_args(argv)
+    want = jconfig.config_from_args(argv)
+    assert getattr(got, field) == getattr(want, field) == value
+    assert _port_view(got) == {k: getattr(want, k) for k in _port_view(got)}
+    assert got.uses_mesh() == (field not in ("coordinator", "num_processes",
+                                             "process_id"))
 
 
 def test_device_flag_and_validation():
