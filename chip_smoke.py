@@ -94,8 +94,30 @@ phases, one line per phase, and exits non-zero on the first failure:
    and the statistics suite; a weights round trip, bitwise; one epoch with
    ``likelihood="logits"`` in bf16 (B1 and B2 once per step); and
    ``examples/experiment_example_torch.py --smoke``;
-10. prints the kernels' JSON record (launches of the serving and training
-   runs, and per path of phases 8-9 under ``launches_by_path``) and, last,
+10. paper-grade k behind the serving API, with the weights of phase 7's
+   checkpoint run directory: (a) ``ShardedScoreEngine(run_dir)``, a world
+   of one (bf16 logits, k in blocks of 250 up to 5000, at most 8 rows a
+   dispatch): a ragged stream of ``score`` requests at k in {1, 250, 251,
+   1000, 5000} and 1-8 rows, then ``score_adaptive`` at k_cap 5000 with a
+   ``target_se`` and an ``ess_floor``; B1's launches equal to the sum over
+   the dispatches of ``ceil(k/250)`` (adaptive: the rounds run plus ``max
+   ceil(k_used/250)``); every dispatch bitwise equal to the offline twin
+   on the same padded rows; each early-stopped row bitwise the fixed-k
+   score at its ``k_used``; k=5000 through the kernel against the
+   reference path within ``TOL`` in bf16 and once in fp32; ms per k=5000
+   dispatch of 8 rows (CUDA events and host clock), B1's share of it and
+   rows per second; (b) a gloo world of 4 processes on the one card, mesh
+   (2, 2): ``score`` at k=1000 and ``score_adaptive`` served by rank 0's
+   engine (the followers in ``serve_rank`` until its ``stop()``), against
+   the world of one on the same per-(row, block) draws within ``TOL``
+   (adaptive rows against the world of one's fixed-k score at their
+   ``k_used``), B1's launches summed over the ranks equal to the count
+   derived from k and ``k_used``, and a world of 2 whose follower dies
+   mid-dispatch: rank 0's future errors instead of hanging; (c) ``python
+   -m iwae_replication_project_tpu_torch.serving --checkpoint RUN_DIR
+   --interactive`` with one score and one encode line;
+11. prints the kernels' JSON record (launches of the serving and training
+   runs, and per path of phases 8-10 under ``launches_by_path``) and, last,
    the contract line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -104,7 +126,10 @@ non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import datetime
 import json
+import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -171,6 +196,19 @@ RANK_SHAPES_FWD = [("rank-train-dp2", 50, 50, FLAGSHIP),
 RANK_SHAPES_BWD = RANK_SHAPES_FWD[:2]
 #: phase 8b: the gloo mesh on the one card, and the sharded NLL's rows
 GLOO_MESH, NLL_ROWS, NLL_K, NLL_CHUNK = (2, 2), 500, 5000, 250
+#: phase 10: the sharded engine's sample block, admission bound and largest
+#: bucket; its ragged stream of (k, rows) score groups; the adaptive
+#: targets (one group each, at k_cap = SHARDED_KMAX)
+SHARDED_KC, SHARDED_KMAX, SHARDED_BATCH = 250, 5000, 8
+SHARDED_STREAM = [(1, 1), (250, 3), (251, 8), (1000, 5), (5000, 8), (251, 2),
+                  (1000, 8), (5000, 2), (250, 7), (5000, 8), (1, 6), (1000, 1)]
+ADAPTIVE_TARGETS = [{"target_se": 0.5}, {"ess_floor": 20.0}]
+#: phase 10b's score k on the gloo mesh
+SHARDED_GLOO_K = 1000
+#: the shapes B1 takes on that path: a full bucket in a world of one, and
+#: a rank's rows of a full bucket on dp=2
+SHARDED_SHAPES_FWD = [("sharded-b8", SHARDED_KC, 8, FLAGSHIP),
+                      ("sharded-dp2", SHARDED_KC, 4, FLAGSHIP)]
 
 
 def fail(msg: str) -> int:
@@ -304,7 +342,8 @@ def check_hot_loop(torch, hot_loop):
               ("serve", 50, 64, FLAGSHIP), ("train", TRAIN_K, TRAIN_B, FLAGSHIP),
               ("odd", 13, 17, FLAGSHIP),
               ("odd-widths", 3, 5, dict(h1=37, hid=70, d=130)),
-              ("eval", 250, 500, FLAGSHIP)] + RANK_SHAPES_FWD
+              ("eval", 250, 500, FLAGSHIP)] + RANK_SHAPES_FWD \
+        + SHARDED_SHAPES_FWD
     ok = True
     worst = 0.0
     main = None
@@ -330,7 +369,8 @@ def check_hot_loop(torch, hot_loop):
                     f"tol=({atol:g} + {rtol:g}*|ref|) "
                     f"{'ok' if within else 'OUT OF TOLERANCE'}")
             ok &= within
-            if tag in ("serve", "train", "eval") or tag.startswith("rank"):
+            if tag in ("serve", "train", "eval") or \
+                    tag.startswith(("rank", "sharded")):
                 t = timings(
                     lambda: hot_loop.fused_forward(*args, compute_dtype=cd),
                     lambda: hot_loop._reference_impl(*args, compute_dtype=cd),
@@ -1037,16 +1077,18 @@ def wide_block(torch, np, hot_loop):
     return ok
 
 
-def driver(torch, np, zoo, hot_loop):
+def driver(torch, np, zoo, hot_loop, tmp):
     """Phase 7: the staged driver on the card, ``run_experiment`` of the
-    flagship with checkpoints under a temporary directory and PASS_BLOCK=3:
+    flagship with checkpoints under `tmp` (a temporary directory) and
+    PASS_BLOCK=3:
     an uninterrupted 3-stage run; a run with a save every 2 passes whose
     ``sigterm`` fault point after stage 3's first block is absorbed into a
     mid-stage checkpoint and ``TrainingPreempted``; its resume, bitwise
     equal to the uninterrupted run. Launches over the three runs: B2 once
     per step, B1 once per step plus each stage evaluation's count. Then the
     host ms per step over one dispatch of 27 passes (the real PASS_BLOCK)
-    on the trained state. Returns ({kernel: launches}, ok)."""
+    on the trained state. Returns ({kernel: launches}, ok, the checkpoint
+    run directory of the uninterrupted run)."""
     import dataclasses
     import io
     from contextlib import redirect_stdout
@@ -1061,30 +1103,31 @@ def driver(torch, np, zoo, hot_loop):
     base = zoo.get(PRESET)
     ok = True
     hot_loop.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        def cfg(sub, **kw):
-            return dataclasses.replace(base, n_stages=3,
-                                       log_dir=f"{tmp}/{sub}/runs",
-                                       checkpoint_dir=f"{tmp}/{sub}/ckpt",
-                                       **kw)
-        t0 = time.perf_counter()
-        state_a, hist_a = exp.run_experiment(cfg("A", resume=False))
-        wall_a = time.perf_counter() - t0
-        cfg_b = cfg("B", checkpoint_every_passes=2)
-        rule = faults.FaultRule(
-            faults.SITE_TRAIN_PASS, faults.sigterm(),
-            match=lambda c: c["stage"] == 3 and c["done"] == block)
-        preempted = None
-        with faults.installed(faults.FaultSchedule([rule])):
-            try:
-                exp.run_experiment(cfg_b)
-            except exp.TrainingPreempted as e:
-                preempted = e
-        buf = io.StringIO()
-        with redirect_stdout(buf):
-            state_b, hist_b = exp.run_experiment(cfg_b)
-        print(buf.getvalue(), end="", flush=True)
-        steps_b = state_b.step
+
+    def cfg(sub, **kw):
+        return dataclasses.replace(base, n_stages=3,
+                                   log_dir=f"{tmp}/driver/{sub}/runs",
+                                   checkpoint_dir=f"{tmp}/driver/{sub}/ckpt",
+                                   **kw)
+    t0 = time.perf_counter()
+    cfg_a = cfg("A", resume=False)
+    state_a, hist_a = exp.run_experiment(cfg_a)
+    wall_a = time.perf_counter() - t0
+    cfg_b = cfg("B", checkpoint_every_passes=2)
+    rule = faults.FaultRule(
+        faults.SITE_TRAIN_PASS, faults.sigterm(),
+        match=lambda c: c["stage"] == 3 and c["done"] == block)
+    preempted = None
+    with faults.installed(faults.FaultSchedule([rule])):
+        try:
+            exp.run_experiment(cfg_b)
+        except exp.TrainingPreempted as e:
+            preempted = e
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        state_b, hist_b = exp.run_experiment(cfg_b)
+    print(buf.getvalue(), end="", flush=True)
+    steps_b = state_b.step
     exp.PASS_BLOCK = real_block
     torch.cuda.synchronize()
     launches = hot_loop.launch_counts()
@@ -1150,7 +1193,7 @@ def driver(torch, np, zoo, hot_loop):
           f"({real_block * n // TRAIN_B} steps, one fetch): host ms per "
           f"step {block_ms:.4f}", flush=True)
     ok &= bool(torch.isfinite(out).all())
-    return launches, ok
+    return launches, ok, os.path.join(cfg_a.checkpoint_dir, cfg_a.run_name())
 
 
 
@@ -1637,6 +1680,394 @@ def facade(torch, np, hot_loop, tmp):
     return launches, ok
 
 
+def _padded(np, rows, seeds, bucket):
+    """A dispatch's rows and seeds padded to its bucket, as the engine
+    pads them."""
+    x = np.zeros((bucket, rows.shape[1]), np.float32)
+    x[:len(rows)] = rows
+    return x, list(seeds) + [0] * (bucket - len(seeds))
+
+
+def _adaptive_launches(k_used, dp: int, sp: int, kc: int) -> int:
+    """B1 launches of one adaptive dispatch over a (dp, sp) mesh, summed
+    over the ranks, from its real rows' k_used (rows in dp order, the
+    bucket's B/dp a rank; here every dispatch is a whole bucket): per dp
+    row, each sp rank runs as many phase-1 rounds as its slowest row needs
+    (``max ceil(k_used / (sp*kc))``), then its share of phase 2 (sp rank s
+    takes blocks ``s*bpd + i`` of each row, ``bpd = ceil(blocks/sp)``)."""
+    total = 0
+    b = len(k_used) // dp
+    for d in range(dp):
+        rows = k_used[d * b:(d + 1) * b]
+        blocks = [math.ceil(u / kc) for u in rows]
+        rounds = max(math.ceil(u / (sp * kc)) for u in rows)
+        for s in range(sp):
+            bpd = [math.ceil(n / sp) for n in blocks]
+            total += rounds + max(max(0, min(p, n - s * p))
+                                  for p, n in zip(bpd, blocks))
+    return total
+
+
+def sharded_serve(torch, np, zoo, hot_loop, run_dir, b1_ms):
+    """Phase 10a: the sharded engine on the card from phase 7's run dir, a
+    world of one. Returns (B1 launches of the served stream, ok)."""
+    import dataclasses
+
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.parallel import eval as peval
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine)
+
+    kc = SHARDED_KC
+    eng = ShardedScoreEngine(run_dir, k_chunk=kc, k_max=SHARDED_KMAX,
+                             max_batch=SHARDED_BATCH, timeout_s=None)
+    ok = eng.cfg.compute_dtype == "bfloat16" and \
+        eng.cfg.likelihood == "logits" and eng.device.type == "cuda"
+    ds = load_dataset(zoo.get(PRESET).dataset, data_dir="data")
+    data = ds.x_test.reshape(len(ds.x_test), -1).astype(np.float32)
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    torch.cuda.synchronize()
+    print(f"sharded: ShardedScoreEngine({run_dir.split('/')[-1]}) "
+          f"k={eng.k} k_chunk={kc} k_max={eng.k_max} "
+          f"buckets={list(eng.ladder.buckets)} "
+          f"compute_dtype={eng.cfg.compute_dtype} mesh=({eng.mesh.dp}, "
+          f"{eng.mesh.sp}) warmup {warm} in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+    log = []
+    launch = eng._launch
+
+    def recording(batch):  # the dispatches, for the launch count
+        inf = launch(batch)
+        log.append(inf)
+        return inf
+    eng._launch = recording
+
+    hot_loop.reset_launch_counts()
+    eng.start()
+    t0 = time.perf_counter()
+    score_f, adapt_f, seed, i = [], [], 0, 0
+    for k, n in SHARDED_STREAM:
+        for _ in range(n):
+            score_f.append(eng.submit("score", data[i % len(data)], k=k,
+                                      seed=seed))
+            i, seed = i + 1, seed + 1
+    for tgt in ADAPTIVE_TARGETS:
+        for _ in range(SHARDED_BATCH):
+            adapt_f.append(eng.submit("score_adaptive", data[i % len(data)],
+                                      k=SHARDED_KMAX, seed=seed, **tgt))
+            i, seed = i + 1, seed + 1
+    scores = np.array([f.result(timeout=600) for f in score_f])
+    adaptive = np.stack([f.result(timeout=600) for f in adapt_f])
+    wall = time.perf_counter() - t0
+    eng.stop()
+    torch.cuda.synchronize()
+    launches = hot_loop.launch_counts()
+    eng._launch = launch
+
+    want = 0
+    for inf in log:
+        if inf.op == "score":
+            want += math.ceil(inf.k / kc)
+        else:
+            want += _adaptive_launches(
+                [float(r.future.result()[2]) for r in inf.batch], 1, 1, kc)
+    launch_ok = launches == {hot_loop.KERNEL: want, hot_loop.KERNEL_BWD: 0}
+    ok &= launch_ok
+    finite = bool(np.isfinite(scores).all() and np.isfinite(adaptive).all())
+    ok &= finite
+    snap = eng.metrics.snapshot()
+    print(f"sharded: {len(score_f)} score requests over (k, rows) groups "
+          f"{SHARDED_STREAM} and {len(adapt_f)} score_adaptive at k_cap "
+          f"{SHARDED_KMAX} with {ADAPTIVE_TARGETS}: {len(log)} dispatches "
+          f"in {wall:.3f}s (host clock), all finite={finite}; kernel stamps "
+          f"{sorted(snap['kernel'])}", flush=True)
+    print(f"sharded: B1 launches {launches} (expected {want}: ceil(k/{kc}) "
+          f"per score dispatch, the rounds run plus max ceil(k_used/{kc}) "
+          f"per adaptive one) {'ok' if launch_ok else 'FAIL'}", flush=True)
+    for j, tgt in enumerate(ADAPTIVE_TARGETS):
+        ku = adaptive[j * SHARDED_BATCH:(j + 1) * SHARDED_BATCH, 2]
+        se = adaptive[j * SHARDED_BATCH:(j + 1) * SHARDED_BATCH, 1]
+        print(f"sharded: score_adaptive {tgt}: k_used {ku.astype(int)} "
+              f"achieved se {np.round(se, 4)}", flush=True)
+
+    # every dispatch against the offline twin on the same padded rows, and
+    # each adaptive row against the fixed-k score at its k_used
+    same, prefix, rows_checked = True, True, 0
+    for inf in log:
+        n = len(inf.batch)
+        x, seeds = _padded(np, np.stack([r.payload for r in inf.batch]),
+                           [r.seed for r in inf.batch], inf.bucket)
+        xt = torch.from_numpy(x).cuda()
+        got = np.stack([r.future.result() for r in inf.batch])
+        if inf.op == "score":
+            off = peval.sharded_score_offline(
+                eng._params, eng.cfg, eng.mesh, eng._base_seed, seeds, xt,
+                inf.k, kc)
+            same &= np.array_equal(got, off[:n].cpu().numpy())
+            continue
+        r0 = inf.batch[0]
+        off = peval.sharded_score_adaptive_offline(
+            eng._params, eng.cfg, eng.mesh, eng._base_seed, seeds, xt,
+            k_cap=inf.k, target_se=r0.target_se, ess_floor=r0.ess_floor,
+            k_chunk=kc)
+        same &= np.array_equal(got, off[:n].cpu().numpy())
+        for u in sorted(set(got[:, 2].astype(int))):
+            fixed = peval.sharded_score_offline(
+                eng._params, eng.cfg, eng.mesh, eng._base_seed, seeds, xt,
+                int(u), kc)[:n].cpu().numpy()
+            rows = got[:, 2] == u
+            prefix &= np.array_equal(got[rows, 0], fixed[rows])
+            rows_checked += int(rows.sum())
+    ok &= same and prefix
+    print(f"sharded: every dispatch bitwise equal to the offline twin on "
+          f"its padded rows: {same}; {rows_checked} adaptive rows bitwise "
+          f"equal to the fixed-k score at their k_used: {prefix}",
+          flush=True)
+
+    # k=5000 through the kernel against the reference path, bf16 and fp32
+    x8 = torch.from_numpy(data[:SHARDED_BATCH]).cuda()
+    seeds8 = list(range(SHARDED_BATCH))
+    for name, cfg in (("bf16", eng.cfg),
+                      ("fp32", dataclasses.replace(eng.cfg,
+                                                   compute_dtype=None))):
+        got, want_ = (peval.sharded_score_offline(
+            eng._params, cfg, eng.mesh, 0, seeds8, x8, SHARDED_KMAX, kc,
+            kernel_path=p).cpu().numpy() for p in (None, "reference"))
+        atol, rtol = TOL[name]
+        err = np.abs(got - want_)
+        within = bool((err <= atol + rtol * np.abs(want_)).all())
+        ok &= within
+        print(f"sharded: k={SHARDED_KMAX} scores of {SHARDED_BATCH} rows "
+              f"{name}, kernel vs reference path: max_abs_err="
+              f"{err.max():.3e} tol=({atol:g} + {rtol:g}*|ref|) "
+              f"{'ok' if within else 'OUT OF TOLERANCE'}", flush=True)
+
+    # the k=5000 dispatch of 8 rows: CUDA events and host clock
+    def dispatch():
+        return peval.sharded_score_offline(eng._params, eng.cfg, eng.mesh, 0,
+                                           seeds8, x8, SHARDED_KMAX, kc)
+    dispatch()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t1) * 1e3)
+    ev_ms = time_ms(dispatch, torch, iters=5)
+    blocks = SHARDED_KMAX // kc
+    # its parts: the per-row device draws alone, and the program on the
+    # same draws drawn beforehand (replayed through noise_fn)
+    from iwae_replication_project_tpu_torch.serving.programs import (
+        draw_block_noise)
+    drawn = {g: draw_block_noise(eng.cfg, 0, seeds8, [g] * SHARDED_BATCH,
+                                 kc, x8.device) for g in range(blocks)}
+    draw_ms = time_ms(lambda: [draw_block_noise(
+        eng.cfg, 0, seeds8, [g] * SHARDED_BATCH, kc, x8.device)
+        for g in range(blocks)], torch, iters=5)
+    rest_ms = time_ms(lambda: peval.sharded_score_offline(
+        eng._params, eng.cfg, eng.mesh, 0, seeds8, x8, SHARDED_KMAX, kc,
+        noise_fn=lambda g, s: drawn[g]), torch, iters=5)
+    print(f"sharded: one k={SHARDED_KMAX} dispatch of {SHARDED_BATCH} rows "
+          f"({blocks} blocks of {kc} x {SHARDED_BATCH}): {ev_ms:.3f} ms "
+          f"(CUDA events, 5 back to back), host {np.median(host):.3f} ms "
+          f"(median of 5, synchronized); B1 {blocks} x {b1_ms:.4f} ms "
+          f"(phase 3, 250 x 8) = {blocks * b1_ms / ev_ms:.1%} of it; "
+          f"{SHARDED_BATCH / np.median(host) * 1e3:.1f} rows/s at "
+          f"k={SHARDED_KMAX}; its parts (CUDA events, 5 back to back): the "
+          f"{blocks} blocks' per-row device draws alone {draw_ms:.3f} ms, "
+          f"the program on those draws drawn beforehand {rest_ms:.3f} ms",
+          flush=True)
+    return launches[hot_loop.KERNEL], ok
+
+
+def _sharded_rank(rank, world, init, out, run_dir, x, mesh_shape, kill):
+    """One rank of phase 10b (a process of its own; gloo on the one card):
+    rank 0 serves the sharded engine, the others run serve_rank. With
+    `kill`, rank 1 dies on its first dispatch."""
+    import json as _json
+
+    import torch
+
+    from iwae_replication_project_tpu_torch.ops import hot_loop
+    from iwae_replication_project_tpu_torch.parallel import (
+        make_mesh, multihost)
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine, serve_rank)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    multihost.initialize(init, world, rank, backend="gloo", device=dev,
+                         timeout=datetime.timedelta(seconds=120))
+    res = {"rank": rank}
+    try:
+        mesh = make_mesh(*mesh_shape, device=dev)
+        eng = ShardedScoreEngine(run_dir, mesh=mesh, k_chunk=SHARDED_KC,
+                                 k_max=SHARDED_KMAX, max_batch=SHARDED_BATCH,
+                                 timeout_s=None)
+        hot_loop.reset_launch_counts()
+        if rank != 0:
+            if kill:
+                def die(*a, **kw):
+                    os._exit(3)
+                eng._program_for = die
+            res["served"] = serve_rank(eng)
+        else:
+            t0 = time.perf_counter()
+            fs = [eng.submit("score", r, k=SHARDED_GLOO_K, seed=s)
+                  for s, r in enumerate(x)]
+            fa = [eng.submit("score_adaptive", r, k=SHARDED_KMAX, seed=s,
+                             **ADAPTIVE_TARGETS[0]) for s, r in enumerate(x)]
+            eng.start()
+            if kill:
+                err = fs[0].exception(timeout=300)
+                res["error"] = None if err is None else \
+                    f"{type(err).__name__}: {str(err)[:200]}"
+                res["waited"] = time.perf_counter() - t0
+                try:
+                    eng.stop()
+                except RuntimeError as e:
+                    res["stop_error"] = type(e).__name__
+            else:
+                res["score"] = [float(f.result(timeout=600)) for f in fs]
+                res["adaptive"] = [f.result(timeout=600).tolist()
+                                   for f in fa]
+                res["wall"] = time.perf_counter() - t0
+                eng.stop()
+        torch.cuda.synchronize()
+        res["launches"] = hot_loop.launch_counts()
+        with open(f"{out}/sharded-rank{rank}.json", "w") as f:
+            _json.dump(res, f)
+    finally:
+        multihost.shutdown()
+
+
+def sharded_gloo(torch, np, zoo, hot_loop, run_dir, tmp):
+    """Phase 10b: the sharded engine over a gloo world of 4 processes on
+    the one card, mesh (2, 2), against the world of one on the same
+    per-(row, block) draws (each row's block g is drawn from (engine seed,
+    request seed, g) on the card, whichever rank streams it); then a world
+    of 2 whose follower dies. Returns ({kernel: launches summed over the
+    ranks}, ok)."""
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.parallel import eval as peval
+    from iwae_replication_project_tpu_torch.parallel import multihost
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine)
+
+    ds = load_dataset(zoo.get(PRESET).dataset, data_dir="data")
+    x = ds.x_test.reshape(len(ds.x_test), -1)[:SHARDED_BATCH].astype(
+        np.float32)
+    dp, sp = GLOO_MESH
+    world = dp * sp
+    t0 = time.perf_counter()
+    codes = multihost.spawn(
+        _sharded_rank, world, (f"file://{tmp}/sharded-rendezvous", tmp,
+                               run_dir, x, GLOO_MESH, False),
+        timeout=600, grace=30)
+    wall = time.perf_counter() - t0
+    if codes != [0] * world:
+        print(f"FAIL: the sharded gloo ranks exited {codes}", flush=True)
+        return {}, False
+    ranks = []
+    for r in range(world):
+        with open(f"{tmp}/sharded-rank{r}.json") as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    served_ok = all(r["served"] == 2 for r in ranks[1:])
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in r0["launches"]}
+    ku = [int(a[2]) for a in r0["adaptive"]]
+    want = sp * dp * math.ceil(math.ceil(SHARDED_GLOO_K / SHARDED_KC) / sp) \
+        + _adaptive_launches(ku, dp, sp, SHARDED_KC)
+    launch_ok = launches == {hot_loop.KERNEL: want, hot_loop.KERNEL_BWD: 0}
+
+    # the world of one on the same rows and seeds
+    eng = ShardedScoreEngine(run_dir, k_chunk=SHARDED_KC,
+                             k_max=SHARDED_KMAX, max_batch=SHARDED_BATCH)
+    xt = torch.from_numpy(x).cuda()
+    seeds = list(range(SHARDED_BATCH))
+
+    def one(k):
+        return peval.sharded_score_offline(eng._params, eng.cfg, eng.mesh,
+                                           eng._base_seed, seeds, xt, k,
+                                           SHARDED_KC).cpu().numpy()
+    atol, rtol = TOL["bf16"]
+    ref = one(SHARDED_GLOO_K)
+    got = np.array(r0["score"])
+    err = np.abs(got - ref)
+    score_ok = bool((err <= atol + rtol * np.abs(ref)).all())
+    ad = np.array(r0["adaptive"])
+    fixed = np.array([one(u)[i] for i, u in enumerate(ku)])
+    aerr = np.abs(ad[:, 0] - fixed)
+    grid_ok = all(u % (sp * SHARDED_KC) == 0 or u == SHARDED_KMAX
+                  for u in ku)
+    adapt_ok = bool((aerr <= atol + rtol * np.abs(fixed)).all()) and grid_ok
+    print(f"sharded: gloo {GLOO_MESH} rank 0's engine, followers in "
+          f"serve_rank: score k={SHARDED_GLOO_K} of {SHARDED_BATCH} rows vs "
+          f"the world of "
+          f"one, max_abs_err {err.max():.3e}; score_adaptive "
+          f"{ADAPTIVE_TARGETS[0]} k_used {ku} (on the {sp * SHARDED_KC}-"
+          f"sample round grid: {grid_ok}) vs the world of one's fixed-k "
+          f"score at k_used, max_abs_err {aerr.max():.3e} (tol {atol:g} + "
+          f"{rtol:g}*|ref|) {'ok' if score_ok and adapt_ok else 'FAIL'}; "
+          f"followers served 2 dispatches each and exited on stop(): "
+          f"{served_ok}; rank 0 served both in {r0['wall']:.3f}s, world wall "
+          f"{wall:.1f}s (gloo copies through the host, 4 ranks share one "
+          f"card: no speed number)", flush=True)
+    print(f"sharded: gloo B1 launches summed over the ranks {launches} "
+          f"(expected {want}) {'ok' if launch_ok else 'FAIL'}", flush=True)
+
+    # a follower dies mid-dispatch: rank 0's futures error, no hang
+    t0 = time.perf_counter()
+    codes = multihost.spawn(
+        _sharded_rank, 2, (f"file://{tmp}/sharded-kill-rendezvous", tmp,
+                           run_dir, x, (1, 2), True), timeout=300, grace=30)
+    with open(f"{tmp}/sharded-rank0.json") as f:
+        k0 = json.load(f)
+    kill_ok = codes == [0, 3] and k0.get("error") is not None and \
+        k0["waited"] < 120
+    print(f"sharded: world of 2, the follower killed on its first "
+          f"dispatch: exit codes {codes}, rank 0's future errored after "
+          f"{k0.get('waited', float('nan')):.2f}s ({k0.get('error')}), "
+          f"stop() raised {k0.get('stop_error')}; in "
+          f"{time.perf_counter() - t0:.1f}s {'ok' if kill_ok else 'FAIL'}",
+          flush=True)
+    return launches, score_ok and adapt_ok and served_ok and launch_ok \
+        and kill_ok
+
+
+def sharded_cli(np, run_dir):
+    """Phase 10c: the serving CLI on the card from phase 7's run dir, one
+    score and one encode line on stdin. Returns ok."""
+    row = [float(v % 2) for v in range(784)]
+    req = "".join(json.dumps({"op": op, "x": row}) + "\n"
+                  for op in ("score", "encode"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "iwae_replication_project_tpu_torch.serving",
+         "--checkpoint", run_dir, "--interactive"], input=req,
+        capture_output=True, text=True, timeout=300,
+        cwd=str(Path(__file__).resolve().parent))
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    ok = proc.returncode == 0 and len(lines) == 3 and \
+        [ln.get("op") for ln in lines[1:]] == ["score", "encode"] and \
+        bool(np.isfinite(lines[1]["result"])) and \
+        len(lines[2]["result"]) == 50
+    print(f"sharded: cli --checkpoint RUN_DIR --interactive, one score "
+          f"and one encode line: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f}s, device "
+          f"{lines[0].get('device') if lines else None}, score "
+          f"{lines[1].get('result') if len(lines) > 1 else None} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+    return ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1721,11 +2152,10 @@ def main() -> int:
                     b1_times[("bf16", "eval", 500)]):
         return fail("the evaluation phase failed")
 
-    _, ok = driver(torch, np, zoo, hot_loop)
-    if not ok:
-        return fail("the driver phase failed")
-
     with tempfile.TemporaryDirectory() as tmp:
+        _, ok, run_dir = driver(torch, np, zoo, hot_loop, tmp)
+        if not ok:
+            return fail("the driver phase failed")
         nccl_launches, ok = parallel_nccl(torch, np, zoo, hot_loop, tmp)
         if not ok:
             return fail("the NCCL mesh phase failed")
@@ -1737,11 +2167,26 @@ def main() -> int:
         facade_launches, ok = facade(torch, np, hot_loop, tmp)
         if not ok:
             return fail("the facade phase failed")
+        sharded_b1, ok = sharded_serve(
+            torch, np, zoo, hot_loop, run_dir,
+            b1_times[("bf16", "sharded-b8", 8)])
+        if not ok:
+            return fail("the sharded serving phase failed")
+        sharded_gloo_launches, ok = sharded_gloo(torch, np, zoo, hot_loop,
+                                                 run_dir, tmp)
+        if not ok:
+            return fail("the sharded gloo phase failed")
+        if not sharded_cli(np, run_dir):
+            return fail("the serving command line from a checkpoint failed")
+    sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
             "parallel_nccl_1x1": nccl_launches.get(rec["name"], 0),
             "parallel_gloo_2x2": gloo_launches.get(rec["name"], 0),
-            "facade_logits_bf16": facade_launches.get(rec["name"], 0)}
+            "facade_logits_bf16": facade_launches.get(rec["name"], 0),
+            "sharded_serve_1x1": sharded_launches.get(rec["name"], 0),
+            "sharded_serve_gloo_2x2": sharded_gloo_launches.get(rec["name"],
+                                                                0)}
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records}),

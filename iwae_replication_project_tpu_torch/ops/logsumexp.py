@@ -131,16 +131,23 @@ def online_lse_var_merge(a: OnlineLSEVar, b: OnlineLSEVar) -> OnlineLSEVar:
 def lse_var_stats(s: torch.Tensor, s2: torch.Tensor, n) -> tuple:
     """``(ess, se)`` from the max-subtracted sums of an augmented carry
     (JAX :151-169): ``ess = s^2 / s2`` and the delta-method standard error
-    of ``log mean(w)`` with the n/(n-1) correction. A row with ``s == 0``
-    (all ``-inf``) gets ess 0 and se ``+inf``, never NaN."""
-    n_f = float(n)
+    of ``log mean(w)`` with the n/(n-1) correction. ``n`` is one count or a
+    tensor of per-row counts (the adaptive scorer's ``k_used``), whose
+    correction is then formed in ``s``'s dtype, as JAX forms it. A row with
+    ``s == 0`` (all ``-inf``) gets ess 0 and se ``+inf``, never NaN."""
     pos = s > 0
     safe_s = torch.where(pos, s, torch.ones_like(s))
     safe_s2 = torch.where(s2 > 0, s2, torch.ones_like(s2))
     ess = torch.where(pos, safe_s * safe_s / safe_s2, torch.zeros_like(s))
-    bessel = n_f / max(n_f - 1.0, 1.0)
-    var = torch.clamp_min(safe_s2 / (safe_s * safe_s) - 1.0 / max(n_f, 1.0),
-                          0.0) * bessel
+    if isinstance(n, torch.Tensor):
+        n_f = n.to(s.dtype)
+        bessel = n_f / torch.clamp_min(n_f - 1.0, 1.0)
+        inv_n = 1.0 / torch.clamp_min(n_f, 1.0)
+    else:
+        n_f = float(n)
+        bessel = n_f / max(n_f - 1.0, 1.0)
+        inv_n = 1.0 / max(n_f, 1.0)
+    var = torch.clamp_min(safe_s2 / (safe_s * safe_s) - inv_n, 0.0) * bessel
     se = torch.where(pos, torch.sqrt(var), torch.full_like(s, math.inf))
     return ess, se
 

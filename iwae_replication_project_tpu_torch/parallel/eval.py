@@ -1,6 +1,6 @@
-"""Mesh-sharded evaluation: the k=5000 NLL and the whole statistics suite
-(port of ``parallel/eval.py``; its sharded serving scorers belong to the
-serving stack, ROADMAP A9).
+"""Mesh-sharded evaluation: the k=5000 NLL, the whole statistics suite and
+the per-rank bodies of the sharded serving scorers (port of
+``parallel/eval.py``).
 
 The single-device suite (``evaluation/metrics.py``) already streams its
 large-k reductions; here the same reductions are split over the ``(dp,
@@ -29,12 +29,26 @@ Tests inject each rank's draws instead, as ``training_statistics`` takes
 them.
 
 Output schema matches ``evaluation.metrics.training_statistics``.
+
+**The serving scorers** (:func:`local_row_streaming_log_px`,
+:func:`local_row_adaptive_log_px`; entered offline through
+:func:`sharded_score_offline` and :func:`sharded_score_adaptive_offline`,
+which call the very programs ``serving/sharded.py`` dispatches) take each
+rank's ``B/dp`` rows and stream k in fixed ``k_chunk`` blocks over sp. A
+row's block ``g`` (the *global* block index) draws its noise from the row's
+own (engine seed, request seed, g) stream through the `noise` callable the
+program passes, so a row's weights do not depend on its batch, the padding
+or which sp rank streams the block. Each block is one encoder pass over the
+rank's rows and one decoder-block call (B1 on the card) at ``[k_chunk,
+B/dp]``. Samples at a global index >= k are ``-inf``; a block no row needs
+is skipped, since an all ``-inf`` block is an exact identity update of the
+carry.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +58,11 @@ from iwae_replication_project_tpu_torch.models import iwae as model
 from iwae_replication_project_tpu_torch.ops.logsumexp import (
     OnlineLSE,
     OnlineLSEVar,
+    lse_var_stats,
+    online_logsumexp_init,
+    online_logsumexp_update,
+    online_lse_var_init,
+    online_lse_var_update,
 )
 from iwae_replication_project_tpu_torch.parallel.dp import mix_seed
 from iwae_replication_project_tpu_torch.parallel.mesh import AXES, Mesh
@@ -72,6 +91,194 @@ def merge_lse_var_over_sp(mesh: Mesh, state: OnlineLSEVar) -> OnlineLSEVar:
                                         state.s2 * scale * scale]),
                            "sum", AXES.sp)
     return OnlineLSEVar(m=m_g, s=both[0], s2=both[1], n=state.n * mesh.sp)
+
+
+#: ``noise(blocks) -> [k_chunk, B_local, d]`` per encoder layer: the draws
+#: of global block ``blocks[b]`` for local row b (None: the row needs no
+#: block here; any finite values do)
+BlockNoise = Callable[[Sequence[Optional[int]]], List[torch.Tensor]]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _mask_from(lw: torch.Tensor, valid: Sequence[int]) -> torch.Tensor:
+    """`lw` ``[k_chunk, B]`` with samples ``j >= valid[b]`` of row b set to
+    ``-inf``; unchanged where every row keeps its whole block."""
+    kc = lw.shape[0]
+    if all(v >= kc for v in valid):
+        return lw
+    lim = torch.tensor(valid, device=lw.device)
+    keep = torch.arange(kc, device=lw.device)[:, None] < lim[None, :]
+    return torch.where(keep, lw, torch.full_like(lw, -math.inf))
+
+
+@torch.no_grad()
+def local_row_streaming_log_px(params, cfg: model.ModelConfig, mesh: Mesh,
+                               x_local: torch.Tensor, k: int, k_chunk: int,
+                               noise: BlockNoise) -> OnlineLSE:
+    """This rank's carry of the fixed-k serving scorer (JAX :99-136): the
+    ``ceil(ceil(k/k_chunk)/sp)`` blocks ``sp_rank*bpd + i`` of each of its
+    ``B/dp`` rows, unmerged. Callers merge over sp and normalise by
+    ``log k``."""
+    n_rows = x_local.shape[0]
+    n_blocks = _ceil_div(k, k_chunk)
+    bpd = _ceil_div(n_blocks, mesh.sp)
+    st = online_logsumexp_init((n_rows,), device=x_local.device)
+    for i in range(bpd):
+        g = mesh.sp_rank * bpd + i
+        if g >= n_blocks:
+            break
+        lw = model.log_weights(params, cfg, x_local, k_chunk,
+                               eps=noise([g] * n_rows))
+        lw = _mask_from(lw, [k - g * k_chunk] * n_rows)
+        st = online_logsumexp_update(st, lw, dim=0)
+    return st
+
+
+@torch.no_grad()
+def local_row_adaptive_log_px(params, cfg: model.ModelConfig, mesh: Mesh,
+                              x_local: torch.Tensor, k_cap: int,
+                              target_se: float, ess_floor: float,
+                              k_chunk: int, noise: BlockNoise,
+                              n_real: Optional[int] = None) -> torch.Tensor:
+    """This rank's ``[B/dp, 3]`` rows of ``(log p_hat, achieved se,
+    k_used)`` of the accuracy-targeted scorer (JAX :139-240).
+
+    **Phase 1** walks the stream round-robin: round r folds global block
+    ``r*sp + sp_rank`` into the augmented carry, merges it over sp (one
+    MAX, one SUM) and tests every row's delta-method SE and ESS against the
+    targets (<= 0 disables one); a row converges at the first round whose
+    prefix of ``min((r+1)*sp*k_chunk, k_cap)`` samples meets one, which
+    freezes its ``k_used``. The loop ends when every one of the first
+    `n_real` rows has converged (None: all rows; the engine's padding rows
+    never hold it up) or the cap is reached. The test reads sp-merged
+    statistics, so every rank of an sp group runs as many rounds and issues
+    as many collectives; it is one host sync per round.
+
+    **Phase 2** recomputes each row's answer over its ``k_used`` prefix
+    with the fixed-k schedule (block ``sp_rank*bpd_row + i``, the same
+    masking and carry arithmetic), ``max(bpd_row)`` iterations over the
+    real rows, so the result is bitwise the fixed-k score at ``k = k_used``
+    on the same rows.
+    """
+    dev = x_local.device
+    n_rows = x_local.shape[0]
+    real = n_rows if n_real is None else max(0, min(int(n_real), n_rows))
+    sp, spr = mesh.sp, mesh.sp_rank
+    n_blocks_cap = _ceil_div(k_cap, k_chunk)
+    rounds_cap = _ceil_div(n_blocks_cap, sp)
+    tse = torch.tensor(target_se, dtype=torch.float32, device=dev)
+    floor = torch.tensor(ess_floor, dtype=torch.float32, device=dev)
+
+    st = online_lse_var_init((n_rows,), device=dev)
+    converged = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    k_used = torch.full((n_rows,), k_cap, dtype=torch.int64, device=dev)
+    for r in range(rounds_cap):
+        if real == 0 or (r and bool(converged[:real].all())):
+            break
+        g = r * sp + spr
+        if g < n_blocks_cap:
+            lw = model.log_weights(params, cfg, x_local, k_chunk,
+                                   eps=noise([g] * n_rows))
+            lw = _mask_from(lw, [k_cap - g * k_chunk] * n_rows)
+            st = online_lse_var_update(st, lw, dim=0)
+        merged = merge_lse_var_over_sp(mesh, st)
+        n_drawn = min((r + 1) * sp * k_chunk, k_cap)
+        ess, se = lse_var_stats(merged.s, merged.s2, n_drawn)
+        ok = ((tse > 0) & (se <= tse)) | ((floor > 0) & (ess >= floor))
+        k_used = torch.where(ok & ~converged, torch.full_like(k_used, n_drawn),
+                             k_used)
+        converged = converged | ok
+
+    used = k_used.tolist()
+    bpd_row = [_ceil_div(_ceil_div(u, k_chunk), sp) for u in used]
+    st2 = online_lse_var_init((n_rows,), device=dev)
+    for i in range(max(bpd_row[:real], default=0)):
+        blocks = [spr * b + i for b in bpd_row]
+        valid = [max(0, min(k_chunk, u - g * k_chunk)) if i < b else 0
+                 for u, g, b in zip(used, blocks, bpd_row)]
+        if not any(valid):
+            continue
+        lw = model.log_weights(params, cfg, x_local, k_chunk, eps=noise(
+            [g if v else None for g, v in zip(blocks, valid)]))
+        st2 = online_lse_var_update(st2, _mask_from(lw, valid), dim=0)
+    merged = merge_lse_over_sp(mesh, OnlineLSE(m=st2.m, s=st2.s, n=st2.n))
+    safe = _safe(merged.m)
+    s2 = mesh.all_reduce(st2.s2 * torch.exp(2.0 * (st2.m - safe)), "sum",
+                         AXES.sp)
+    k_f = k_used.to(torch.float32)
+    log_px = torch.log(merged.s) + safe - torch.log(k_f)
+    _, se = lse_var_stats(merged.s, s2, k_f)
+    return torch.stack([log_px, se, k_f], dim=1)
+
+
+def _padded(mesh: Mesh, seeds, x: torch.Tensor):
+    """`seeds` and `x` zero-padded to a multiple of dp rows, as the engine
+    pads a bucket."""
+    seeds = [int(s) for s in seeds]
+    pad = (-len(seeds)) % mesh.dp
+    if pad:
+        seeds += [0] * pad
+        x = torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]),
+                                      dtype=x.dtype, device=x.device)])
+    return seeds, x
+
+
+def sharded_score_offline(params, cfg: model.ModelConfig, mesh: Mesh,
+                          base_seed: int, seeds, x: torch.Tensor, k: int,
+                          k_chunk: int = 250, *,
+                          kernel_path: Optional[str] = None,
+                          noise_fn=None) -> torch.Tensor:
+    """Offline entry to the sharded serving ``score`` program: ``[B]``
+    log p_hat(x) with rows over dp and k blocks over sp (JAX :273-305).
+
+    Every rank calls it with the whole batch. It resolves the hot-loop gate
+    as the engine does (``serving_dispatch_config`` on the mesh's device,
+    `kernel_path` a pin) and calls the program the engine dispatches
+    (``serving.programs.make_sharded_score_rows``), so an offline sweep
+    and an online request at the same (mesh, k_chunk, engine seed, request
+    seed) are bitwise equal by construction. A batch dp does not divide is
+    zero-padded and sliced, as the engine's bucket. `noise_fn(g, seeds)`
+    replaces the device draws of block g (tests replay JAX's draws)."""
+    from iwae_replication_project_tpu_torch.ops.hot_loop import (
+        serving_dispatch_config)
+    from iwae_replication_project_tpu_torch.serving.programs import (
+        make_sharded_score_rows)
+
+    n = x.shape[0]
+    seeds, x = _padded(mesh, seeds, x)
+    cfg_d, _ = serving_dispatch_config(cfg, device=mesh.device,
+                                       force=kernel_path)
+    fn = make_sharded_score_rows(cfg_d, mesh, k_chunk)
+    return fn(params, base_seed, seeds, x, k, noise_fn=noise_fn)[:n]
+
+
+def sharded_score_adaptive_offline(params, cfg: model.ModelConfig,
+                                   mesh: Mesh, base_seed: int, seeds,
+                                   x: torch.Tensor, *, k_cap: int,
+                                   target_se: float = 0.0,
+                                   ess_floor: float = 0.0,
+                                   k_chunk: int = 250,
+                                   kernel_path: Optional[str] = None,
+                                   noise_fn=None) -> torch.Tensor:
+    """Offline entry to the adaptive serving program (JAX :243-270):
+    ``[B, 3]`` rows of ``(log p_hat, achieved se, k_used)``, through the
+    program ``score_adaptive`` dispatches, as :func:`sharded_score_offline`
+    does for ``score``. A target <= 0 disables that criterion."""
+    from iwae_replication_project_tpu_torch.ops.hot_loop import (
+        serving_dispatch_config)
+    from iwae_replication_project_tpu_torch.serving.programs import (
+        make_sharded_score_adaptive)
+
+    n = x.shape[0]
+    seeds, x = _padded(mesh, seeds, x)
+    cfg_d, _ = serving_dispatch_config(cfg, device=mesh.device,
+                                       force=kernel_path)
+    fn = make_sharded_score_adaptive(cfg_d, mesh, k_chunk)
+    return fn(params, base_seed, seeds, x, k_cap, target_se, ess_floor,
+              n_real=n, noise_fn=noise_fn)[:n]
 
 
 def _sp_k(name: str, k: int, mesh: Mesh) -> int:

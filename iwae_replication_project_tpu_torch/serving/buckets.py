@@ -1,18 +1,20 @@
 """Shape-bucket ladder and the serving boundaries' validators (port of
-``serving/buckets.py``: ``BucketLadder``, ``as_row(s)``, ``validate_k`` and
-``validate_model``; the k-chunk menu and the adaptive validators wait for the
-large-k slice).
+``serving/buckets.py``: ``BucketLadder``, ``KChunkMenu``, ``as_row(s)``,
+``validate_k``, ``validate_model``, ``validate_adaptive_target`` and
+``target_class``).
 
-The engine rounds every coalesced batch up to a small power-of-two ladder
-(1, 2, 4, ..., max_batch), so a warm engine sees a closed menu of shapes, and
-slices the padding rows off before results leave it. This module is also the
-payload host boundary: :func:`as_row` / :func:`as_rows` turn caller payloads
-into the engine's float32 row layout.
+The engine rounds every coalesced batch up to a small ladder of batch sizes
+(by default the powers of two up to max_batch; an explicit tuple for the
+sharded engine's dp-aligned rungs), so a warm engine sees a closed menu of
+shapes, and slices the padding rows off before results leave it. This
+module is also the payload host boundary: :func:`as_row` / :func:`as_rows`
+turn caller payloads into the engine's float32 row layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -95,6 +97,38 @@ class BucketLadder:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class KChunkMenu:
+    """The ``(batch bucket, k)`` menu of the sharded large-k score path.
+
+    The batch axis keeps the :class:`BucketLadder`'s rungs. The k axis needs
+    no rungs: the sharded programs stream k in fixed ``k_chunk`` sample
+    blocks, each row's block ``g`` drawn from its own (engine seed, request
+    seed, g) generator, with a ragged last block masked, so one program per
+    bucket serves every ``k`` in ``[1, k_max]``. ``k_chunk`` is therefore a
+    sampling-contract constant (it versions the sample stream and sets the
+    per-block working set); ``k_max`` is the admission bound.
+    """
+
+    batch: BucketLadder
+    k_chunk: int = 250
+    k_max: int = 5000
+
+    def __post_init__(self):
+        if self.k_chunk < 1:
+            raise ValueError(f"k_chunk must be >= 1, got {self.k_chunk}")
+        if self.k_max < 1:
+            raise ValueError(f"k_max must be >= 1, got {self.k_max}")
+
+    def validate_k(self, k) -> int:
+        """`k` as a validated int, or ValueError (the typed bad request)."""
+        return validate_k(k, self.k_max)
+
+    def n_chunks(self, k: int) -> int:
+        """Sample blocks a k-request spans (the last may be ragged)."""
+        return -(-self.validate_k(k) // self.k_chunk)
+
+
 def validate_model(model, served) -> str:
     """`model` must be a string naming one of the `served` models, else
     ValueError (the typed bad request): a request must never be served by
@@ -119,3 +153,50 @@ def validate_k(k, k_max: int) -> int:
         raise ValueError(f"k={k} is out of range [1, {k_max}] for this "
                          f"serving path")
     return k
+
+
+def validate_adaptive_target(target_se, ess_floor, k_cap,
+                             k_max: int) -> Tuple[float, float, int]:
+    """``(target_se, ess_floor, k_cap)`` of a ``score_adaptive`` request,
+    normalized, or ValueError (the typed bad request).
+
+    ``k_cap`` is a k (:func:`validate_k` against ``k_max``); ``target_se``
+    and ``ess_floor`` are finite positive reals when given (None disables
+    one, normalized to 0.0, the value the program takes); at least one must
+    be active (a target-less adaptive request is a fixed-k request under
+    the wrong op); an ``ess_floor`` above ``k_cap`` can never be met (ESS
+    <= n) and is refused rather than truncated to the cap.
+    """
+    k_cap = validate_k(k_cap, k_max)
+
+    def norm(name, v):
+        if v is None:
+            return 0.0
+        if isinstance(v, bool) or not isinstance(v, (int, float, np.floating,
+                                                     np.integer)):
+            raise ValueError(f"{name} must be a number, got "
+                             f"{type(v).__name__}")
+        v = float(v)
+        if not np.isfinite(v) or v <= 0.0:
+            raise ValueError(f"{name} must be finite and > 0, got {v!r}")
+        return v
+
+    target_se = norm("target_se", target_se)
+    ess_floor = norm("ess_floor", ess_floor)
+    if target_se == 0.0 and ess_floor == 0.0:
+        raise ValueError("an adaptive score request needs a target: give "
+                         "target_se > 0 and/or ess_floor > 0 (use the plain "
+                         "score op for fixed-k scoring)")
+    if ess_floor > k_cap:
+        raise ValueError(f"ess_floor={ess_floor:g} can never be reached "
+                         f"under k_cap={k_cap} (ESS <= sample count)")
+    return target_se, ess_floor, k_cap
+
+
+def target_class(target_se: float, ess_floor: float) -> str:
+    """The coarse class an adaptive request's ``k_used`` is accounted
+    under: the active criterion and its decade (``"se:e-2"``,
+    ``"ess:e+2"``). An accounting key only, never a program key."""
+    if target_se > 0.0:
+        return f"se:e{math.floor(math.log10(target_se)):+d}"
+    return f"ess:e{math.floor(math.log10(max(ess_floor, 1.0))):+d}"

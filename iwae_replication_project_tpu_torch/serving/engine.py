@@ -26,19 +26,30 @@ Invariants:
   algorithm per batch size (the hot-loop kernel itself is row-independent);
 * **bounded everything** -- queue bound (:class:`EngineOverloaded` shed),
   in-flight window, per-request queue timeout (:class:`RequestTimeout`), and
-  launch/fetch errors that land in exactly the affected batch's futures.
+  launch/fetch errors that land in exactly the affected batch's futures
+  (the fault sites ``serving/faults.py`` names fire in :meth:`_launch` and
+  :meth:`_finish`).
 
-Not ported yet: the executable store, fault points, the profiler, tracing,
-the int8 policy, the sharded and adaptive scorers and checkpoint loading.
+A dispatch goes through hooks a subclass overrides: :meth:`_resolve_kernel`
+(the hot-loop gate, memoized per :meth:`_stamp_k` key and bucket),
+:meth:`_program_for` and :meth:`_dispatch_args`. The mesh-sharded large-k
+engine (``serving/sharded.py``) swaps in its programs and the
+``score_adaptive`` op (:attr:`_ADAPTIVE_OPS`) through them. The engine
+serves a parameter tree, a compiled ``api.FlexibleModel`` or a checkpoint
+run directory of the driver (``source=``).
+
+Not ported yet: the executable store, the profiler, tracing and the int8
+policy (ROADMAP A9, A8, A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,8 +71,13 @@ from iwae_replication_project_tpu_torch.serving.buckets import (
     BucketLadder,
     as_row,
     as_rows,
+    validate_adaptive_target,
     validate_k,
     validate_model,
+)
+from iwae_replication_project_tpu_torch.serving.faults import (
+    SITE_ENGINE_FETCH,
+    SITE_ENGINE_LAUNCH,
 )
 from iwae_replication_project_tpu_torch.serving.metrics import ServingMetrics
 from iwae_replication_project_tpu_torch.serving.programs import (
@@ -70,6 +86,8 @@ from iwae_replication_project_tpu_torch.serving.programs import (
 )
 from iwae_replication_project_tpu_torch.utils.device import resolve_device
 from iwae_replication_project_tpu_torch.utils.dtypes import validate_precision
+from iwae_replication_project_tpu_torch.utils.faults import fault_point
+from iwae_replication_project_tpu_torch.utils.tree import tree_map
 
 __all__ = ["ServingEngine", "EngineOverloaded", "RequestTimeout"]
 
@@ -95,12 +113,16 @@ class _InFlight:
 class ServingEngine:
     """Typed online-inference API over one model's weights on one device.
 
-    Pass ``params=`` (the port's parameter tree; see :mod:`..convert` for
-    the JAX package's) and ``model_config=``. Knobs: ``k`` (default
+    The weights come from ``source`` -- a checkpoint run directory of the
+    driver (``<checkpoint_dir>/<run_name>``, served at its stored training
+    k) or a compiled ``api.FlexibleModel`` (a snapshot of its weights) --
+    or from ``params=`` (the port's parameter tree; see :mod:`..convert`
+    for the JAX package's) and ``model_config=``. Knobs: ``k`` (default
     importance samples per score/encode request, 50), ``k_max`` (per-request
     admission bound, default ``max(1024, k)``), ``max_batch``/``max_wait_us``
-    (coalescing; the shape buckets are the powers of two up to max_batch),
-    ``queue_limit`` (shed bound), ``max_inflight`` (launched
+    (coalescing; the shape buckets are the powers of two up to max_batch,
+    or ``ladder``'s rungs), ``queue_limit`` (shed bound), ``max_inflight``
+    (launched
     but uncompleted batches; 0 = serial), ``timeout_s`` (per-request queue
     deadline; None disables), ``seed`` (the engine seed every row generator
     mixes in), ``kernel_path`` (None = the CUDA kernel on the card, the
@@ -112,18 +134,39 @@ class ServingEngine:
     """
 
     #: ops whose program runs the hot-loop block and is therefore gated
-    _GATED_OPS = ("score",)
+    _GATED_OPS: Tuple[str, ...] = ("score",)
+    #: ops whose program takes an accuracy target: their k is the cap and
+    #: their submits go through ``validate_adaptive_target``; none here
+    #: (the sharded engine registers ``score_adaptive``)
+    _ADAPTIVE_OPS: Tuple[str, ...] = ()
 
-    def __init__(self, *, params, model_config,
+    def __init__(self, source=None, *, params=None, model_config=None,
                  k: Optional[int] = None, k_max: Optional[int] = None,
                  max_batch: int = 64, max_wait_us: float = 2000.0,
                  queue_limit: int = 1024, max_inflight: int = 2,
-                 timeout_s: Optional[float] = 2.0, seed: int = 0,
+                 timeout_s: Optional[float] = 2.0,
+                 ladder: Optional[BucketLadder] = None, seed: int = 0,
                  kernel_path: Optional[str] = None,
                  model: Optional[str] = None,
                  precision: Optional[str] = None,
                  device=None):
         self.device = resolve_device(device)
+        if isinstance(source, (str, os.PathLike)):
+            params, model_config, stored_k = _load_checkpoint(
+                os.fspath(source))
+            if k is None:
+                k = stored_k  # serve at the k the model trained under
+        elif source is not None:
+            if getattr(source, "state", None) is None or \
+                    not hasattr(source, "cfg"):
+                raise ValueError(
+                    "source must be a compiled FlexibleModel (call "
+                    ".compile() first) or a checkpoint run directory")
+            params = tree_map(lambda t: t.detach().clone(), source.params)
+            model_config = source.cfg
+        if params is None or model_config is None:
+            raise ValueError("pass a checkpoint run directory, a compiled "
+                             "FlexibleModel, or params= + model_config=")
         self.precision = validate_precision(precision) \
             if precision is not None else None
         self.cfg = dataclasses.replace(model_config, fused_likelihood=False,
@@ -137,10 +180,9 @@ class ServingEngine:
                              f"kernel | reference")
         if kernel_path == "kernel" and self.device.type != "cuda":
             raise ValueError("kernel_path='kernel' needs a CUDA device")
-        #: (dispatch cfg, path) of every score dispatch: the CUDA kernel on
-        #: the card for logits models, the plain composition otherwise
-        self._score_kernel = serving_dispatch_config(
-            self.cfg, device=self.device, force=kernel_path)
+        self.kernel_path = kernel_path
+        #: (op, stamp k, bucket) -> (dispatch cfg, path): the gate's memo
+        self._kernel_cache: Dict[tuple, tuple] = {}
         self.model = str(model) if model is not None else None
         self.models = frozenset({self.model}) if self.model else None
         self.k = int(k) if k is not None else 50
@@ -149,9 +191,14 @@ class ServingEngine:
                              f"default k={self.k}")
         self.k_max = int(k_max) if k_max is not None \
             else max(DEFAULT_K_MAX, self.k)
-        self._programs = dict(PROGRAMS)
+        #: whether this engine runs the mesh-sharded large-k path (the
+        #: replica router's classification bit)
+        self.sharded = False
+        #: op -> (program, takes k?); subclasses swap programs here
+        self._programs: Dict[str, tuple] = dict(PROGRAMS)
         self.timeout_s = timeout_s
-        self.ladder = BucketLadder.powers_of_two(max_batch)
+        self.ladder = ladder or BucketLadder.powers_of_two(max_batch)
+        max_batch = self.ladder.max_batch
         self.metrics = ServingMetrics(model=self.model,
                                       precision=self.precision)
         self._clock = time.monotonic
@@ -184,6 +231,10 @@ class ServingEngine:
             "encode": self.cfg.x_dim,
             "decode": self.cfg.n_latent_enc[-1],
         }
+        # the gate resolves here, so a kernel pin it refuses fails
+        # construction, not the first dispatch
+        for op in self._GATED_OPS:
+            self._kernel_for(op)
 
     # ------------------------------------------------------------------
     # request API
@@ -191,23 +242,37 @@ class ServingEngine:
 
     def submit(self, op: str, row, k: Optional[int] = None, *,
                seed: Optional[int] = None,
-               model: Optional[str] = None) -> Future:
+               model: Optional[str] = None,
+               target_se: Optional[float] = None,
+               ess_floor: Optional[float] = None) -> Future:
         """Enqueue ONE example; returns its Future. Raises
         :class:`EngineOverloaded` when the queue bound is hit.
 
         ``seed`` overrides the engine's per-request seed counter (a result
         is a pure function of weights, payload, seed and k, so a retry with
-        the original seed returns the same result). The queue drains only
-        when something pumps it: :meth:`start`, :meth:`flush` or a blocking
-        helper."""
+        the original seed returns the same result). For an adaptive op
+        ``k`` is the cap and ``target_se``/``ess_floor`` the target
+        (``validate_adaptive_target``); a target on a fixed-k op is a typed
+        bad request. The queue drains only when something pumps it:
+        :meth:`start`, :meth:`flush` or a blocking helper."""
         if op not in self._programs:
             raise ValueError(f"unknown op {op!r}; choose "
                              f"{sorted(self._programs)}")
         if model is not None:
             validate_model(model, self.models or ())
         _, takes_k = self._programs[op]
-        k = validate_k(self.k if k is None else k, self.k_max) \
-            if takes_k else 0
+        if op in self._ADAPTIVE_OPS:
+            target_se, ess_floor, k = validate_adaptive_target(
+                target_se, ess_floor, self.k if k is None else k, self.k_max)
+        elif target_se is not None or ess_floor is not None:
+            raise ValueError(
+                f"target_se/ess_floor only apply to adaptive ops "
+                f"({sorted(self._ADAPTIVE_OPS)}); {op!r} is fixed-k: use "
+                f"score_adaptive for accuracy-targeted scoring")
+        else:
+            target_se = ess_floor = 0.0
+            k = validate_k(self.k if k is None else k, self.k_max) \
+                if takes_k else 0
         row = as_row(row, self.row_dims[op], op)
         now = self._clock()
         if seed is not None and not 0 <= int(seed) < 2 ** 31:
@@ -219,7 +284,8 @@ class ServingEngine:
             req = Request(op=op, payload=row, k=k, seed=int(seed),
                           t_enqueue=now,
                           deadline=(now + self.timeout_s
-                                    if self.timeout_s is not None else None))
+                                    if self.timeout_s is not None else None),
+                          target_se=target_se, ess_floor=ess_floor)
             try:
                 self._batcher.submit(req)
             except EngineOverloaded:
@@ -230,9 +296,9 @@ class ServingEngine:
             self._cv.notify()
         return req.future
 
-    def _blocking(self, op: str, x, k: Optional[int]) -> np.ndarray:
+    def _blocking(self, op: str, x, k: Optional[int], **kw) -> np.ndarray:
         rows, single = as_rows(x)
-        futures = [self.submit(op, r, k=k) for r in rows]
+        futures = [self.submit(op, r, k=k, **kw) for r in rows]
         if self._thread is None:
             self.flush()
         out = np.stack([f.result() for f in futures])
@@ -250,6 +316,18 @@ class ServingEngine:
     def decode(self, h) -> np.ndarray:
         """Pixel probabilities decoded from deepest-latent rows."""
         return self._blocking("decode", h, None)
+
+    def score_adaptive(self, x, k_cap: Optional[int] = None, *,
+                       target_se: Optional[float] = None,
+                       ess_floor: Optional[float] = None) -> np.ndarray:
+        """Accuracy-targeted scoring: ``[n, 3]`` rows of ``(log p_hat,
+        achieved se, k_used)`` (``[3]`` for a single row), each row stopped
+        at the first prefix of its sample stream meeting ``target_se``
+        and/or ``ess_floor``, capped at ``k_cap``. Blocks until served;
+        only engines registering the adaptive op (the sharded scorer)
+        accept it."""
+        return self._blocking("score_adaptive", x, k_cap,
+                              target_se=target_se, ess_floor=ess_floor)
 
     # ------------------------------------------------------------------
     # dispatch machinery
@@ -351,47 +429,95 @@ class ServingEngine:
                 f"{r.op} request expired after {self.timeout_s}s in queue "
                 f"(engine saturated — shed load or raise timeout_s)"))
 
-    def _kernel_for(self, op: str) -> tuple:
-        """``(dispatch cfg, path name)`` of `op`: score runs the serving
-        gate's choice; encode and decode never touch the decoder block."""
-        return self._score_kernel if op in self._GATED_OPS \
-            else (self.cfg, "reference")
+    # -- the hooks a subclass overrides ---------------------------------
 
-    def _run(self, op: str, k: int, cfg, payload: np.ndarray,
-             seeds: Sequence[int]):
-        """Draw the batch's noise on the host, then launch its program on
-        the device without waiting; returns ``(out, event, inputs)``."""
-        program, takes_k = self._programs[op]
+    def _kernel_for(self, op: str, k: Optional[int] = None,
+                    bucket: Optional[int] = None) -> tuple:
+        """``(dispatch cfg, path name)`` of one dispatch (None: the engine's
+        k, the largest bucket): the gate's resolution, memoized per (op,
+        :meth:`_stamp_k`, bucket)."""
+        k = self.k if k is None else k
+        bucket = self.ladder.max_batch if bucket is None else bucket
+        key = (op, self._stamp_k(op, k), bucket)
+        hit = self._kernel_cache.get(key)
+        if hit is None:
+            hit = self._kernel_cache[key] = self._resolve_kernel(op, k,
+                                                                 bucket)
+        return hit
+
+    def _resolve_kernel(self, op: str, k: int, bucket: int) -> tuple:
+        """Gated ops run the serving gate's choice (the CUDA kernel on the
+        card for logits models, the plain composition otherwise; the
+        port's gate needs no shape); the others never touch the decoder
+        block."""
+        if op not in self._GATED_OPS:
+            return self.cfg, "reference"
+        return serving_dispatch_config(self.cfg, device=self.device,
+                                       force=self.kernel_path)
+
+    def _stamp_k(self, op: str, k: int):
+        """The k of the metrics kernel stamp and the gate's memo: the
+        request k for static-k programs (the sharded engine stamps one
+        ``"dyn"`` per bucket)."""
+        return k
+
+    def _program_for(self, op: str, k: int, bucket: int):
+        """The program of one dispatch."""
+        return self._programs[op][0]
+
+    def _dispatch_args(self, op: str, k: int, bucket: int,
+                       payload: np.ndarray, seeds: List[int],
+                       targets: Optional[Tuple[float, float]] = None,
+                       n_real: Optional[int] = None) -> Tuple[tuple, dict]:
+        """``(args, kwargs)`` of one program call, made on the launch
+        stream: the batch's noise drawn on the host, payload and noise
+        copied to the device. ``targets`` and ``n_real`` serve adaptive
+        ops (none here)."""
+        cfg, _ = self._kernel_for(op, k, bucket)
+        _, takes_k = self._programs[op]
         noise = draw_noise(cfg, op, self._base_seed, seeds, k)
-        kwargs = {"noise": noise}
+        x = torch.from_numpy(payload).to(self.device, non_blocking=True)
+        noise = [t.to(self.device, non_blocking=True) for t in noise]
+        args = (self._params, cfg, self._base_seed, seeds, x)
+        return (args + (k,) if takes_k else args), {"noise": noise}
+
+    def _run(self, op: str, k: int, bucket: int, payload: np.ndarray,
+             seeds: List[int], targets: Optional[Tuple[float, float]] = None,
+             n_real: Optional[int] = None):
+        """Launch one program on the device without waiting; returns
+        ``(out, event, inputs)``."""
+        program = self._program_for(op, k, bucket)
         if self._stream is None:
-            x = torch.from_numpy(payload)
-            args = (x, k) if takes_k else (x,)
-            return program(self._params, cfg, self._base_seed, seeds, *args,
-                           **kwargs), None, ()
+            args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
+                                               targets, n_real)
+            return program(*args, **kwargs), None, ()
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            x = torch.from_numpy(payload).to(self.device, non_blocking=True)
-            noise_dev = [t.to(self.device, non_blocking=True) for t in noise]
-            kwargs["noise"] = noise_dev
-            args = (x, k) if takes_k else (x,)
-            out = program(self._params, cfg, self._base_seed, seeds, *args,
-                          **kwargs)
+            args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
+                                               targets, n_real)
+            out = program(*args, **kwargs)
             event = torch.cuda.Event()
             event.record(self._stream)
-        return out, event, (x, *noise_dev)
+        return out, event, (args, kwargs)
 
     def _launch(self, batch: List[Request]) -> _InFlight:
-        """Stage one: pad, draw noise, launch. Returns the in-flight handle
-        without synchronizing."""
+        """Stage one: pad, launch. Returns the in-flight handle without
+        synchronizing (the adaptive op's per-round test excepted)."""
         op, k = batch[0].op, batch[0].k
+        targets = (batch[0].target_se, batch[0].ess_floor) \
+            if op in self._ADAPTIVE_OPS else None
         n = len(batch)
+        # a raise here is the replica-crash signal: it lands in exactly
+        # this batch's futures (_launch_routed)
+        fault_point(SITE_ENGINE_LAUNCH, engine=self, op=op, k=k, batch=n)
         bucket = self.ladder.bucket_for(n)
         payload = self.ladder.pad_rows(
             np.stack([r.payload for r in batch]), bucket)
         seeds = [r.seed for r in batch] + [0] * (bucket - n)
-        cfg, path = self._kernel_for(op)
-        self.metrics.set_kernel(op, k, bucket, PATH_CODES[path], path)
-        out, event, inputs = self._run(op, k, cfg, payload, seeds)
+        _, path = self._kernel_for(op, k, bucket)
+        self.metrics.set_kernel(op, self._stamp_k(op, k), bucket,
+                                PATH_CODES[path], path)
+        out, event, inputs = self._run(op, k, bucket, payload, seeds,
+                                       targets, n)
         t_disp = self._clock()
         for r in batch:
             r.t_dispatch = t_disp
@@ -424,6 +550,8 @@ class ServingEngine:
     def _finish(self, inf: _InFlight) -> None:
         """Stage two: fetch, slice padding, complete this batch's futures."""
         try:
+            # a raise here models a deferred device failure
+            fault_point(SITE_ENGINE_FETCH, engine=self, op=inf.op)
             out = self._fetch(inf)
         except Exception as e:
             for r in inf.batch:
@@ -454,9 +582,10 @@ class ServingEngine:
     def warmup(self, ops: Sequence[str] = ("score", "encode", "decode")
                ) -> Dict[str, float]:
         """Run every (op, bucket) of the ladder once at the engine's k on
-        zero payloads, so the kernel is built and loaded and the device's
-        libraries and memory pools are initialised before the first request.
-        Returns ``{"programs": N, "seconds": S}``."""
+        zero payloads (an adaptive op with its targets off, so to its cap),
+        so the kernel is built and loaded and the device's libraries and
+        memory pools are initialised before the first request. Returns
+        ``{"programs": N, "seconds": S}``."""
         t0 = time.perf_counter()
         n_programs = 0
         for op in ops:
@@ -464,17 +593,49 @@ class ServingEngine:
                 raise ValueError(f"unknown op {op!r}")
             _, takes_k = self._programs[op]
             k = self.k if takes_k else 0
-            cfg, path = self._kernel_for(op)
+            targets = (0.0, 0.0) if op in self._ADAPTIVE_OPS else None
             for bucket in self.ladder.buckets:
                 payload = np.zeros((bucket, self.row_dims[op]), np.float32)
-                _, event, _ = self._run(op, k, cfg, payload, [0] * bucket)
+                _, event, _ = self._run(op, k, bucket, payload, [0] * bucket,
+                                        targets, bucket)
                 if event is not None:
                     event.synchronize()
-                self.metrics.set_kernel(op, k, bucket, PATH_CODES[path],
-                                        path)
+                _, path = self._kernel_for(op, k, bucket)
+                self.metrics.set_kernel(op, self._stamp_k(op, k), bucket,
+                                        PATH_CODES[path], path)
                 n_programs += 1
-        _, path = self._kernel_for("score")
+        _, path = self._kernel_for(self._GATED_OPS[0], self.k,
+                                   self.ladder.buckets[0])
         self.metrics.registry.gauge("kernel_path").set(
             float(PATH_CODES[path]))
         return {"programs": float(n_programs),
                 "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def _load_checkpoint(run_dir: str):
+    """``(params, ModelConfig, trained k)`` of a driver checkpoint run
+    directory (``<checkpoint_dir>/<run_name>``): the architecture from the
+    stored config JSON of the newest intact step, the weights restored from
+    that step, on the host."""
+    from iwae_replication_project_tpu_torch.models.iwae import init_params
+    from iwae_replication_project_tpu_torch.utils.checkpoint import (
+        restore_latest_params,
+        stored_config_json,
+    )
+    from iwae_replication_project_tpu_torch.utils.config import (
+        ExperimentConfig,
+    )
+
+    cfg_json = stored_config_json(run_dir)
+    if cfg_json is None:
+        raise FileNotFoundError(
+            f"no checkpoint (or no stored config) under {run_dir!r}: pass "
+            f"the run directory the driver writes, "
+            f"<checkpoint_dir>/<run_name>")
+    ecfg = ExperimentConfig.from_json(cfg_json)
+    model_cfg = ecfg.model_config("cpu")
+    params = init_params(torch.Generator().manual_seed(ecfg.seed), model_cfg)
+    if restore_latest_params(run_dir, params) is None:
+        raise FileNotFoundError(f"no restorable checkpoint under "
+                                f"{run_dir!r}")
+    return params, model_cfg, ecfg.k

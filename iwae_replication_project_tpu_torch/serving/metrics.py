@@ -36,7 +36,7 @@ class LatencyHistogram(Histogram):
 
 class ServingMetrics:
     """Thread-safe engine counters + per-(op, bucket) latency histograms +
-    per-(op, bucket, k) hot-loop path stamps."""
+    per-(op, bucket, program k) hot-loop path stamps."""
 
     COUNTERS = ("submitted", "completed", "timeouts", "shed", "errors",
                 "dispatches", "real_rows", "padded_rows")
@@ -74,10 +74,13 @@ class ServingMetrics:
     def inflight(self) -> int:
         return int(self._inflight.value)
 
-    def set_kernel(self, op: str, k: int, bucket: int, path_code: int,
+    def set_kernel(self, op: str, k, bucket: int, path_code: int,
                    path: str) -> None:
         """Stamp the hot-loop path of one (op, k, bucket) dispatch config on
-        a ``kernel/<op>/b<bucket>/k<k>[/<precision>]`` gauge."""
+        a ``kernel/<op>/b<bucket>/k<k>[/<precision>]`` gauge. `k` is the
+        program's k: the request's for static-k programs, ``"dyn"`` for the
+        sharded engine's, whose one program per bucket serves every k (a
+        ragged k stream adds no gauge per k)."""
         key = f"{op}/b{bucket}/k{k}"
         if self.precision:
             key = f"{key}/{self.precision}"

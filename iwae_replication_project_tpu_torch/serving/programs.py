@@ -18,11 +18,23 @@ per-row draws through it):
 * score/encode noise: one ``[k, B, n_latent_enc[i]]`` tensor per encoder layer;
 * decode noise: one ``[B, n_latent_dec[i]]`` tensor per decoder layer above
   the output block.
+
+The sharded large-k programs (:func:`make_sharded_score_rows`,
+:func:`make_sharded_score_adaptive`, JAX :75-169) stream k in fixed
+``k_chunk`` blocks over the ``(dp, sp)`` mesh (``parallel/eval.py``'s
+per-rank bodies). Row b's block g draws from a generator seeded with
+``row_seed(base_seed, seeds[b], g)``, on the program's device: a k=5000
+dispatch draws millions of normals, which a host draw would pace. So a
+row's value is a pure function of (weights, payload, engine seed, request
+seed, k, k_chunk), reduced in an order fixed by (mesh, k_chunk), and draws
+on the card and on the CPU differ for the same seed. Their ``noise_fn(g,
+seeds) -> [k_chunk, len(seeds), d]`` per layer replaces the draws (the
+tests replay JAX's ``fold_in(fold_in(base_key, seed), g)``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -30,6 +42,13 @@ from iwae_replication_project_tpu_torch.models import iwae as model
 from iwae_replication_project_tpu_torch.objectives.estimators import (
     iwae_per_example,
 )
+from iwae_replication_project_tpu_torch.parallel.eval import (
+    _safe,
+    local_row_adaptive_log_px,
+    local_row_streaming_log_px,
+    merge_lse_over_sp,
+)
+from iwae_replication_project_tpu_torch.parallel.mesh import Mesh
 
 _MASK64 = (1 << 64) - 1
 
@@ -41,10 +60,14 @@ def _splitmix64(z: int) -> int:
     return z ^ (z >> 31)
 
 
-def row_seed(base_seed: int, seed: int) -> int:
+def row_seed(base_seed: int, seed: int, block: Optional[int] = None) -> int:
     """The seed of one request's generator: a pure function of the engine
-    seed and the request seed (splitmix64 mixing, 63 bits)."""
-    return _splitmix64(_splitmix64(int(base_seed)) ^ int(seed)) >> 1
+    seed and the request seed (splitmix64 mixing, 63 bits); with `block`,
+    of that row's sample block ``block`` of the sharded programs."""
+    z = _splitmix64(_splitmix64(int(base_seed)) ^ int(seed))
+    if block is not None:
+        z = _splitmix64(z ^ int(block))
+    return z >> 1
 
 
 def noise_shapes(cfg: model.ModelConfig, op: str, k: int = 0) -> List[tuple]:
@@ -121,3 +144,141 @@ PROGRAMS = {
     "encode": (encode_rows, True),
     "decode": (decode_rows, False),
 }
+
+#: op name -> the program arguments whose leading axis carries the engine's
+#: zero-filled padding rows (the JAX audit's contract, :188-203): a padded
+#: row must never reach a real row's result
+PADDED_ROW_KWARGS = {
+    "score": ("seeds", "x"),
+    "encode": ("seeds", "x"),
+    "decode": ("seeds", "h_top"),
+    "score_sharded": ("seeds", "x"),
+    "score_adaptive": ("seeds", "x"),
+}
+
+
+# --------------------------------------------------------------------------
+# the sharded large-k programs
+# --------------------------------------------------------------------------
+
+#: ``noise_fn(g, seeds) -> [k_chunk, len(seeds), d]`` per encoder layer
+NoiseFn = Callable[[int, List[int]], List[torch.Tensor]]
+
+
+def draw_block_noise(cfg: model.ModelConfig, base_seed: int,
+                     seeds: Sequence[int], blocks: Sequence[Optional[int]],
+                     k_chunk: int, device) -> List[torch.Tensor]:
+    """Row b's draws of global block ``blocks[b]`` (zeros for None), drawn
+    on `device` from a generator seeded with ``row_seed(base_seed,
+    seeds[b], blocks[b])``, layer by layer: ``[k_chunk, B, d]`` per
+    encoder layer."""
+    dims = cfg.n_latent_enc
+    out = [torch.zeros((len(seeds), k_chunk, d), device=device)
+           for d in dims]
+    gen = torch.Generator(device=device)
+    for b, (seed, g) in enumerate(zip(seeds, blocks)):
+        if g is None:
+            continue
+        gen.manual_seed(row_seed(base_seed, seed, g))
+        for t in out:
+            torch.randn(t.shape[1:], generator=gen, out=t[b])
+    # contiguous: the encoder's products on a strided view take another
+    # path whose bits depend on the batch size
+    return [t.transpose(0, 1).contiguous() for t in out]
+
+
+def _block_noise(cfg, base_seed: int, seeds: List[int], k_chunk: int,
+                 device, noise_fn: Optional[NoiseFn]):
+    """The per-rank bodies' ``noise(blocks)``: the device draws, or
+    `noise_fn`'s, one call per distinct block."""
+    if noise_fn is None:
+        return lambda blocks: draw_block_noise(cfg, base_seed, seeds, blocks,
+                                               k_chunk, device)
+
+    def replay(blocks):
+        out = [torch.zeros((k_chunk, len(seeds), d), device=device)
+               for d in cfg.n_latent_enc]
+        for g in sorted({b for b in blocks if b is not None}):
+            cols = [i for i, b in enumerate(blocks) if b == g]
+            for t, e in zip(out, noise_fn(g, [seeds[i] for i in cols])):
+                t[:, cols] = e.to(device)
+        return out
+    return replay
+
+
+def _local_rows(mesh: Mesh, seeds, x: torch.Tensor):
+    """This rank's ``B/dp`` seeds and rows, and where they start."""
+    b = x.shape[0] // mesh.dp
+    lo = mesh.dp_rank * b
+    return [int(s) for s in seeds[lo:lo + b]], x[lo:lo + b], lo
+
+
+def _gather_rows(mesh: Mesh, local: torch.Tensor, n: int,
+                 lo: int) -> torch.Tensor:
+    """Every dp row's results on every rank: sp rank 0 of each dp row writes
+    its rows into a zero ``[n, ...]`` buffer, summed over the world (the
+    identity in a world of one)."""
+    if mesh.device_mesh is None:
+        return local
+    out = torch.zeros((n,) + tuple(local.shape[1:]), dtype=local.dtype,
+                      device=local.device)
+    if mesh.sp_rank == 0:
+        out[lo:lo + local.shape[0]] = local
+    return mesh.all_reduce(out, "sum")
+
+
+def _check_rows(mesh: Mesh, seeds, x: torch.Tensor) -> None:
+    if x.shape[0] % mesh.dp or len(seeds) != x.shape[0]:
+        raise ValueError(f"a sharded dispatch needs a multiple of dp="
+                         f"{mesh.dp} rows and one seed per row, got "
+                         f"{x.shape[0]} rows and {len(seeds)} seeds")
+
+
+def make_sharded_score_rows(cfg: model.ModelConfig, mesh: Mesh,
+                            k_chunk: int = 250):
+    """The mesh-sharded large-k ``score`` program (JAX :75-125):
+    ``(params, base_seed, seeds[B], x[B, d], k, *, noise_fn=None) -> [B]``
+    log p_hat(x) on every rank, the rows over dp and k's blocks over sp,
+    the carries merged with one MAX and one SUM over sp. One program serves
+    every k: the loop runs ``ceil(ceil(k/k_chunk)/sp)`` blocks a rank and
+    masks the ragged tail."""
+    @torch.inference_mode()
+    def program(params, base_seed: int, seeds, x: torch.Tensor, k: int, *,
+                noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
+        _check_rows(mesh, seeds, x)
+        seeds_l, x_l, lo = _local_rows(mesh, seeds, x)
+        noise = _block_noise(cfg, base_seed, seeds_l, k_chunk, x.device,
+                             noise_fn)
+        st = merge_lse_over_sp(mesh, local_row_streaming_log_px(
+            params, cfg, mesh, x_l, int(k), k_chunk, noise))
+        log_k = torch.log(torch.full_like(st.s, float(k)))
+        return _gather_rows(mesh, torch.log(st.s) + _safe(st.m) - log_k,
+                            x.shape[0], lo)
+    return program
+
+
+def make_sharded_score_adaptive(cfg: model.ModelConfig, mesh: Mesh,
+                                k_chunk: int = 250):
+    """The accuracy-targeted ``score_adaptive`` program (JAX :128-169):
+    ``(params, base_seed, seeds[B], x[B, d], k_cap, target_se, ess_floor,
+    *, n_real=None, noise_fn=None) -> [B, 3]`` rows of ``(log p_hat,
+    achieved se, k_used)`` on every rank, each row stopped at the first
+    prefix of its stream whose SE (or ESS) meets the target (<= 0 disables
+    one), capped at ``k_cap``; see
+    ``parallel.eval.local_row_adaptive_log_px``. Only the first `n_real`
+    rows (None: all) hold the loop up."""
+    @torch.inference_mode()
+    def program(params, base_seed: int, seeds, x: torch.Tensor, k_cap: int,
+                target_se: float, ess_floor: float, *,
+                n_real: Optional[int] = None,
+                noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
+        _check_rows(mesh, seeds, x)
+        seeds_l, x_l, lo = _local_rows(mesh, seeds, x)
+        noise = _block_noise(cfg, base_seed, seeds_l, k_chunk, x.device,
+                             noise_fn)
+        real = None if n_real is None else int(n_real) - lo
+        out = local_row_adaptive_log_px(
+            params, cfg, mesh, x_l, int(k_cap), float(target_se),
+            float(ess_floor), k_chunk, noise, n_real=real)
+        return _gather_rows(mesh, out, x.shape[0], lo)
+    return program

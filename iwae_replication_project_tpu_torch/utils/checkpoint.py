@@ -27,6 +27,11 @@ binarization streams) are its own: rank 0 gathers them all into the
 checkpoint and writes it alone (JAX :209, :244), and on restore each rank
 takes its own back. A checkpoint resumes only under the mesh shape that
 wrote it.
+
+**Serving a run** needs only its architecture and weights:
+:func:`stored_config_json` and :func:`restore_latest_params` read them from
+the newest intact step, with :func:`restore_latest`'s fallback, and from a
+run trained on any mesh.
 """
 
 from __future__ import annotations
@@ -281,6 +286,18 @@ def _read_meta(directory: str, step: int) -> dict:
         return json.load(f)
 
 
+def _intact_steps(directory: str):
+    """``(step, vouched)`` of the retained steps, newest first, that match
+    their manifest or have none (``vouched``: a manifest vouches for the
+    step); a step that fails it is passed over with a warning."""
+    for step in checkpoint_steps(directory):
+        problem = verify_checkpoint(directory, step)
+        if problem is not None:
+            _integrity_warn(directory, step, problem)
+            continue
+        yield step, os.path.isfile(_manifest_path(directory, step))
+
+
 def restore_latest(directory: str, template: TrainState, *,
                    expect_config_json: Optional[str] = None, mesh=None
                    ) -> Optional[Tuple[int, TrainState, int, Optional[int]]]:
@@ -295,12 +312,7 @@ def restore_latest(directory: str, template: TrainState, *,
     corruption). Under a process group each rank of `mesh` restores its
     own generators.
     """
-    for step in checkpoint_steps(directory):
-        problem = verify_checkpoint(directory, step)
-        if problem is not None:
-            _integrity_warn(directory, step, problem)
-            continue
-        vouched = os.path.isfile(_manifest_path(directory, step))
+    for step, vouched in _intact_steps(directory):
         try:
             return _restore_step(directory, step, template,
                                  expect_config_json, mesh)
@@ -311,6 +323,51 @@ def restore_latest(directory: str, template: TrainState, *,
                 raise
             _integrity_warn(directory, step,
                             f"unreadable checkpoint without a manifest: {e}")
+    return None
+
+
+def stored_config_json(directory: str) -> Optional[str]:
+    """The experiment-config JSON the newest intact step was written under
+    (JAX :257-280), None when there is no checkpoint or it stored none. A
+    step that fails its manifest, or has none and an unreadable
+    ``meta.json``, is passed over with a warning, as in
+    :func:`restore_latest`, so it names the step that restore reads."""
+    for step, _ in _intact_steps(directory):
+        try:
+            meta = _read_meta(directory, step)
+        except (OSError, ValueError) as e:
+            _integrity_warn(directory, step, f"unreadable meta: {e}")
+            continue
+        return meta.get("config") or None
+    return None
+
+
+def restore_latest_params(directory: str, params) -> Optional[int]:
+    """Copy the parameters of the newest intact step into the tree
+    `params` (built like the saved one) and return the step, or None when
+    no step restores. Adam's moments, the generators and the mesh the run
+    trained on are not read. The fallback is :func:`restore_latest`'s."""
+    leaves = tree_leaves(params)
+    for step, vouched in _intact_steps(directory):
+        try:
+            saved = torch.load(os.path.join(_step_dir(directory, step),
+                                            STATE_FILE),
+                               map_location="cpu", weights_only=True)["params"]
+        except Exception as e:
+            if vouched:
+                raise
+            _integrity_warn(directory, step,
+                            f"unreadable checkpoint without a manifest: {e}")
+            continue
+        if [tuple(t.shape) for t in saved] != \
+                [tuple(p.shape) for p in leaves]:
+            raise ValueError(f"checkpoint step {step} at {directory!r} holds "
+                             f"parameters of other shapes than the model "
+                             f"its config describes")
+        with torch.no_grad():
+            for p, t in zip(leaves, saved):
+                p.copy_(t)
+        return step
     return None
 
 

@@ -1,6 +1,6 @@
 """Deterministic fault injection and preemption grace (port of
-``utils/faults.py``, the part the training driver and its tests use; the
-module is framework-free, so this is a copy).
+``utils/faults.py``, the part the training driver, the serving engine and
+their tests use; the module is framework-free, so this is a copy).
 
 A :class:`FaultSchedule` of (site, trigger, action) rules is installed
 process-wide and fired from explicit :func:`fault_point` hooks: the driver
@@ -21,11 +21,21 @@ import dataclasses
 import random
 import signal
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 #: the training driver's fault sites (names as in the JAX package)
 SITE_TRAIN_PASS = "train.pass"            # experiment driver, per dispatch
 SITE_CKPT_SAVE = "train.checkpoint.save"  # utils/checkpoint.save_checkpoint
+
+
+class FaultInjected(RuntimeError):
+    """An injected fault: not one of the typed serving errors, so it is
+    routed like any unexpected failure, as a real crash would be."""
+
+    def __init__(self, message: str = "injected fault", site: str = ""):
+        super().__init__(message)
+        self.site = site
 
 
 @dataclasses.dataclass
@@ -126,6 +136,23 @@ def fault_point(site: str, **ctx) -> None:
     sched = _ACTIVE
     if sched is not None:
         sched.fire(site, **ctx)
+
+
+def raise_fault(message: str = "injected fault") -> Action:
+    """Raise :class:`FaultInjected`."""
+    def act(fc: FaultContext) -> None:
+        raise FaultInjected(f"{message} [site={fc.site} visit={fc.count}]",
+                            site=fc.site)
+    return act
+
+
+def delay(seconds: float, jitter_s: float = 0.0) -> Action:
+    """Sleep on the calling thread (plus seeded jitter): the slow-replica
+    fault."""
+    def act(fc: FaultContext) -> None:
+        time.sleep(seconds + (fc.rng.uniform(0.0, jitter_s)
+                              if jitter_s > 0 else 0.0))
+    return act
 
 
 def sigterm(signum: int = signal.SIGTERM) -> Action:

@@ -2,8 +2,8 @@
 
 The preset table is the JAX package's, name for name; ``serving_engine``
 builds a :class:`~.serving.engine.ServingEngine` for a preset with weights
-freshly initialised from the preset's seed (checkpoint loading is not ported
-yet), and ``train`` runs a preset through the staged training loop.
+freshly initialised from the preset's seed, or from a checkpoint run
+directory, and ``train`` runs a preset through the staged training loop.
 Architectures: the 1-stochastic-layer model uses two 200-wide deterministic
 layers and a 50-d latent; the 2-layer model is the experiment_example.py:48-51
 stack.
@@ -128,15 +128,20 @@ def train(config_or_name, *, device=None,
                           device=device)
 
 
-def serving_engine(config_or_name, *, k: int = None, device=None, **knobs):
+def serving_engine(config_or_name=None, *, k: int = None, device=None,
+                   checkpoint_dir: Optional[str] = None, **knobs):
     """A :class:`~.serving.engine.ServingEngine` for a zoo preset (by name or
     :class:`ExperimentConfig`) on `device` (None = ``cuda``).
 
     Weights are freshly initialised from the preset's seed on the host (so
     the same preset gives the same weights on every device): untrained,
-    which is what load tests and the synthetic serving profile want. `k`
-    defaults to the preset's training k. A config carrying
-    ``serving_precision`` serves under it unless ``precision=`` overrides.
+    which is what load tests and the synthetic serving profile want. With
+    ``checkpoint_dir`` (a driver run directory, ``<checkpoint_dir>/
+    <run_name>``) the engine serves that run's trained weights and
+    architecture instead, at its training k unless `k` is given; no preset
+    is then needed. `k` defaults to the preset's training k. A config
+    carrying ``serving_precision`` serves under it unless ``precision=``
+    overrides.
     """
     from iwae_replication_project_tpu_torch.models.iwae import init_params
     from iwae_replication_project_tpu_torch.serving.engine import (
@@ -145,6 +150,11 @@ def serving_engine(config_or_name, *, k: int = None, device=None, **knobs):
         resolve_device)
 
     dev = resolve_device(device)
+    if checkpoint_dir is not None:
+        return ServingEngine(checkpoint_dir, k=k, device=dev, **knobs)
+    if config_or_name is None:
+        raise ValueError("pass a preset (name or ExperimentConfig) or "
+                         "checkpoint_dir=")
     cfg = get(config_or_name) if isinstance(config_or_name, str) \
         else config_or_name
     if knobs.get("precision") is None and cfg.serving_precision is not None:

@@ -13,6 +13,7 @@ temporary directory, runs one job and saves its result as
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import os
 
@@ -35,29 +36,37 @@ from iwae_replication_project_tpu_torch.utils.tree import tree_leaves, tree_map
 WORLD_TIMEOUT = 240.0
 
 
-def launch(job: str, world: int, payload: dict, tmp_dir) -> list:
+def launch(job: str, world: int, payload: dict, tmp_dir,
+           codes=None) -> list:
     """Run `job` on `world` gloo ranks on the CPU; returns each rank's
-    result. Fails when a rank fails or the world outlives its timeout."""
+    result (None for a rank that saved none). Fails when the ranks' exit
+    codes are not `codes` (default: all 0) or the world outlives its
+    timeout."""
     out = os.path.join(str(tmp_dir), f"{job}-{world}-{os.getpid()}")
     os.makedirs(out, exist_ok=True)
     init = f"file://{out}/rendezvous"
-    codes = multihost.spawn(_entry, world, (job, payload, out, init),
-                            timeout=WORLD_TIMEOUT, grace=10.0)
-    assert codes == [0] * world, f"{job}: rank exit codes {codes}"
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+    got = multihost.spawn(_entry, world, (job, payload, out, init),
+                          timeout=WORLD_TIMEOUT, grace=10.0)
+    want = [0] * world if codes is None else list(codes)
+    assert got == want, f"{job}: rank exit codes {got}, expected {want}"
+    paths = [os.path.join(out, f"rank{r}.pt") for r in range(world)]
+    return [torch.load(p, weights_only=False) if os.path.exists(p) else None
+            for p in paths]
 
 
 def _entry(rank, world, job, payload, out, init):
     torch.set_num_threads(1)
+    kw = {}
+    if "timeout_s" in payload:
+        kw["timeout"] = datetime.timedelta(seconds=payload["timeout_s"])
     if payload.get("backend") == "nccl":  # one card per rank
         multihost.initialize(init, world, rank,
-                             device=torch.device("cuda", rank))
+                             device=torch.device("cuda", rank), **kw)
     elif payload.get("device") == "cuda":  # several ranks on the one card
         multihost.initialize(init, world, rank, backend="gloo",
-                             device=torch.device("cuda", 0))
+                             device=torch.device("cuda", 0), **kw)
     else:
-        multihost.initialize(init, world, rank, device="cpu")
+        multihost.initialize(init, world, rank, device="cpu", **kw)
     try:
         result = JOBS[job](payload)
         torch.save(result, os.path.join(out, f"rank{rank}.pt"))
@@ -422,11 +431,128 @@ def _job_cuda_graph_vs_eager(payload):
     return out
 
 
+def table_noise_fn(table):
+    """The sharded serving programs' ``noise_fn(g, seeds)`` over a table
+    ``{(seed, g): [[k_chunk, d] per layer]}`` of replayed draws."""
+    def noise_fn(g, seeds):
+        rows = [table[(int(s), int(g))] for s in seeds]
+        return [torch.from_numpy(np.stack([r[i] for r in rows], axis=1))
+                for i in range(len(rows[0]))]
+    return noise_fn
+
+
+def _job_sharded_serving(payload):
+    """The sharded serving programs on this world's mesh: the offline
+    scorers on replayed draws per (dtype, k); rank 0's engine (the
+    followers in ``serve_rank``) against the offline scorers on the device
+    draws, bitwise, for ``score`` (serial and pipelined) and
+    ``score_adaptive``; the merges of all ``-inf`` rows."""
+    from iwae_replication_project_tpu_torch.parallel.eval import (
+        sharded_score_adaptive_offline, sharded_score_offline)
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine, serve_rank)
+    from iwae_replication_project_tpu_torch.ops import logsumexp as lse
+
+    mesh = make_mesh(payload["dp"], payload["sp"], device="cpu")
+    x = torch.from_numpy(payload["x"])
+    seeds, kc = payload["seeds"], payload["k_chunk"]
+    noise_fn = table_noise_fn(payload["table"])
+    out = {"score": {}, "adaptive": {}}
+    for case in payload["cases"]:
+        cfg, params = _cfg(case), _params(case)
+        for k in case["ks"]:
+            out["score"][(case["name"], k)] = sharded_score_offline(
+                params, cfg, mesh, 0, seeds, x, k, kc, noise_fn=noise_fn)
+        for k, tse in case.get("adaptive", {}).items():
+            out["adaptive"][(case["name"], k)] = \
+                sharded_score_adaptive_offline(
+                    params, cfg, mesh, 0, seeds, x, k_cap=k, target_se=tse,
+                    k_chunk=kc, noise_fn=noise_fn)
+
+    eng_case = payload["engine"]
+    cfg, params = _cfg(eng_case), _params(eng_case)
+    # whole buckets of >= 2 rows a rank: a 1-row encoder matmul takes
+    # another BLAS path on the CPU (gemv), so its bits differ
+    x, seeds = torch.from_numpy(eng_case["x"]), eng_case["seeds"]
+    served = {}
+    for inflight in (0, 2):
+        eng = ShardedScoreEngine(params=params, model_config=cfg, mesh=mesh,
+                                 k_chunk=kc, k_max=64, k=8, max_batch=4,
+                                 max_inflight=inflight, timeout_s=120.0,
+                                 seed=3)
+        if mesh.rank == 0:
+            # queued before the pump starts: every dispatch a whole bucket
+            fs = [eng.submit("score", r, k=k, seed=s)
+                  for k in eng_case["ks"] for s, r in zip(seeds, x)]
+            fa = [eng.submit("score_adaptive", r, k=eng_case["k_cap"],
+                             seed=s, target_se=eng_case["target_se"])
+                  for s, r in zip(seeds, x)]
+            eng.start()
+            got = [f.result(timeout=120) for f in fs]
+            got_a = [f.result(timeout=120) for f in fa]
+            eng.stop()
+            served[inflight] = (np.stack(got), np.stack(got_a),
+                                eng.metrics.snapshot()["kernel"])
+        else:
+            served[inflight] = serve_rank(eng)
+    offline = torch.stack([sharded_score_offline(
+        params, eng.cfg, mesh, 3, seeds, x, k, kc) for k in eng_case["ks"]])
+    offline_a = sharded_score_adaptive_offline(
+        params, eng.cfg, mesh, 3, seeds, x, k_cap=eng_case["k_cap"],
+        target_se=eng_case["target_se"], k_chunk=kc)
+    out["engine"] = (served, offline.reshape(-1).numpy(), offline_a.numpy())
+
+    # all -inf rows on this rank, real ones elsewhere: the merges stay
+    # finite where any rank saw a sample, and never NaN
+    m = torch.full((3,), -float("inf")) if mesh.sp_rank == 0 \
+        else torch.tensor([0.5, -float("inf"), 2.0])
+    st = lse.OnlineLSEVar(m=m, s=(m > -float("inf")).float(),
+                          s2=(m > -float("inf")).float(), n=1)
+    merged = peval.merge_lse_var_over_sp(mesh, st)
+    plain = peval.merge_lse_over_sp(mesh, lse.OnlineLSE(m=st.m, s=st.s,
+                                                        n=1))
+    out["merge"] = (merged.m, merged.s, merged.s2, plain.m, plain.s)
+    return out
+
+
+def _job_sharded_kill(payload):
+    """Rank 0 serves a sharded engine over a world of two; rank 1 dies
+    after receiving a dispatch. Rank 0's futures must error, not hang."""
+    import time
+
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine, serve_rank)
+
+    mesh = make_mesh(payload["dp"], payload["sp"], device="cpu")
+    eng = ShardedScoreEngine(params=_params(payload), model_config=_cfg(
+        payload), mesh=mesh, k_chunk=4, k_max=64, k=8, max_batch=2,
+        timeout_s=None)
+    if mesh.rank != 0:
+        def die(*a, **kw):
+            os._exit(3)
+        eng._program_for = die
+        return serve_rank(eng)
+    eng.start()
+    t0 = time.monotonic()
+    fut = eng.submit("score", payload["x"][0], k=40, seed=1)
+    err = fut.exception(timeout=payload["timeout_s"] * 3)
+    waited = time.monotonic() - t0
+    try:
+        eng.stop()
+        stop_err = None
+    except Exception as e:  # the group is broken: reported, not hung
+        stop_err = type(e).__name__
+    return {"error": None if err is None else f"{type(err).__name__}: {err}",
+            "waited": waited, "stop_error": stop_err}
+
+
 JOBS = {"value_and_grad": _job_value_and_grad, "epoch": _job_epoch,
         "statistics": _job_statistics, "driver": _job_driver,
         "ddp": _job_ddp, "facade": _job_facade,
         "cuda_step_and_nll": _job_cuda_step_and_nll,
-        "cuda_graph_vs_eager": _job_cuda_graph_vs_eager}
+        "cuda_graph_vs_eager": _job_cuda_graph_vs_eager,
+        "sharded_serving": _job_sharded_serving,
+        "sharded_kill": _job_sharded_kill}
 
 
 def numpy_tree(tree):

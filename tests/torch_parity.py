@@ -63,6 +63,29 @@ def row_encode_noise(jcfg, base_key, seeds, k):
             for i in range(jcfg.n_stochastic)]
 
 
+def block_noise(jcfg, base_key, seeds, g, k_chunk):
+    """JAX's draws of sample block `g` of each request row in the sharded
+    serving programs, ``fold_in(fold_in(base_key, seed), g)``
+    (parallel/eval.py:123-125), as the port's ``[k_chunk, B, d]`` noise
+    tensors: :func:`row_encode_noise` under each row's key."""
+    cols = [row_encode_noise(jcfg, jax.random.fold_in(base_key, s), [g],
+                             k_chunk) for s in seeds]
+    return [torch.cat([c[i] for c in cols], dim=1)
+            for i in range(jcfg.n_stochastic)]
+
+
+def block_noise_table(jcfg, base_key, seeds, n_blocks, k_chunk):
+    """:func:`block_noise` of every seed and block ``g < n_blocks`` as
+    ``{(seed, g): [[k_chunk, d] per layer]}`` numpy arrays, the table the
+    JAX-free ranks replay (``torch_parallel_worker.table_noise_fn``)."""
+    table = {}
+    for s in sorted(set(int(v) for v in seeds)):
+        for g in range(n_blocks):
+            table[(s, g)] = [t[:, 0].numpy() for t in
+                             block_noise(jcfg, base_key, [s], g, k_chunk)]
+    return table
+
+
 def row_decode_noise(jcfg, base_key, seeds):
     """Per-row draws of ``generate_x`` under ``fold_in(base_key, seed)``, as
     the port's ``[B, d]`` decode noise tensors."""
