@@ -116,8 +116,32 @@ phases, one line per phase, and exits non-zero on the first failure:
    mid-dispatch: rank 0's future errors instead of hanging; (c) ``python
    -m iwae_replication_project_tpu_torch.serving --checkpoint RUN_DIR
    --interactive`` with one score and one encode line;
-11. prints the kernels' JSON record (launches of the serving and training
-   runs, and per path of phases 8-10 under ``launches_by_path``) and, last,
+11. the serving tier over TCP, with the weights of phase 7's run directory:
+   (a) a ``ServingTier`` on ``127.0.0.1:0`` over two fast replicas
+   (``ServingEngine``, buckets 1-64, k=50) and one sharded replica
+   (``ShardedScoreEngine``, a world of one, k in blocks of 250 up to 5000),
+   large-k threshold 256, tracing on, a token-bucket quota on one client
+   id, driven by a ``TierClient``: a lone request's p50 over the wire
+   beside the same engine's in-process p50 (in turns), a ragged stream of
+   200 score/encode/decode requests at k=50 in groups of 1-17 rows, 12
+   ``score`` requests at k in {1000, 5000} and 8 ``score_adaptive`` at
+   k_cap 5000 (p50/p99 latency on the host clock over the wire and
+   requests per second per route); a fast replica crashed under a burst
+   (``crash_replica``: every request answered, reroutes > 0); the quota'd
+   client over-driven (typed ``quota_exceeded`` with ``retry_after_s``,
+   then a ``RetryPolicy`` client gets through); the ``traces`` op (trees
+   ``tier/request`` -> ``router/attempt-1`` -> the engine's stages); B1's
+   launches over the phase equal to one per fast score dispatch plus
+   ``ceil(k/250)`` per sharded score dispatch and the adaptive rule per
+   ``score_adaptive`` one; every fast-route row against one direct
+   in-process engine on the same (row, seed, k) within 1e-3 nats (encode
+   and decode 1e-2), with the count of rows bitwise equal; every large-k
+   dispatch bitwise its offline twin; (b) the CLI's tier mode from the run
+   directory (``--replicas 2 --sharded-replicas 1 --port 0``, stdin held
+   open) and its client mode (``--requests 40 --k-sweep 250,5000
+   --target-se 0.5``), both exiting 0 after stdin EOF;
+12. prints the kernels' JSON record (launches of the serving and training
+   runs, and per path of phases 8-11 under ``launches_by_path``) and, last,
    the contract line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -209,6 +233,19 @@ SHARDED_GLOO_K = 1000
 #: a rank's rows of a full bucket on dp=2
 SHARDED_SHAPES_FWD = [("sharded-b8", SHARDED_KC, 8, FLAGSHIP),
                       ("sharded-dp2", SHARDED_KC, 4, FLAGSHIP)]
+#: phase 11, the tier: the large-k threshold (also the fast replicas'
+#: k_max), the quota (rate rows/s, burst rows) on one client id, the lone
+#: requests timed each way, the fast route's requests and their cycle of
+#: row counts, the large-k score requests' k, the score_adaptive requests
+#: and the crash burst
+TIER_THRESHOLD = 256
+TIER_QUOTA, TIER_TENANT = (20.0, 8.0), "tenant-q"
+TIER_LONE = 30
+TIER_FAST_REQUESTS = 200
+TIER_SIZES = [1, 3, 17, 1, 7, 2, 1, 12, 5, 1]
+TIER_LARGE_K = [1000, 5000] * 6
+TIER_ADAPTIVE = 8
+TIER_CRASH_REQUESTS = 60
 
 
 def fail(msg: str) -> int:
@@ -1735,14 +1772,8 @@ def sharded_serve(torch, np, zoo, hot_loop, run_dir, b1_ms):
           f"{eng.mesh.sp}) warmup {warm} in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
-    log = []
-    launch = eng._launch
-
-    def recording(batch):  # the dispatches, for the launch count
-        inf = launch(batch)
-        log.append(inf)
-        return inf
-    eng._launch = recording
+    rec = _Recorder(eng)  # the dispatches, for the launch count
+    log = rec.log
 
     hot_loop.reset_launch_counts()
     eng.start()
@@ -1764,7 +1795,7 @@ def sharded_serve(torch, np, zoo, hot_loop, run_dir, b1_ms):
     eng.stop()
     torch.cuda.synchronize()
     launches = hot_loop.launch_counts()
-    eng._launch = launch
+    eng._launch = rec._launch
 
     want = 0
     for inf in log:
@@ -2068,6 +2099,429 @@ def sharded_cli(np, run_dir):
     return ok
 
 
+class _Recorder:
+    """Wraps an engine's ``_launch`` and keeps every dispatch it made (the
+    phase's launch accounting and the offline-twin check replay them)."""
+
+    def __init__(self, eng):
+        self.eng, self.log, self._launch = eng, [], eng._launch
+
+        def recording(batch):
+            inf = self._launch(batch)
+            self.log.append(inf)
+            return inf
+        eng._launch = recording
+
+
+def _tier_quotas(policy, tenant):
+    """Token buckets on one client id only (the tier's ClientQuotas meters
+    every principal under one policy; the phase's stream must not be)."""
+    from iwae_replication_project_tpu_torch.serving.frontend import (
+        ClientQuotas)
+
+    class OneTenant(ClientQuotas):
+        def admit(self, client, cost, model=None):
+            if client == tenant:
+                super().admit(client, cost, model=model)
+
+        def refund(self, client, cost, model=None):
+            if client == tenant:
+                super().refund(client, cost, model=model)
+    return OneTenant(policy)
+
+
+def _wire_stream(np, c, reqs):
+    """Pipeline `reqs` ((op, rows, k, seed, kw)) on one TierClient; returns
+    the responses in request order and each one's latency (submit to its
+    response read, host clock) and the wall time."""
+    t0 = time.perf_counter()
+    sent = {}
+    for i, (op, rows, k, seed, kw) in enumerate(reqs):
+        sent[c.submit(op, rows, k=k, seed=seed, **kw)] = \
+            (i, time.perf_counter())
+    out, lat = [None] * len(reqs), [0.0] * len(reqs)
+    while sent:
+        resp = c._read_one()
+        i, t1 = sent.pop(resp["id"])
+        out[i], lat[i] = resp, time.perf_counter() - t1
+    return out, np.array(lat), time.perf_counter() - t0
+
+
+def _lat_text(np, name, lat, n, wall) -> str:
+    return (f"{name}: {n} requests p50_ms={np.percentile(lat, 50) * 1e3:.3f} "
+            f"p99_ms={np.percentile(lat, 99) * 1e3:.3f} requests_per_s="
+            f"{n / wall:.1f}")
+
+
+def serving_tier(torch, np, hot_loop, run_dir):
+    """Phase 11: the serving tier over TCP on the card, from phase 7's run
+    dir. Returns (B1 launches of the phase's traffic, ok)."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.serving.faults import (
+        crash_replica)
+    from iwae_replication_project_tpu_torch.serving.frontend import (
+        QuotaPolicy, RetryPolicy, ServingTier, TierClient)
+    from iwae_replication_project_tpu_torch.serving.frontend.client import (
+        TierError)
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine)
+    from iwae_replication_project_tpu_torch.telemetry.tracing import (
+        FlightRecorder)
+    from iwae_replication_project_tpu_torch.parallel import eval as peval
+    from iwae_replication_project_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    kc = SHARDED_KC
+    first = ServingEngine(run_dir, timeout_s=None, k_max=TIER_THRESHOLD)
+
+    def fast():
+        return ServingEngine(params=first._params, model_config=first.cfg,
+                             k=first.k, k_max=TIER_THRESHOLD, timeout_s=None)
+    engines = [first, fast()]
+    big = ShardedScoreEngine(params=first._params, model_config=first.cfg,
+                             k=first.k, k_chunk=kc, k_max=SHARDED_KMAX,
+                             max_batch=SHARDED_BATCH, timeout_s=None)
+    policy = QuotaPolicy(rate=TIER_QUOTA[0], burst=TIER_QUOTA[1])
+    tier = ServingTier(engines + [big], quota=policy,
+                       large_k_threshold=TIER_THRESHOLD, tracing=True,
+                       recorder=FlightRecorder(sample_every=1, capacity=512),
+                       monitor_interval_s=0.05)
+    tier.quotas = _tier_quotas(policy, TIER_TENANT)
+    ok = first.cfg.compute_dtype == "bfloat16" and \
+        first.cfg.likelihood == "logits" and first.device.type == "cuda"
+    warm = tier.warmup()
+    tier.start()
+    torch.cuda.synchronize()
+    info = tier.info()
+    print(f"tier: ServingTier on 127.0.0.1:{tier.port}, 2 fast replicas "
+          f"(k={first.k}, buckets {info['buckets']}, k_max "
+          f"{first.k_max}) + 1 sharded (k_chunk={kc}, k_max={big.k_max}, "
+          f"buckets {list(big.ladder.buckets)}), large_k_threshold="
+          f"{info['large_k_threshold']}, tracing on, quota {TIER_QUOTA} on "
+          f"client {TIER_TENANT!r}; warmup {warm}", flush=True)
+
+    rec = [_Recorder(e) for e in engines + [big]]
+    rng = np.random.RandomState(11)
+    data = (rng.rand(4096, first.cfg.x_dim) > 0.5).astype(np.float32)
+    # the large-k route takes the loaders' synthetic test rows, as phase 10
+    # does: on the trained model random rows reach no target SE
+    from iwae_replication_project_tpu_torch import zoo
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    ds = load_dataset(zoo.get(PRESET).dataset, data_dir="data")
+    test = ds.x_test.reshape(len(ds.x_test), -1).astype(np.float32)
+    h_dim = first.row_dims["decode"]
+    hot_loop.reset_launch_counts()
+
+    # the lone request: over the wire and in process, in turns
+    lone_wire, lone_local = [], []
+    c = TierClient("127.0.0.1", tier.port, timeout_s=300)
+    for i in range(TIER_LONE):
+        t1 = time.perf_counter()
+        c.score([data[i].tolist()], seed=900_000 + i)
+        lone_wire.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        first.submit("score", data[i], seed=950_000 + i).result(timeout=300)
+        lone_local.append(time.perf_counter() - t1)
+    wire50, local50 = (np.percentile(v, 50) * 1e3
+                       for v in (lone_wire, lone_local))
+    print(f"tier: lone score request ({TIER_LONE} each, in turns) p50_ms "
+          f"over the wire={wire50:.3f} in process={local50:.3f}: the wire "
+          f"and the router cost {wire50 - local50:.3f} ms", flush=True)
+
+    # the fast route: a ragged stream of score/encode/decode at k=50;
+    # single rows carry explicit seeds, other rows take the tier's minted
+    # seeds in admission order (0, 1, 2, ...)
+    reqs, replay, minted, j = [], [], 0, 0
+    for i in range(TIER_FAST_REQUESTS):
+        op = ("score", "score", "encode", "decode")[i % 4]
+        n = TIER_SIZES[i % len(TIER_SIZES)]
+        rows = (data[j:j + n] if op != "decode"
+                else rng.randn(n, h_dim).astype(np.float32))
+        j = (j + n) % (len(data) - 32)
+        seed = 100_000 + i if n == 1 else None
+        seeds = [seed] if n == 1 else list(range(minted, minted + n))
+        minted += 0 if n == 1 else n
+        reqs.append((op, rows.tolist(), None, seed, {}))
+        replay.append((op, rows, seeds))
+    resps, lat, wall = _wire_stream(np, c, reqs)
+    fast_ok = all(r["ok"] for r in resps)
+    n_rows = sum(len(x[1]) for x in reqs)
+    print("tier: " + _lat_text(np, f"fast route ({n_rows} rows, groups of "
+                               f"{min(TIER_SIZES)}-{max(TIER_SIZES)})", lat,
+                               len(reqs), wall)
+          + f" all ok={fast_ok}", flush=True)
+    ok &= fast_ok
+
+    # the large-k route: score at k in {1000, 5000}, then score_adaptive
+    big_reqs = [("score", [test[i % len(test)].tolist()], k, 200_000 + i,
+                 {}) for i, k in enumerate(TIER_LARGE_K)]
+    big_resps, big_lat, big_wall = _wire_stream(np, c, big_reqs)
+    ada_reqs = [("score_adaptive", [test[(100 + i) % len(test)].tolist()],
+                 SHARDED_KMAX, 300_000 + i, {"target_se": 0.5})
+                for i in range(TIER_ADAPTIVE)]
+    ada_resps, ada_lat, ada_wall = _wire_stream(np, c, ada_reqs)
+    large_ok = all(r["ok"] for r in big_resps + ada_resps)
+    ok &= large_ok
+    k5000 = [t for t, (_, _, k, _, _) in zip(big_lat, big_reqs)
+             if k == SHARDED_KMAX]
+    print("tier: " + _lat_text(np, f"large-k score k in "
+                               f"{sorted(set(TIER_LARGE_K))}", big_lat,
+                               len(big_reqs), big_wall)
+          + f"; k={SHARDED_KMAX} alone p50_ms="
+          f"{np.percentile(k5000, 50) * 1e3:.3f}", flush=True)
+    print("tier: " + _lat_text(np, f"score_adaptive k_cap {SHARDED_KMAX} "
+                               f"target_se 0.5", ada_lat, len(ada_reqs),
+                               ada_wall)
+          + f"; k_used {[int(r['result'][0][2]) for r in ada_resps]}; all "
+          f"ok={large_ok}", flush=True)
+
+    # a fast replica crashed under a burst (the one the single-row score
+    # group is affine to, at its next launch): every accepted request is
+    # answered
+    crash_reqs = [("score", [data[3200 + i].tolist()], None, 400_000 + i,
+                   {}) for i in range(TIER_CRASH_REQUESTS)]
+    victim = tier.router._affinity.get((None, "score", None), 0)
+    faults.install(faults.FaultSchedule([crash_replica(engines[victim])]))
+    try:
+        crash_resps, _, _ = _wire_stream(np, c, crash_reqs)
+    finally:
+        faults.clear()
+    st = tier.stats()
+    crash_ok = all(r["ok"] for r in crash_resps) and \
+        st["router"]["router/reroutes"] > 0 and \
+        st["router"]["router/replica_failures"] == 1
+    ok &= crash_ok
+    print(f"tier: crash_replica(replica {victim}) under a burst of "
+          f"{len(crash_reqs)} requests: answered "
+          f"{sum(r['ok'] for r in crash_resps)}/{len(crash_reqs)}, "
+          f"router/reroutes={st['router']['router/reroutes']} "
+          f"replica_failures={st['router']['router/replica_failures']} "
+          f"{'ok' if crash_ok else 'FAIL'}", flush=True)
+
+    # the quota'd client: typed quota_exceeded with its wait, then a
+    # retrying client gets through
+    q_codes = []
+    with TierClient("127.0.0.1", tier.port, client_id=TIER_TENANT,
+                    timeout_s=300) as qc:
+        for i in range(4):
+            try:
+                qc.score(data[3300:3304].tolist())
+                q_codes.append("ok")
+            except TierError as e:
+                q_codes.append((e.code, e.retry_after_s))
+    rejected = [x for x in q_codes if x != "ok"]
+    with TierClient("127.0.0.1", tier.port, client_id=TIER_TENANT,
+                    timeout_s=300, retry=RetryPolicy(seed=0,
+                                                     deadline_s=30.0)) as qc:
+        t1 = time.perf_counter()
+        got_through = [len(qc.score(data[3310:3314].tolist()))
+                       for _ in range(3)] == [4, 4, 4]
+        retry_s = time.perf_counter() - t1
+        retries = qc.retry_stats["retries"]
+    quota_ok = bool(rejected) and all(
+        code == "quota_exceeded" and hint is not None and hint > 0
+        for code, hint in rejected) and got_through and retries > 0
+    ok &= quota_ok
+    print(f"tier: quota'd client {TIER_TENANT!r}: {q_codes}; a RetryPolicy "
+          f"client then served 3 requests of 4 rows in {retry_s:.3f}s with "
+          f"{retries} retries {'ok' if quota_ok else 'FAIL'}", flush=True)
+
+    # the traces op: tier/request -> router/attempt-1 -> engine stages
+    docs = c.traces()["traces"]
+    c.close()
+    trees = 0
+    for d in docs:
+        by_id = {s["span_id"]: s for s in d["spans"]}
+        parent = {s["name"]: by_id.get(s["parent_id"], {}).get("name")
+                  for s in d["spans"]}
+        trees += parent.get("router/attempt-1") == "tier/request" and all(
+            parent.get(n) == "router/attempt-1"
+            for n in ("engine/queue", "engine/dispatch", "engine/device",
+                      "engine/fetch"))
+    spans = [len(d["spans"]) for d in docs]
+    trace_ok = trees > 0
+    ok &= trace_ok
+    print(f"tier: traces op: {len(docs)} retained, {trees} with the engine "
+          f"stages under router/attempt-1 under tier/request; spans per "
+          f"request min/median/max {min(spans)}/{int(np.median(spans))}/"
+          f"{max(spans)} {'ok' if trace_ok else 'FAIL'}", flush=True)
+    # where a request's time goes, by route: the median of each span's
+    # duration (a multi-row request has one attempt and stage set per row)
+    for route, pick in (("fast", lambda a: a.get("k") is None),
+                        ("large-k", lambda a: a.get("k") is not None)):
+        durs = {}
+        for d in docs:
+            root = next((x for x in d["spans"]
+                         if x["name"] == "tier/request"), None)
+            if root is None or not pick(root["attrs"]):
+                continue
+            for x in d["spans"]:
+                durs.setdefault(x["name"], []).append(x["duration_s"])
+        names = ("tier/request", "tier/admit", "router/attempt-1",
+                 "engine/queue", "engine/pad", "engine/dispatch",
+                 "engine/noise", "engine/args", "engine/launch",
+                 "engine/device", "engine/fetch")
+        print(f"tier: {route} route, median span ms over "
+              f"{len(durs.get('tier/request', []))} traced requests: "
+              + ", ".join(f"{n} {np.median(durs[n]) * 1e3:.3f}"
+                          for n in names if n in durs), flush=True)
+
+    tier.stop()
+    torch.cuda.synchronize()
+    launches = hot_loop.launch_counts()
+    for r in rec:
+        r.eng._launch = r._launch
+    want = sum(1 for r in rec[:2] for inf in r.log if inf.op == "score")
+    for inf in rec[2].log:
+        if inf.op == "score":
+            want += math.ceil(inf.k / kc)
+        else:
+            want += _adaptive_launches(
+                [float(q.future.result()[2]) for q in inf.batch], 1, 1, kc)
+    launch_ok = launches == {hot_loop.KERNEL: want, hot_loop.KERNEL_BWD: 0}
+    ok &= launch_ok
+    print(f"tier: B1 launches over the phase {launches} (expected {want}: "
+          f"one per fast score dispatch, "
+          f"{sum(1 for r in rec[:2] for inf in r.log if inf.op == 'score')}"
+          f"; ceil(k/{kc}) per sharded score dispatch and the adaptive rule "
+          f"per score_adaptive one, {len(rec[2].log)} sharded dispatches) "
+          f"{'ok' if launch_ok else 'FAIL'}", flush=True)
+
+    # every fast dispatch against one direct in-process engine fed the
+    # same rows and seeds in one flush (the same bucket, so the same
+    # shapes): bitwise
+    direct = fast()
+    same_fast, n_fast = True, 0
+    for r in rec[:2]:
+        for inf in r.log:
+            fs = [direct.submit(inf.op, q.payload, k=inf.k or None,
+                                seed=q.seed) for q in inf.batch]
+            direct.flush()
+            got = np.stack([q.future.result() for q in inf.batch])
+            same_fast &= np.array_equal(
+                got, np.stack([f.result(timeout=300) for f in fs]))
+            n_fast += len(inf.batch)
+    # and each request's rows replayed alone, in the bucket of its own
+    # row count: cuBLAS may take another algorithm for the encoder at
+    # another batch size, so these are held to the bf16 row tolerance of
+    # phase 4 (TOL), with the count within 1e-3 nats and bitwise printed
+    atol, rtol = TOL["bf16"]
+    errs = {op: [0.0] for op in ("score", "encode", "decode")}
+    equal = {op: 0 for op in errs}
+    close = {op: 0 for op in errs}
+    rows_n = {op: 0 for op in errs}
+    within = True
+    replays = replay + [(op, np.asarray(rows, np.float32), [seed])
+                        for op, rows, _, seed, _ in crash_reqs]
+    for (op, rows, seeds), resp in zip(replays, resps + crash_resps):
+        fs = [direct.submit(op, row, seed=sd) for row, sd in zip(rows, seeds)]
+        direct.flush()
+        want_ = np.stack([f.result(timeout=300) for f in fs])
+        got = np.asarray(resp["result"], np.float32)
+        err = np.abs(got - want_).reshape(len(rows), -1).max(axis=1)
+        errs[op].append(float(err.max()))
+        equal[op] += int((err == 0).sum())
+        close[op] += int((err <= 1e-3).sum())
+        rows_n[op] += len(rows)
+        within &= bool((np.abs(got - want_)
+                        <= atol + rtol * np.abs(want_)).all())
+    replay_ok = same_fast and within
+    ok &= replay_ok
+    print(f"tier: {n_fast} rows of {sum(len(r.log) for r in rec[:2])} fast "
+          f"dispatches bitwise equal to one direct in-process engine fed "
+          f"the same rows and seeds: {same_fast}; each request replayed "
+          f"alone (its own bucket): " + "; ".join(
+              f"{op} {equal[op]}/{rows_n[op]} bitwise, {close[op]} within "
+              f"1e-3, max_abs_err {max(errs[op]):.3e}" for op in errs)
+          + f"; tol ({atol:g} + {rtol:g}*|ref|) "
+          f"{'ok' if replay_ok else 'FAIL'}", flush=True)
+
+    # every large-k dispatch bitwise its offline twin on the padded rows
+    same = True
+    for inf in rec[2].log:
+        n = len(inf.batch)
+        x, seeds = _padded(np, np.stack([q.payload for q in inf.batch]),
+                           [q.seed for q in inf.batch], inf.bucket)
+        xt = torch.from_numpy(x).cuda()
+        got = np.stack([q.future.result() for q in inf.batch])
+        if inf.op == "score":
+            off = peval.sharded_score_offline(
+                big._params, big.cfg, big.mesh, big._base_seed, seeds, xt,
+                inf.k, kc)
+        else:
+            q0 = inf.batch[0]
+            off = peval.sharded_score_adaptive_offline(
+                big._params, big.cfg, big.mesh, big._base_seed, seeds, xt,
+                k_cap=inf.k, target_se=q0.target_se,
+                ess_floor=q0.ess_floor, k_chunk=kc)
+        same &= np.array_equal(got, off[:n].cpu().numpy())
+    ok &= same
+    print(f"tier: {len(rec[2].log)} large-k dispatches bitwise equal to "
+          f"the offline twin on their padded rows: {same}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s before the command line",
+          flush=True)
+    return launches[hot_loop.KERNEL], ok
+
+
+def tier_cli(run_dir):
+    """Phase 11b: the CLI's tier mode from the run dir (stdin held open)
+    and its client mode against it. Returns ok."""
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    tier = subprocess.Popen(
+        [sys.executable, "-m", "iwae_replication_project_tpu_torch.serving",
+         "--checkpoint", run_dir, "--replicas", "2", "--sharded-replicas",
+         "1", "--port", "0"], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env=env)
+    ready, client, final = None, None, None
+    try:
+        while ready is None:
+            line = tier.stdout.readline()
+            if not line:
+                break
+            if line.startswith("{"):
+                ready = json.loads(line)
+        if ready is not None:
+            client = subprocess.run(
+                [sys.executable, "-m",
+                 "iwae_replication_project_tpu_torch.serving", "--client",
+                 f"127.0.0.1:{ready['tier']['port']}", "--requests", "40",
+                 "--k-sweep", "250,5000", "--target-se", "0.5"],
+                capture_output=True, text=True, timeout=300, cwd=root,
+                env=env)
+        tier.stdin.close()
+        rc = tier.wait(timeout=300)
+        rest = tier.stdout.read().strip().splitlines()
+        final = json.loads(rest[-1]) if rest else None
+    finally:
+        if tier.poll() is None:
+            tier.kill()
+            tier.wait(timeout=30)
+    sweep = json.loads(client.stdout.strip().splitlines()[-1]) \
+        if client is not None and client.returncode == 0 else None
+    ok = ready is not None and client is not None and \
+        client.returncode == 0 and rc == 0 and sweep is not None and \
+        sweep["errors"] == {} and sweep["op"] == "score_adaptive" and \
+        final is not None and final["router"]["router/errors"] == 0
+    print(f"tier: cli --checkpoint RUN_DIR --replicas 2 --sharded-replicas "
+          f"1 --port 0 (device {ready.get('device') if ready else None}, "
+          f"threshold {ready['tier']['large_k_threshold'] if ready else None})"
+          f" and --client --requests 40 --k-sweep 250,5000 --target-se 0.5: "
+          f"client exit {client.returncode if client else None} per_k "
+          f"{sweep['per_k'] if sweep else None}; tier exit {rc} after stdin "
+          f"EOF, router/completed "
+          f"{final['router']['router/completed'] if final else None}; "
+          f"{time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        print(tier.stderr.read()[-4000:] if tier.stderr else "",
+              client.stderr[-4000:] if client else "", flush=True)
+    return ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2178,6 +2632,11 @@ def main() -> int:
             return fail("the sharded gloo phase failed")
         if not sharded_cli(np, run_dir):
             return fail("the serving command line from a checkpoint failed")
+        tier_b1, ok = serving_tier(torch, np, hot_loop, run_dir)
+        if not ok:
+            return fail("the serving tier phase failed")
+        if not tier_cli(run_dir):
+            return fail("the serving CLI's tier and client modes failed")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -2186,7 +2645,8 @@ def main() -> int:
             "facade_logits_bf16": facade_launches.get(rec["name"], 0),
             "sharded_serve_1x1": sharded_launches.get(rec["name"], 0),
             "sharded_serve_gloo_2x2": sharded_gloo_launches.get(rec["name"],
-                                                                0)}
+                                                                0),
+            "serving_tier": tier_b1 if rec is record else 0}
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records}),

@@ -35,7 +35,13 @@ What is ported so far:
   processes and their group, the DDP-placed step), which the driver takes
   under its mesh flags;
 * the reference's facade, ``api.FlexibleModel``
-  (``examples/experiment_example_torch.py``).
+  (``examples/experiment_example_torch.py``);
+* paper-grade k behind the serving API (``serving.sharded``, the large-k
+  ``score`` and ``score_adaptive``) and the serving tier over TCP
+  (``serving.frontend``: the JAX package's JSON-lines wire, router, server,
+  client, remote replicas, quotas, retry and bulk jobs, with
+  ``telemetry.tracing`` and ``telemetry.slo``), which the serving CLI runs
+  in its tier and client modes.
 
 The package imports ``torch`` and ``numpy`` only: never ``jax`` and nothing
 of the JAX package. Entry points run on ``cuda`` unless the caller passes

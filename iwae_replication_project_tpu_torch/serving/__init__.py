@@ -1,6 +1,7 @@
 """Online serving (port of ``serving/``): micro-batching engine, bucket
 ladder, row-independent programs, metrics, the mesh-sharded large-k engine
-with ``score_adaptive``, and the engine's fault sites."""
+with ``score_adaptive``, the fault sites, and the TCP tier in
+``serving.frontend``."""
 
 from iwae_replication_project_tpu_torch.serving.batcher import (
     EngineOverloaded,

@@ -85,8 +85,8 @@ class Request:
     #: on the device — splits observed latency into queue-wait
     #: (t_dispatch - t_enqueue) and device-wait (completion - t_dispatch)
     t_dispatch: Optional[float] = None
-    #: optional trace context for pipeline-stage spans (the JAX engine's
-    #: tracing; the port's engine does not trace yet and leaves it None)
+    #: optional trace context the engine's pipeline-stage spans attach
+    #: under at completion (None = untraced)
     trace: Optional[Any] = None
     #: adaptive accuracy target (``score_adaptive`` only; 0.0 = criterion
     #: disabled). For adaptive requests ``k`` above holds ``k_cap``. These

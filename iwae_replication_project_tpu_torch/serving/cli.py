@@ -1,26 +1,40 @@
-"""The serving CLI's in-process modes (port of ``serving/cli.py``).
+"""The serving CLI (port of ``serving/cli.py``).
 
     python -m iwae_replication_project_tpu_torch.serving \\
         [--preset NAME | --checkpoint RUN_DIR] [--interactive] [--device cpu]
+        [--replicas N [--sharded-replicas M] [--port P]]
+        [--client HOST:PORT [--k-sweep K1,K2] [--target-se SE]]
 
-Builds one engine (on ``cuda`` unless ``--device cpu``): from a driver
-checkpoint run directory (``--checkpoint``, ``<checkpoint_dir>/<run_name>``:
-the trained weights, served at the run's k unless ``--k``) or with fresh
-weights of a zoo preset (``--preset``, default the flagship), warms its
-bucket ladder and prints one JSON line (warmup, buckets, k), then:
+One program, three roles:
 
-* **synthetic load** (default): an open-loop stream of ragged request
-  batches through the pipelined engine, then one JSON summary: counters,
-  per-bucket latency, requests per second and the device; with
-  ``--log-dir`` also stamped as JSONL (``utils/logging.MetricsLogger``);
-* **interactive** (``--interactive``): JSON lines on stdin
-  (``{"op": "score", "x": [[...pixels...]], "k": 50}``; ``encode`` and
-  ``decode`` alike), one JSON result line per request on stdout, until
-  EOF; a bad request prints an error line and the loop goes on.
+* **in-process engine** (no ``--replicas``/``--client``): builds one engine
+  (on ``cuda`` unless ``--device cpu``) from a driver checkpoint run
+  directory (``--checkpoint``, ``<checkpoint_dir>/<run_name>``: the trained
+  weights, served at the run's k unless ``--k``) or with fresh weights of a
+  zoo preset (``--preset``, default the flagship), warms its bucket ladder
+  and prints one JSON line (warmup, buckets, k), then runs a synthetic
+  ragged load and prints one JSON summary (with ``--log-dir`` also stamped
+  as JSONL), or with ``--interactive`` serves JSON lines from stdin
+  (``{"op": "score", "x": [[...pixels...]], "k": 50}``), one result line
+  each, until EOF;
+* **serving tier** (``--replicas N``): N engines over the one set of
+  weights, plus ``--sharded-replicas M`` large-k engines
+  (``ShardedScoreEngine`` over a world of one, mesh (1, 1)), behind the TCP
+  front end (``serving/frontend/``). ``score`` requests with k above
+  ``--k-threshold`` go to the sharded replicas, whose ``--k-max`` bounds
+  them. Prints a ready line with the bound port, serves until stdin EOF,
+  then drains and prints the router's final counters: hold stdin open
+  when backgrounding it;
+* **tier client** (``--client HOST:PORT``): drives a running tier over TCP
+  (of this package or of the JAX package: the wire is the same), a
+  synthetic ragged load by default, ``--k-sweep`` for a score (or, with
+  ``--target-se``/``--ess-floor``, ``score_adaptive``) sweep over k, or
+  ``--interactive`` to forward JSON lines from stdin.
 
-The JAX CLI's tier, client, fleet, autoscale and metrics-page flags and the
-int8 precision policy are refused with the ROADMAP item that will bring
-them.
+The JAX CLI's ``--models`` (the executable store, ROADMAP A10),
+``--autoscale`` and its knobs (``serving/fleet/``, ROADMAP A9),
+``--metrics-port`` and ``--store-budget-mb`` (ROADMAP A10), ``--pin-core``
+and the int8 precision policy (ROADMAP A8) are refused with the reason.
 """
 
 from __future__ import annotations
@@ -40,23 +54,19 @@ from iwae_replication_project_tpu_torch.serving.batcher import (
 from iwae_replication_project_tpu_torch.serving.buckets import BucketLadder
 from iwae_replication_project_tpu_torch.utils.config import _refused
 
-_TIER = "not ported yet: the serving frontend (ROADMAP A9)"
-#: the JAX CLI's flags of modes the port lacks -> (reason, takes a value)
+_FLEET = "not ported yet: serving/fleet, the autoscaler (ROADMAP A9)"
+#: the JAX CLI's flags of parts the port lacks -> (reason, takes a value)
 REFUSED = {
-    "--replicas": (_TIER, True), "--port": (_TIER, True),
-    "--host": (_TIER, True), "--models": (_TIER, True),
-    "--max-outstanding": (_TIER, True), "--no-tracing": (_TIER, False),
-    "--sharded-replicas": (_TIER, True), "--k-chunk": (_TIER, True),
-    "--k-max": (_TIER, True), "--k-threshold": (_TIER, True),
-    "--mesh-dp": (_TIER, True), "--mesh-sp": (_TIER, True),
-    "--quota-rate": (_TIER, True), "--quota-burst": (_TIER, True),
-    "--client": (_TIER, True), "--client-id": (_TIER, True),
-    "--model": (_TIER, True), "--retries": (_TIER, True),
-    "--hedge-after-s": (_TIER, True), "--retry-deadline-s": (_TIER, True),
-    "--k-sweep": (_TIER, True), "--target-se": (_TIER, True),
-    "--ess-floor": (_TIER, True), "--rate": (_TIER, True),
-    "--autoscale": ("not ported yet: serving/fleet (ROADMAP A9)", False),
-    "--metrics-port": ("not ported yet: the metrics page "
+    "--models": ("not ported yet: the multi-model tier needs the executable "
+                 "store (ROADMAP A10)", True),
+    "--autoscale": (_FLEET, False), "--autoscale-min": (_FLEET, True),
+    "--autoscale-max": (_FLEET, True), "--autoscale-up-burn": (_FLEET, True),
+    "--autoscale-down-burn": (_FLEET, True),
+    "--autoscale-up-cooldown-s": (_FLEET, True),
+    "--autoscale-down-cooldown-s": (_FLEET, True),
+    "--autoscale-interval-s": (_FLEET, True),
+    "--autoscale-dry-run": (_FLEET, False),
+    "--metrics-port": ("not ported yet: the metrics page, the exporters "
                        "(ROADMAP A10)", True),
     "--store-budget-mb": ("not ported yet: the executable store "
                           "(ROADMAP A10)", True),
@@ -126,27 +136,400 @@ def build_argparser() -> argparse.ArgumentParser:
                          "directory (utils/logging.MetricsLogger)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="client mode's synthetic load: offered request "
+                         "batches a second (0 = as fast as it can send)")
+    tier = ap.add_argument_group("serving tier (serving/frontend/)")
+    tier.add_argument("--replicas", type=int, default=0,
+                      help="run the TCP tier with N engine replicas over "
+                           "one set of weights (0 = the in-process modes)")
+    tier.add_argument("--port", type=int, default=0,
+                      help="tier TCP port (0 = ephemeral, printed in the "
+                           "ready line)")
+    tier.add_argument("--host", default="127.0.0.1")
+    tier.add_argument("--max-outstanding", dest="max_outstanding", type=int,
+                      default=4096,
+                      help="tier-wide admission ceiling (outstanding "
+                           "requests) before typed 'overloaded' rejections")
+    tier.add_argument("--no-tracing", dest="tracing", action="store_false",
+                      default=True,
+                      help="disable request tracing (on by default: every "
+                           "request's spans land in the flight recorder "
+                           "the 'traces' wire op dumps; results are "
+                           "bitwise the same either way)")
+    tier.add_argument("--sharded-replicas", dest="sharded_replicas",
+                      type=int, default=0,
+                      help="also run N large-k score replicas "
+                           "(ShardedScoreEngine over the same weights): "
+                           "score requests with k above --k-threshold go "
+                           "to them")
+    tier.add_argument("--k-chunk", dest="k_chunk", type=int, default=250,
+                      help="sharded replicas: the sample block (it "
+                           "versions the sample stream)")
+    tier.add_argument("--k-max", dest="k_max", type=int, default=5000,
+                      help="sharded replicas: per-request k admission bound")
+    tier.add_argument("--k-threshold", dest="k_threshold", type=int,
+                      default=None,
+                      help="route score requests with k above this to the "
+                           "sharded replicas; also the fast replicas' k_max "
+                           "(default: the engine's default bound, or "
+                           "--k-max/2 when --k-max is at or below it)")
+    tier.add_argument("--mesh-dp", dest="mesh_dp", type=int, default=1,
+                      help="sharded replicas' data-parallel axis; the CLI "
+                           "serves a world of one process, so only 1")
+    tier.add_argument("--mesh-sp", dest="mesh_sp", type=int, default=None,
+                      help="sharded replicas' sample-parallel axis "
+                           "(default: the world, one process)")
+    tier.add_argument("--quota-rate", dest="quota_rate", type=float,
+                      default=None,
+                      help="per-client token-bucket refill (rows a second); "
+                           "omit = quotas off")
+    tier.add_argument("--quota-burst", dest="quota_burst", type=float,
+                      default=None,
+                      help="per-client bucket capacity in rows (default 10x "
+                           "--quota-rate)")
+    tier.add_argument("--client", default=None, metavar="HOST:PORT",
+                      help="client mode: drive a running tier over TCP")
+    tier.add_argument("--client-id", dest="client_id", default=None,
+                      help="client mode: the quota principal of requests")
+    tier.add_argument("--model", default=None,
+                      help="client mode: the tenant model stamped on every "
+                           "request (omit = the tier's default model)")
+    tier.add_argument("--retries", type=int, default=0,
+                      help="client mode: retries per request after the "
+                           "first attempt (0 = the one-shot client)")
+    tier.add_argument("--hedge-after-s", dest="hedge_after_s", type=float,
+                      default=None,
+                      help="client mode: re-send a request unanswered after "
+                           "this many seconds on a second connection, first "
+                           "response wins (needs --retries >= 1)")
+    tier.add_argument("--retry-deadline-s", dest="retry_deadline_s",
+                      type=float, default=30.0,
+                      help="client mode: wall budget per request across "
+                           "retries and hedges")
+    tier.add_argument("--k-sweep", dest="k_sweep", default=None,
+                      metavar="K1,K2,...",
+                      help="client mode: score load cycling the request k "
+                           "through these values; per-k latency")
+    tier.add_argument("--target-se", dest="target_se", type=float,
+                      default=None,
+                      help="client mode: drive score_adaptive with this "
+                           "target standard error (with --k-sweep the "
+                           "values become sample caps)")
+    tier.add_argument("--ess-floor", dest="ess_floor", type=float,
+                      default=None,
+                      help="client mode: score_adaptive's ESS floor")
     for flag, (why, takes_value) in REFUSED.items():
         ap.add_argument(flag, action=_refused(why, takes_value),
                         help=argparse.SUPPRESS)
     return ap
 
 
-def build_engine(args):
-    """The engine the arguments describe."""
+def _engine_knobs(args) -> dict:
+    """The engine keywords every construction path shares."""
     ladder = BucketLadder(tuple(int(s) for s in args.buckets.split(",")
                                 if s)) if args.buckets else None
-    knobs = dict(k=args.k, device=args.device, max_batch=args.max_batch,
-                 ladder=ladder, max_wait_us=args.max_wait_us,
-                 queue_limit=args.queue_limit,
-                 max_inflight=args.max_inflight,
-                 timeout_s=args.timeout_s if args.timeout_s > 0 else None,
-                 kernel_path=args.kernel_path, precision=args.precision,
-                 seed=args.seed)
+    return dict(device=args.device, max_batch=args.max_batch, ladder=ladder,
+                max_wait_us=args.max_wait_us, queue_limit=args.queue_limit,
+                max_inflight=args.max_inflight,
+                timeout_s=args.timeout_s if args.timeout_s > 0 else None,
+                kernel_path=args.kernel_path, seed=args.seed)
+
+
+def build_engine(args):
+    """The engine the arguments describe."""
+    knobs = dict(_engine_knobs(args), k=args.k, precision=args.precision)
     if args.checkpoint:
         return zoo.serving_engine(checkpoint_dir=args.checkpoint, **knobs)
     return zoo.serving_engine(args.preset or "northstar-iwae-2l-k50",
                               **knobs)
+
+
+def _k_split(args):
+    """The mixed tier's (fast k_max, routing threshold): the two classes
+    tile ``[1, --k-max]`` -- fast replicas up to the threshold, sharded
+    ones above it. Without ``--k-threshold`` the split sits at the engine's
+    default bound, or at half of ``--k-max`` when the whole range fits
+    under it."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        DEFAULT_K_MAX)
+
+    if args.sharded_replicas <= 0:
+        return None, args.k_threshold
+    t = args.k_threshold
+    if t is None:
+        t = DEFAULT_K_MAX if DEFAULT_K_MAX < args.k_max \
+            else max(1, args.k_max // 2)
+    if not 1 <= t < args.k_max:
+        raise SystemExit(f"--k-threshold {t} must be in [1, --k-max "
+                         f"{args.k_max}) when --sharded-replicas is set")
+    return t, t
+
+
+def _check_mesh(ap, args) -> None:
+    """The sharded replicas run over a world of one process (mesh (1, 1)):
+    a larger mesh is an argparse error that says why."""
+    sp = 1 if args.mesh_sp is None else args.mesh_sp
+    if args.mesh_dp < 1 or sp < 1:
+        ap.error(f"--mesh-dp/--mesh-sp must be >= 1, got {args.mesh_dp}/"
+                 f"{sp}")
+    if args.mesh_dp * sp > 1:
+        ap.error(f"--mesh-dp {args.mesh_dp} --mesh-sp {sp}: the serving "
+                 f"CLI's sharded replicas run over a world of one process, "
+                 f"mesh (1, 1); a larger mesh needs one process per rank "
+                 f"(serving.sharded.serve_rank on the others), which this "
+                 f"CLI does not start")
+
+
+def _sharded_engines(args, first):
+    """``--sharded-replicas`` large-k engines over `first`'s weights, each
+    a world of one (mesh (1, 1) on the replicas' device)."""
+    from iwae_replication_project_tpu_torch.parallel.mesh import make_mesh
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine)
+
+    knobs = _engine_knobs(args)
+    knobs.pop("ladder")  # the sharded ladder is the engine's own
+    knobs.pop("device")  # the mesh's
+    return [ShardedScoreEngine(
+        params=first._params, model_config=first.cfg, k=min(first.k,
+                                                            args.k_max),
+        mesh=make_mesh(dp=args.mesh_dp, sp=args.mesh_sp or 1,
+                       device=first.device),
+        k_chunk=args.k_chunk, k_max=args.k_max,
+        precision=first.precision, **knobs)
+        for _ in range(args.sharded_replicas)]
+
+
+def build_replicas(args, n: int) -> list:
+    """N fast engines (plus the ``--sharded-replicas``) over ONE set of
+    weights: the first engine resolves the checkpoint or preset, the rest
+    share its parameter tensors and config."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+
+    fast_k_max, _ = _k_split(args)
+    first = build_engine(args)
+    if fast_k_max is not None:
+        # the fast bound is the threshold, but never below the engine's own
+        # default k
+        first.k_max = max(fast_k_max, first.k)
+    engines = [first]
+    for _ in range(1, n):
+        engines.append(ServingEngine(
+            params=first._params, model_config=first.cfg, k=first.k,
+            k_max=first.k_max, precision=first.precision,
+            **_engine_knobs(args)))
+    if args.sharded_replicas > 0:
+        engines.extend(_sharded_engines(args, first))
+    return engines
+
+
+def tier_mode(args, ops) -> int:
+    """``--replicas N``: serve the TCP tier until stdin reaches EOF."""
+    from iwae_replication_project_tpu_torch.serving.frontend import (
+        QuotaPolicy, ServingTier)
+
+    quota = None
+    if args.quota_rate is not None:
+        quota = QuotaPolicy(rate=args.quota_rate,
+                            burst=(args.quota_burst
+                                   if args.quota_burst is not None
+                                   else 10.0 * args.quota_rate))
+    _, threshold = _k_split(args)
+    engines = build_replicas(args, args.replicas)
+    tier = ServingTier(engines, quota=quota,
+                       max_outstanding=args.max_outstanding,
+                       host=args.host, port=args.port,
+                       large_k_threshold=threshold, tracing=args.tracing)
+    warm = tier.warmup(ops=ops)
+    tier.start()
+    info = tier.info()
+    dev = engines[0].device
+    print(json.dumps({
+        "tier": {"replicas": args.replicas,
+                 "sharded_replicas": info["sharded_replicas"],
+                 "large_k_threshold": info["large_k_threshold"],
+                 "k_max": info["k_max"], "port": tier.port,
+                 "host": args.host, "models": sorted(info["models"]),
+                 "default_model": info["default_model"],
+                 "quota": info["quota"], "autoscale": None},
+        "warmup": warm, "buckets": info["buckets"], "k": info["k"],
+        "metrics_port": None,
+        "device": (torch.cuda.get_device_name(dev)
+                   if dev.type == "cuda" else "cpu"),
+        "source": args.checkpoint or args.preset
+        or "northstar-iwae-2l-k50"}), flush=True)
+    try:
+        for _ in sys.stdin:     # lifetime control: serve until stdin EOF
+            pass
+    except KeyboardInterrupt:
+        pass
+    tier.stop()
+    snap = tier.registry.snapshot()
+    print(json.dumps({
+        "router": {k: v for k, v in snap["counters"].items()
+                   if k.startswith("router/")},
+        "replicas": tier.router.replica_states(), "fleet": None,
+        "engines": [e.metrics.snapshot()["counters"]
+                    for e in tier.router.engines]}), flush=True)
+    return 0
+
+
+def _client_interactive(cli, lines) -> None:
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            req = json.loads(line)
+            op = req.get("op", "score")
+            if op in ("submit_job", "job_status"):
+                # the bulk lane's ops answer synchronously, like control ops
+                doc = cli._control(op, **{key: req[key] for key in req
+                                          if key not in ("op", "id")})
+                print(json.dumps({"id": req.get("id"), "ok": True,
+                                  "result": doc}), flush=True)
+                continue
+            rid = cli.submit(op, req["x"], k=req.get("k"),
+                             seed=req.get("seed"),
+                             target_se=req.get("target_se"),
+                             ess_floor=req.get("ess_floor"))
+            resp = cli.drain([rid])[rid]
+            # the caller correlates on its own id, not the wire id
+            resp["id"] = req.get("id")
+            print(json.dumps(resp), flush=True)
+        except Exception as e:  # a bad request must not end the loop
+            print(json.dumps({"error": f"{type(e).__name__}: {e}"}),
+                  flush=True)
+
+
+def _client_k_sweep(cli, args) -> int:
+    """``--client ... --k-sweep K1,K2,...``: closed-loop score load cycling
+    the request k (``score_adaptive`` with the values as caps when a target
+    is given), one blocking request at a time so each k gets an honest
+    latency sample; typed errors are counted, not fatal."""
+    from iwae_replication_project_tpu_torch.serving.frontend.client import (
+        TierError)
+
+    info = cli.info()
+    adaptive = args.target_se is not None or args.ess_floor is not None
+    want_op = "score_adaptive" if adaptive else "score"
+    if want_op not in info["row_dims"]:
+        print(json.dumps({"error": f"tier does not serve {want_op!r}"}),
+              file=sys.stderr, flush=True)
+        cli.close()
+        return 2
+    ks = [int(s) for s in args.k_sweep.split(",") if s]
+    dim = info["row_dims"][want_op]
+    rng = np.random.RandomState(args.seed)
+    sizes = [int(s) for s in args.sizes.split(",") if s]
+    walls: dict = {k: [] for k in ks}
+    k_used: dict = {k: [] for k in ks}
+    errors: dict = {}
+    rows_ok = 0
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        k = ks[i % len(ks)]
+        n = sizes[i % len(sizes)]
+        batch = (rng.rand(n, dim) > 0.5).astype(np.float32)
+        t1 = time.perf_counter()
+        try:
+            if adaptive:
+                out = cli.score_adaptive(batch.tolist(), k=k,
+                                         model=args.model,
+                                         target_se=args.target_se,
+                                         ess_floor=args.ess_floor)
+                k_used[k].extend(row[2] for row in out)
+            else:
+                out = cli.score(batch.tolist(), k=k, model=args.model)
+            rows_ok += len(out)
+            walls[k].append(time.perf_counter() - t1)
+        except TierError as e:
+            errors[e.code] = errors.get(e.code, 0) + 1
+    wall = time.perf_counter() - t0
+    cli.close()
+    per_k = {
+        str(k): {"requests": len(w),
+                 "p50_s": round(float(np.percentile(w, 50)), 6) if w else None,
+                 "p95_s": round(float(np.percentile(w, 95)), 6) if w else None}
+        for k, w in walls.items()}
+    if adaptive:
+        for k, used in k_used.items():
+            if used:
+                per_k[str(k)]["k_used_mean"] = round(float(np.mean(used)), 1)
+                per_k[str(k)]["k_used_max"] = int(max(used))
+    print(json.dumps({"mode": "client-k-sweep", "target": args.client,
+                      "op": want_op, "k_sweep": ks, "per_k": per_k,
+                      "ok_rows": rows_ok, "errors": errors,
+                      "wall_seconds": round(wall, 3),
+                      "info": {key: info[key] for key in
+                               ("large_k_threshold", "k_max",
+                                "sharded_replicas", "replicas")}}),
+          flush=True)
+    return 0
+
+
+def client_mode(args) -> int:
+    """``--client HOST:PORT``: drive a running tier over TCP."""
+    from iwae_replication_project_tpu_torch.serving.frontend import (
+        RetryPolicy, TierClient)
+
+    retry = None
+    if args.retries > 0:
+        # the flag counts retries; the policy counts attempts
+        retry = RetryPolicy(max_attempts=args.retries + 1,
+                            deadline_s=args.retry_deadline_s,
+                            hedge_after_s=args.hedge_after_s,
+                            seed=args.seed)
+    host, _, port = args.client.rpartition(":")
+    cli = TierClient(host or "127.0.0.1", int(port),
+                     client_id=args.client_id, retry=retry)
+    if args.interactive:
+        _client_interactive(cli, sys.stdin)
+        cli.close()
+        return 0
+    if args.k_sweep:
+        return _client_k_sweep(cli, args)
+    info = cli.info()
+    ops = [s for s in args.ops.split(",") if s and s in info["row_dims"]]
+    if not ops:
+        print(json.dumps({"error": f"none of the requested ops "
+                                   f"({args.ops}) is served by this tier; "
+                                   f"it serves {sorted(info['row_dims'])}"}),
+              file=sys.stderr, flush=True)
+        cli.close()
+        return 2
+    sizes = [int(s) for s in args.sizes.split(",") if s]
+    rng = np.random.RandomState(args.seed)
+    dims = info["row_dims"]
+    ids = []
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        op = ops[i % len(ops)]
+        n = sizes[i % len(sizes)]
+        batch = (rng.rand(n, dims[op]) > 0.5).astype(np.float32) \
+            if op != "decode" else rng.randn(n, dims[op]).astype(np.float32)
+        ids.append((cli.submit(op, batch.tolist(), model=args.model), n))
+        if args.rate > 0:
+            time.sleep(rng.exponential(1.0 / args.rate))
+    responses = cli.drain([rid for rid, _ in ids])
+    wall = time.perf_counter() - t0
+    cli.close()
+    ok_rows = sum(n for rid, n in ids if responses[rid].get("ok"))
+    errors: dict = {}
+    for rid, _ in ids:
+        r = responses[rid]
+        if not r.get("ok"):
+            errors[r.get("error", "internal")] = \
+                errors.get(r.get("error", "internal"), 0) + 1
+    print(json.dumps({"mode": "client", "target": args.client,
+                      "requests": args.requests, "ok_rows": ok_rows,
+                      "errors": errors, "wall_seconds": round(wall, 3),
+                      "rows_per_sec": round(ok_rows / wall, 2)
+                      if wall else None,
+                      "info": info}), flush=True)
+    return 0
 
 
 def synthetic_load(eng, ops, requests: int, sizes, seed: int) -> dict:
@@ -213,8 +596,14 @@ def interactive(eng, lines) -> int:
 
 
 def main(argv=None) -> int:
-    args = build_argparser().parse_args(argv)
+    ap = build_argparser()
+    args = ap.parse_args(argv)
+    if args.client:
+        return client_mode(args)
+    _check_mesh(ap, args)
     ops = tuple(s for s in args.ops.split(",") if s)
+    if args.replicas > 0:
+        return tier_mode(args, ops)
     eng = build_engine(args)
     warm = eng.warmup(ops=ops)
     device = (torch.cuda.get_device_name(eng.device)

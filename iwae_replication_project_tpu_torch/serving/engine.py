@@ -28,7 +28,22 @@ Invariants:
   in-flight window, per-request queue timeout (:class:`RequestTimeout`), and
   launch/fetch errors that land in exactly the affected batch's futures
   (the fault sites ``serving/faults.py`` names fire in :meth:`_launch` and
-  :meth:`_finish`).
+  :meth:`_finish`);
+* **tracing** -- ``submit(trace=)`` takes a
+  :class:`~..telemetry.tracing.TraceContext`; the hot path stamps clock
+  readings only, and at completion each traced request gets its pipeline
+  stages as child spans of that context: ``engine/queue`` (enqueue to the
+  batch's launch), ``engine/pad`` (padding to the bucket),
+  ``engine/dispatch`` (the arguments and the launch, the JAX engine's AOT
+  dispatch; it carries :meth:`_trace_attrs`) with two children of the
+  port's own, ``engine/noise`` (the host draw of the batch's per-row noise
+  and the copies to the card; the sharded engine's span is
+  ``engine/args``, the payload's copy and the followers' header, its noise
+  being drawn on the card) and ``engine/launch`` (the program's launch on
+  the side CUDA stream, without waiting), then ``engine/device`` (launch to
+  the start of the fetch) and ``engine/fetch`` (the wait on the batch's
+  event and the copy to the host). Results are bitwise the same with and
+  without ``trace``.
 
 A dispatch goes through hooks a subclass overrides: :meth:`_resolve_kernel`
 (the hot-loop gate, memoized per :meth:`_stamp_k` key and bucket),
@@ -38,8 +53,8 @@ engine (``serving/sharded.py``) swaps in its programs and the
 serves a parameter tree, a compiled ``api.FlexibleModel`` or a checkpoint
 run directory of the driver (``source=``).
 
-Not ported yet: the executable store, the profiler, tracing and the int8
-policy (ROADMAP A9, A8, A10).
+Not ported yet: the executable store, the profiler and the int8 policy
+(ROADMAP A8, A10).
 """
 
 from __future__ import annotations
@@ -108,6 +123,11 @@ class _InFlight:
     event: Optional[Any] = None        # torch.cuda.Event after the launch
     #: the launched input tensors, kept alive until the batch completes
     inputs: tuple = ()
+    #: trace-stage clock readings: the launch began, the rows were padded,
+    #: the program's arguments were staged
+    t_launch0: float = 0.0
+    t_pad: float = 0.0
+    t_args: float = 0.0
 
 
 class ServingEngine:
@@ -139,6 +159,8 @@ class ServingEngine:
     #: their submits go through ``validate_adaptive_target``; none here
     #: (the sharded engine registers ``score_adaptive``)
     _ADAPTIVE_OPS: Tuple[str, ...] = ()
+    #: the trace span of :meth:`_dispatch_args`'s window (module docstring)
+    _ARGS_SPAN = "engine/noise"
 
     def __init__(self, source=None, *, params=None, model_config=None,
                  k: Optional[int] = None, k_max: Optional[int] = None,
@@ -194,6 +216,9 @@ class ServingEngine:
         #: whether this engine runs the mesh-sharded large-k path (the
         #: replica router's classification bit)
         self.sharded = False
+        #: the router's capability bit: this engine takes submit(trace=)
+        #: and records its pipeline stages as spans
+        self.traces = True
         #: op -> (program, takes k?); subclasses swap programs here
         self._programs: Dict[str, tuple] = dict(PROGRAMS)
         self.timeout_s = timeout_s
@@ -243,10 +268,15 @@ class ServingEngine:
     def submit(self, op: str, row, k: Optional[int] = None, *,
                seed: Optional[int] = None,
                model: Optional[str] = None,
+               trace=None,
                target_se: Optional[float] = None,
                ess_floor: Optional[float] = None) -> Future:
         """Enqueue ONE example; returns its Future. Raises
         :class:`EngineOverloaded` when the queue bound is hit.
+
+        ``trace`` (a :class:`~..telemetry.tracing.TraceContext`) records the
+        request's pipeline stages as its child spans at completion (module
+        docstring); it never touches seeds, payloads or shapes.
 
         ``seed`` overrides the engine's per-request seed counter (a result
         is a pure function of weights, payload, seed and k, so a retry with
@@ -285,6 +315,7 @@ class ServingEngine:
                           t_enqueue=now,
                           deadline=(now + self.timeout_s
                                     if self.timeout_s is not None else None),
+                          trace=trace,
                           target_se=target_se, ess_floor=ess_floor)
             try:
                 self._batcher.submit(req)
@@ -485,19 +516,22 @@ class ServingEngine:
              seeds: List[int], targets: Optional[Tuple[float, float]] = None,
              n_real: Optional[int] = None):
         """Launch one program on the device without waiting; returns
-        ``(out, event, inputs)``."""
+        ``(out, event, inputs, t_args)``, the last the clock once the
+        arguments were staged (the trace's noise/launch boundary)."""
         program = self._program_for(op, k, bucket)
         if self._stream is None:
             args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
                                                targets, n_real)
-            return program(*args, **kwargs), None, ()
+            t_args = self._clock()
+            return program(*args, **kwargs), None, (), t_args
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
                                                targets, n_real)
+            t_args = self._clock()
             out = program(*args, **kwargs)
             event = torch.cuda.Event()
             event.record(self._stream)
-        return out, event, (args, kwargs)
+        return out, event, (args, kwargs), t_args
 
     def _launch(self, batch: List[Request]) -> _InFlight:
         """Stage one: pad, launch. Returns the in-flight handle without
@@ -509,6 +543,9 @@ class ServingEngine:
         # a raise here is the replica-crash signal: it lands in exactly
         # this batch's futures (_launch_routed)
         fault_point(SITE_ENGINE_LAUNCH, engine=self, op=op, k=k, batch=n)
+        # trace-stage clock readings, stamped for every batch: the spans
+        # are assembled at completion, and only for traced requests
+        t_launch0 = self._clock()
         bucket = self.ladder.bucket_for(n)
         payload = self.ladder.pad_rows(
             np.stack([r.payload for r in batch]), bucket)
@@ -516,8 +553,9 @@ class ServingEngine:
         _, path = self._kernel_for(op, k, bucket)
         self.metrics.set_kernel(op, self._stamp_k(op, k), bucket,
                                 PATH_CODES[path], path)
-        out, event, inputs = self._run(op, k, bucket, payload, seeds,
-                                       targets, n)
+        t_pad = self._clock()
+        out, event, inputs, t_args = self._run(op, k, bucket, payload, seeds,
+                                               targets, n)
         t_disp = self._clock()
         for r in batch:
             r.t_dispatch = t_disp
@@ -525,7 +563,8 @@ class ServingEngine:
         self.metrics.count("real_rows", n)
         self.metrics.count("padded_rows", bucket - n)
         return _InFlight(batch=batch, op=op, k=k, bucket=bucket, out=out,
-                         event=event, inputs=inputs)
+                         event=event, inputs=inputs, t_launch0=t_launch0,
+                         t_pad=t_pad, t_args=t_args)
 
     def _launch_routed(self, batch: List[Request]) -> Optional[_InFlight]:
         """:meth:`_launch` with failure routing: an exception lands in
@@ -547,18 +586,54 @@ class ServingEngine:
                 return inf.out.cpu().numpy()
         return inf.out.numpy()
 
+    def _trace_attrs(self, op: str, k: int, bucket: int, n: int) -> dict:
+        """Attrs of a traced dispatch's ``engine/dispatch`` span (the
+        sharded engine adds its block shape)."""
+        return {"op": op, "k": k, "bucket": bucket, "batch": n,
+                "path": self._kernel_for(op, k, bucket)[1]}
+
+    def _emit_trace_spans(self, inf: _InFlight, t_fetch0: float,
+                          now: float, error: Optional[str] = None) -> None:
+        """The pipeline-stage spans of this batch's traced requests, from
+        the clock readings the hot path stamped (module docstring)."""
+        traced = [r for r in inf.batch if r.trace is not None]
+        if not traced:
+            return
+        from iwae_replication_project_tpu_torch.telemetry.tracing import (
+            emit_span, start_span)
+
+        attrs = self._trace_attrs(inf.op, inf.k, inf.bucket, len(inf.batch))
+        for r in traced:
+            ctx = r.trace
+            t_disp = r.t_dispatch if r.t_dispatch is not None \
+                else inf.t_args
+            emit_span(ctx, "engine/queue", r.t_enqueue, inf.t_launch0)
+            emit_span(ctx, "engine/pad", inf.t_launch0, inf.t_pad)
+            dispatch = start_span("engine/dispatch", ctx=ctx, attrs=attrs,
+                                  t_start=inf.t_pad)
+            emit_span(dispatch.ctx(), self._ARGS_SPAN, inf.t_pad, inf.t_args)
+            emit_span(dispatch.ctx(), "engine/launch", inf.t_args, t_disp)
+            dispatch.finish(t_end=t_disp)
+            if r.t_dispatch is not None:
+                emit_span(ctx, "engine/device", r.t_dispatch, t_fetch0)
+            emit_span(ctx, "engine/fetch", t_fetch0, now, error=error)
+
     def _finish(self, inf: _InFlight) -> None:
         """Stage two: fetch, slice padding, complete this batch's futures."""
+        t_fetch0 = self._clock()
         try:
             # a raise here models a deferred device failure
             fault_point(SITE_ENGINE_FETCH, engine=self, op=inf.op)
             out = self._fetch(inf)
         except Exception as e:
+            self._emit_trace_spans(inf, t_fetch0, self._clock(),
+                                   error="internal")
             for r in inf.batch:
                 self.metrics.count("errors")
                 self._complete(r.future, exc=e)
             return
         now = self._clock()
+        self._emit_trace_spans(inf, t_fetch0, now)
         for i, r in enumerate(inf.batch):
             self.metrics.record_latency(inf.op, inf.bucket, now - r.t_enqueue)
             if r.t_dispatch is not None:
@@ -596,8 +671,8 @@ class ServingEngine:
             targets = (0.0, 0.0) if op in self._ADAPTIVE_OPS else None
             for bucket in self.ladder.buckets:
                 payload = np.zeros((bucket, self.row_dims[op]), np.float32)
-                _, event, _ = self._run(op, k, bucket, payload, [0] * bucket,
-                                        targets, bucket)
+                _, event, _, _ = self._run(op, k, bucket, payload,
+                                           [0] * bucket, targets, bucket)
                 if event is not None:
                     event.synchronize()
                 _, path = self._kernel_for(op, k, bucket)

@@ -1,9 +1,9 @@
-"""The engine's fault sites and chaos rule builders (port of
-``serving/faults.py``, its engine part).
+"""The serving stack's fault sites and the rules that fire at them (port of
+``serving/faults.py``).
 
-The engine fires :func:`~..utils.faults.fault_point` at these sites (the
-names are the schedule's addressing scheme, so the constants are the one
-spelling):
+The serving stack fires :func:`~..utils.faults.fault_point` at these sites
+(the names are the schedule's addressing scheme and the JAX package's
+strings, so the constants are the one spelling):
 
 ====================  =====================================================
 site                  where / ctx keyword arguments
@@ -14,25 +14,42 @@ SITE_ENGINE_LAUNCH    ``ServingEngine._launch``, before the batch is padded
                       signal of a replica crash
 SITE_ENGINE_FETCH     the completion stage, before the device-to-host
                       fetch (``engine``, ``op``): a deferred device failure
+SITE_ROUTER_DISPATCH  ``ReplicaRouter._dispatch``, inside the per-replica
+                      submit try (``router``, ``replica``, ``attempt``)
+SITE_TIER_WRITE       the tier connection's response write, under the
+                      connection lock before ``sendall`` (``sock``,
+                      ``conn``): where dropped and garbled TCP lives
+SITE_REMOTE_SEND      ``RemoteEngine.submit``, inside the send try
+                      (``addr``): an ``OSError`` here poisons the proxy
 ====================  =====================================================
 
-The tier's sites (router dispatch, tier write, remote send) come with the
-serving frontend.
+The JAX package's ``crash_aot_dispatch`` fires inside its executable
+store, which the port does not have yet (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import contextlib
+import socket
+
 from iwae_replication_project_tpu_torch.utils.faults import (
+    FaultContext,
     FaultRule,
     delay,
+    raise_error,
     raise_fault,
 )
 
-__all__ = ["SITE_ENGINE_LAUNCH", "SITE_ENGINE_FETCH", "crash_replica",
-           "slow_replica"]
+__all__ = ["SITE_ENGINE_LAUNCH", "SITE_ENGINE_FETCH", "SITE_ROUTER_DISPATCH",
+           "SITE_TIER_WRITE", "SITE_REMOTE_SEND", "crash_replica",
+           "slow_replica", "drop_tier_connection", "garble_tier_connection",
+           "sever_remote"]
 
 SITE_ENGINE_LAUNCH = "serve.engine.launch"
 SITE_ENGINE_FETCH = "serve.engine.fetch"
+SITE_ROUTER_DISPATCH = "serve.router.dispatch"
+SITE_TIER_WRITE = "serve.tier.write"
+SITE_REMOTE_SEND = "serve.remote.send"
 
 
 def _is_engine(engine):
@@ -42,8 +59,9 @@ def _is_engine(engine):
 def crash_replica(engine, after: int = 0, times=None,
                   name: str = "crash_replica") -> FaultRule:
     """Raise from `engine`'s launch after `after` launches: the batch's
-    futures error. ``times=None`` keeps it failing until the schedule is
-    cleared; a finite ``times`` models a transient crash."""
+    futures error, and a router marks the replica unhealthy and reroutes its
+    work with the original seeds. ``times=None`` keeps it failing until the
+    schedule is cleared; a finite ``times`` models a transient crash."""
     return FaultRule(site=SITE_ENGINE_LAUNCH, after=after, times=times,
                      match=_is_engine(engine), name=name,
                      action=raise_fault("replica crash (chaos)"))
@@ -52,7 +70,55 @@ def crash_replica(engine, after: int = 0, times=None,
 def slow_replica(engine, delay_s: float, after: int = 0, times=1,
                  name: str = "slow_replica") -> FaultRule:
     """Stall `engine`'s dispatcher for `delay_s` on one (or `times`)
-    launches: the tail-latency fault."""
+    launches: the tail-latency fault client hedging exists for."""
     return FaultRule(site=SITE_ENGINE_LAUNCH, after=after, times=times,
                      match=_is_engine(engine), name=name,
                      action=delay(delay_s))
+
+
+def _kill_sock(fc: FaultContext) -> None:
+    sock_ = fc.ctx.get("sock")
+    if sock_ is not None:
+        with contextlib.suppress(OSError):
+            sock_.shutdown(socket.SHUT_RDWR)
+        with contextlib.suppress(OSError):
+            sock_.close()
+
+
+def drop_tier_connection(after: int = 0, times=1,
+                         name: str = "drop_connection") -> FaultRule:
+    """Close the client connection under the tier's response write: the
+    response is produced but never delivered, and the client must reconnect
+    and retry. The action touches only the socket (it never raises), so the
+    server's own ``OSError`` handling runs as for a real peer reset."""
+    return FaultRule(site=SITE_TIER_WRITE, after=after, times=times,
+                     name=name, action=_kill_sock)
+
+
+def _garble_sock(fc: FaultContext) -> None:
+    sock_ = fc.ctx.get("sock")
+    if sock_ is not None:
+        with contextlib.suppress(OSError):
+            # not JSON, not even UTF-8: the client's framed reader must
+            # raise a ProtocolError
+            sock_.sendall(b"\xff\xfe{garbled" + b"\n")
+
+
+def garble_tier_connection(after: int = 0, times=1,
+                           name: str = "garble_connection") -> FaultRule:
+    """Put garbage bytes on the wire before a response line (under the
+    connection's write lock, so the garbage is frame-aligned): the client
+    reads a malformed frame and must treat the connection as poisoned."""
+    return FaultRule(site=SITE_TIER_WRITE, after=after, times=times,
+                     name=name, action=_garble_sock)
+
+
+def sever_remote(after: int = 0, times=1,
+                 name: str = "sever_remote") -> FaultRule:
+    """Raise ``OSError`` from ``RemoteEngine``'s socket send: the proxy
+    poisons itself, its outstanding futures fail typed, and under a
+    ``RetryPolicy`` the next submit dials a fresh connection."""
+    return FaultRule(site=SITE_REMOTE_SEND, after=after, times=times,
+                     name=name,
+                     action=raise_error(
+                         lambda fc: OSError("connection severed (chaos)")))

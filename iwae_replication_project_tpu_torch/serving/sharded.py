@@ -100,6 +100,9 @@ class ShardedScoreEngine(ServingEngine):
 
     _GATED_OPS = ("score", "score_adaptive")
     _ADAPTIVE_OPS = ("score_adaptive",)
+    #: the trace span of the arguments' window: the payload's copy and the
+    #: followers' header (the noise is drawn on the card, per block)
+    _ARGS_SPAN = "engine/args"
 
     def __init__(self, source=None, *, params=None, model_config=None,
                  mesh=None, k_chunk: int = 250, k_max: int = 5000,
@@ -167,6 +170,17 @@ class ShardedScoreEngine(ServingEngine):
         stamp are per bucket, the gate resolved at (k_chunk, bucket/dp),
         never per request k."""
         return "dyn"
+
+    def _trace_attrs(self, op: str, k: int, bucket: int, n: int) -> dict:
+        """The base attrs plus the streaming shape, so a large-k dispatch's
+        time in a trace reads against its blocks: the request k (the cap
+        for an adaptive op), ``k_chunk``, the blocks ``ceil(k / k_chunk)``
+        (an adaptive row may stop earlier) and the mesh."""
+        attrs = super()._trace_attrs(op, k, bucket, n)
+        attrs.update({"sharded": True, "k_chunk": self.menu.k_chunk,
+                      "blocks": self.menu.n_chunks(k),
+                      "dp": self.mesh.dp, "sp": self.mesh.sp})
+        return attrs
 
     def _program_for(self, op: str, k: int, bucket: int):
         cfg_d, _ = self._kernel_for(op, k, bucket)

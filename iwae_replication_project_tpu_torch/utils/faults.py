@@ -146,6 +146,14 @@ def raise_fault(message: str = "injected fault") -> Action:
     return act
 
 
+def raise_error(make: Callable[[FaultContext], BaseException]) -> Action:
+    """Raise the exception `make` builds from the firing context: a typed
+    failure (an ``OSError`` at a socket send)."""
+    def act(fc: FaultContext) -> None:
+        raise make(fc)
+    return act
+
+
 def delay(seconds: float, jitter_s: float = 0.0) -> Action:
     """Sleep on the calling thread (plus seeded jitter): the slow-replica
     fault."""

@@ -841,9 +841,9 @@ def test_cli_checkpoint_load_with_log_dir(run_dir, tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--precision", "int8"], "A8"),
     (["--precision", "fp16"], "unknown precision"),
-    (["--replicas", "2"], "A9"),
-    (["--client", "127.0.0.1:1"], "A9"),
-    (["--sharded-replicas", "1"], "A9"),
+    (["--replicas", "2", "--autoscale"], "A9"),
+    (["--autoscale-dry-run"], "A9"),
+    (["--sharded-replicas", "1", "--autoscale-min", "1"], "A9"),
     (["--autoscale"], "A9"),
     (["--metrics-port", "0"], "A10"),
     (["--store-budget-mb", "10"], "A10"),
