@@ -8,7 +8,7 @@ phases, one line per phase, and exits non-zero on the first failure:
 
 1. the card's name and power limit (nvidia-smi), torch/CUDA versions and the
    TF32 flags (both set False: the plain versions must run in full fp32);
-2. builds all four CUDA kernels from ``csrc/`` (one ``nvcc`` per source, all
+2. builds all six CUDA kernels from ``csrc/`` (one ``nvcc`` per source, all
    started together) and prints the build times and ptxas's
    register/shared-memory report;
 3. holds each kernel against its plain PyTorch version on the card, within
@@ -36,7 +36,10 @@ phases, one line per phase, and exits non-zero on the first failure:
    then the op's own path, ``fused_bernoulli_ll`` forward and backward on
    the flagship's last layer at the train shape, whose launches
    are counted, held against B1 (the same draws through the whole output
-   block) and against B2's dW3 and db3 for the same cotangent;
+   block) and against B2's dW3 and db3 for the same cotangent; then the
+   serving programs' row-invariant kernels (``row_dense``, ``row_sum``)
+   against their plain versions at the flagship's serving shapes, timed
+   beside ``torch.addmm`` and ``torch.sum``;
 4. serves the flagship preset ``northstar-iwae-2l-k50`` at full width (fresh
    weights from the preset's seed, synthetic binary rows from a seed) through
    the pipelined engine: warmup, then a ragged stream of score requests plus
@@ -134,14 +137,32 @@ phases, one line per phase, and exits non-zero on the first failure:
    launches over the phase equal to one per fast score dispatch plus
    ``ceil(k/250)`` per sharded score dispatch and the adaptive rule per
    ``score_adaptive`` one; every fast-route row against one direct
-   in-process engine on the same (row, seed, k) within 1e-3 nats (encode
-   and decode 1e-2), with the count of rows bitwise equal; every large-k
+   in-process engine on the same (row, seed, k), each request replayed
+   alone in its own bucket, bitwise; every large-k
    dispatch bitwise its offline twin; (b) the CLI's tier mode from the run
    directory (``--replicas 2 --sharded-replicas 1 --port 0``, stdin held
    open) and its client mode (``--requests 40 --k-sweep 250,5000
    --target-se 0.5``), both exiting 0 after stdin EOF;
-12. prints the kernels' JSON record (launches of the serving and training
-   runs, and per path of phases 8-11 under ``launches_by_path``) and, last,
+12. the elastic multi-model tier: (a) every row of a seeded set served in
+   each bucket 1..64 beside other neighbours, bitwise the same (score,
+   encode, decode; bf16 and fp32), and a k=5000 row of the sharded engine
+   in buckets 1, 2, 4 and 8; (b) every (op, bucket) program of the flagship
+   captured into the executable store: replay bitwise eager, capture ms,
+   replay and eager device ms, the bill beside the bytes reserved, an
+   eviction's bytes given back; (c) three full-width presets behind one TCP
+   tier (``zoo.serving_engines``) under a store budget of about one
+   model's programs: a burst alternating the models, all ok and bitwise a
+   dedicated engine's, evictions and readmits with no kernel build, B1's
+   launches equal to the score dispatches, ``crash_aot_dispatch`` failing
+   one request, typed; (d) the autoscaler (JAX
+   ``scripts/autoscale_smoke.py``'s claims at full width): up on a burn
+   breach with a warm join (0 captures, 0 builds), the joined replica
+   crashed and a second scale-up, down on idle by drain, every response
+   bitwise a static tier's, the decision log printed; (e) the CLI's
+   ``--replicas 1 --models A,B --store-budget-mb X --autoscale
+   --autoscale-max 2`` with a ``--client`` burst per model;
+13. prints the kernels' JSON record (launches of the serving and training
+   runs, and per path of phases 8-12 under ``launches_by_path``) and, last,
    the contract line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -246,6 +267,14 @@ TIER_SIZES = [1, 3, 17, 1, 7, 2, 1, 12, 5, 1]
 TIER_LARGE_K = [1000, 5000] * 6
 TIER_ADAPTIVE = 8
 TIER_CRASH_REQUESTS = 60
+#: phase 12: the multi-model tier's presets (full width; fresh weights from
+#: each preset's seed) and its burst; the autoscaler's burst phases and its
+#: SLO windows (seconds, under the controller's labels "5m" and "1h")
+MM_PRESETS = ["northstar-iwae-2l-k50", "table1-iwae-1l-k50",
+              "table3-iwae-2l-k50"]
+MM_REQUESTS = 90
+AS_PHASE = 12
+AS_FAST_S, AS_SLOW_S = 2.0, 4.0
 
 
 def fail(msg: str) -> int:
@@ -457,7 +486,10 @@ def breakdown(torch, np, eng):
 
 def serve(torch, np, zoo, hot_loop):
     """Phase 4: the flagship preset through the pipelined engine. Returns
-    (launches during the served run, ok)."""
+    ({kernel: launches during the served run}: B1 and the row-invariant
+    kernels, ok)."""
+    from iwae_replication_project_tpu_torch.ops import row_invariant as ri
+
     eng = zoo.serving_engine(PRESET, seed=0, timeout_s=None)
     ref = zoo.serving_engine(PRESET, seed=0, timeout_s=None,
                              kernel_path="reference")
@@ -485,6 +517,7 @@ def serve(torch, np, zoo, hot_loop):
         return lambda _f: done_at.__setitem__(i, time.perf_counter())
 
     hot_loop.reset_launch_counts()
+    ri.reset_launch_counts()
     eng.start()
     t0 = time.perf_counter()
     futures, submit_at, seed = [], [], 0
@@ -507,6 +540,7 @@ def serve(torch, np, zoo, hot_loop):
     decs = np.stack([f.result(timeout=300) for f in dec_f])
     eng.stop()
     launches = hot_loop.launch_counts()[hot_loop.KERNEL]
+    row_launches = ri.launch_counts()
     snap = eng.metrics.snapshot()
 
     lone = []
@@ -533,11 +567,15 @@ def serve(torch, np, zoo, hot_loop):
           f"p50_ms={np.percentile(lone, 50) * 1e3:.3f} "
           f"p99_ms={np.percentile(lone, 99) * 1e3:.3f}", flush=True)
     print(f"serve: hot_loop_fwd launches during the run = {launches}; "
-          f"score kernel stamps = {sorted(set(paths.values()))}", flush=True)
+          f"row-invariant kernels {row_launches}; score kernel stamps = "
+          f"{sorted(set(paths.values()))}; store counters "
+          + str({k: snap["counters"][k]
+                 for k in ("aot_hits", "aot_misses", "recompiles")}),
+          flush=True)
     ok = True
-    if launches <= 0:
+    if launches <= 0 or min(row_launches.values()) <= 0:
         ok = False
-        print("FAIL: the kernel was not launched by the served run")
+        print("FAIL: a kernel was not launched by the served run")
     if set(paths.values()) != {"kernel"}:
         ok = False
         print(f"FAIL: score dispatches stamped {paths}")
@@ -562,9 +600,9 @@ def serve(torch, np, zoo, hot_loop):
           f"max_abs_err={err.max():.3e} tol=({atol:g} + {rtol:g}*|ref|) "
           f"{'ok' if within else 'OUT OF TOLERANCE'}", flush=True)
     ok &= within
-    # encode/decode never touch the kernel: the two engines differ only in
-    # how rows were batched (cuBLAS may pick another algorithm per batch
-    # size), so latents and probabilities agree to well under 1e-2
+    # encode/decode never touch B1: the two engines run the same
+    # row-invariant programs, so latents and probabilities agree to well
+    # under 1e-2 (bitwise where the rows' bits are the same)
     enc_want = [ref.submit("encode", r, seed=1000 + i)
                 for i, r in enumerate(enc_rows)]
     dec_want = [ref.submit("decode", r, seed=2000 + i)
@@ -576,7 +614,7 @@ def serve(torch, np, zoo, hot_loop):
     print(f"serve: encode/decode vs reference engine: max_abs_err "
           f"{enc_err:.3e}/{dec_err:.3e} tol=1e-2 "
           f"{'ok' if side_ok else 'OUT OF TOLERANCE'}", flush=True)
-    return launches, ok and side_ok
+    return {hot_loop.KERNEL: launches, **row_launches}, ok and side_ok
 
 
 def hot_loop_bwd_bound_ms(k, b, h1, hid, d, dtype) -> tuple:
@@ -2155,7 +2193,9 @@ def _lat_text(np, name, lat, n, wall) -> str:
 
 def serving_tier(torch, np, hot_loop, run_dir):
     """Phase 11: the serving tier over TCP on the card, from phase 7's run
-    dir. Returns (B1 launches of the phase's traffic, ok)."""
+    dir. Returns (B1 launches of the phase's traffic, the row-invariant
+    kernels' launches, ok)."""
+    from iwae_replication_project_tpu_torch.ops import row_invariant as ri
     from iwae_replication_project_tpu_torch.serving.engine import (
         ServingEngine)
     from iwae_replication_project_tpu_torch.serving.faults import (
@@ -2212,6 +2252,7 @@ def serving_tier(torch, np, hot_loop, run_dir):
     test = ds.x_test.reshape(len(ds.x_test), -1).astype(np.float32)
     h_dim = first.row_dims["decode"]
     hot_loop.reset_launch_counts()
+    ri.reset_launch_counts()
 
     # the lone request: over the wire and in process, in turns
     lone_wire, lone_local = [], []
@@ -2370,6 +2411,7 @@ def serving_tier(torch, np, hot_loop, run_dir):
     tier.stop()
     torch.cuda.synchronize()
     launches = hot_loop.launch_counts()
+    row_launches = ri.launch_counts()
     for r in rec:
         r.eng._launch = r._launch
     want = sum(1 for r in rec[:2] for inf in r.log if inf.op == "score")
@@ -2403,10 +2445,8 @@ def serving_tier(torch, np, hot_loop, run_dir):
                 got, np.stack([f.result(timeout=300) for f in fs]))
             n_fast += len(inf.batch)
     # and each request's rows replayed alone, in the bucket of its own
-    # row count: cuBLAS may take another algorithm for the encoder at
-    # another batch size, so these are held to the bf16 row tolerance of
-    # phase 4 (TOL), with the count within 1e-3 nats and bitwise printed
-    atol, rtol = TOL["bf16"]
+    # row count: bitwise, the serving programs' ops being row-invariant
+    # (the count within 1e-3 nats and the worst difference printed too)
     errs = {op: [0.0] for op in ("score", "encode", "decode")}
     equal = {op: 0 for op in errs}
     close = {op: 0 for op in errs}
@@ -2424,8 +2464,7 @@ def serving_tier(torch, np, hot_loop, run_dir):
         equal[op] += int((err == 0).sum())
         close[op] += int((err <= 1e-3).sum())
         rows_n[op] += len(rows)
-        within &= bool((np.abs(got - want_)
-                        <= atol + rtol * np.abs(want_)).all())
+    within = all(equal[op] == rows_n[op] for op in errs)
     replay_ok = same_fast and within
     ok &= replay_ok
     print(f"tier: {n_fast} rows of {sum(len(r.log) for r in rec[:2])} fast "
@@ -2434,8 +2473,7 @@ def serving_tier(torch, np, hot_loop, run_dir):
           f"alone (its own bucket): " + "; ".join(
               f"{op} {equal[op]}/{rows_n[op]} bitwise, {close[op]} within "
               f"1e-3, max_abs_err {max(errs[op]):.3e}" for op in errs)
-          + f"; tol ({atol:g} + {rtol:g}*|ref|) "
-          f"{'ok' if replay_ok else 'FAIL'}", flush=True)
+          + f"; held bitwise {'ok' if replay_ok else 'FAIL'}", flush=True)
 
     # every large-k dispatch bitwise its offline twin on the padded rows
     same = True
@@ -2461,7 +2499,7 @@ def serving_tier(torch, np, hot_loop, run_dir):
           f"the offline twin on their padded rows: {same}; phase "
           f"{time.perf_counter() - t_phase:.1f}s before the command line",
           flush=True)
-    return launches[hot_loop.KERNEL], ok
+    return launches[hot_loop.KERNEL], row_launches, ok
 
 
 def tier_cli(run_dir):
@@ -2522,6 +2560,629 @@ def tier_cli(run_dir):
     return ok
 
 
+# --------------------------------------------------------------------------
+# phase 12: the elastic multi-model tier
+# --------------------------------------------------------------------------
+
+def dense_bound_ms(m, k, n, dtype) -> tuple:
+    """(bound_ms, bound_by) of one row-invariant dense layer: 2 M K N
+    operations over the operand type's peak against each input read and
+    the output written once."""
+    t_ops = 2.0 * m * k * n / PEAK_FLOPS[dtype]
+    t_bytes = 4.0 * (m * k + k * n + n + m * n) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sum_bound_ms(outer, r, inner) -> tuple:
+    """(bound_ms, bound_by) of one fixed-order sum: R - 1 adds per output
+    in fp32 against the input read and the output written once."""
+    t_ops = outer * max(r - 1, 1) * inner / PEAK_FLOPS["fp32"]
+    t_bytes = 4.0 * (outer * r * inner + outer * inner) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_row_kernels(torch, ri):
+    """Phase 3d: the serving programs' row-invariant kernels against their
+    plain versions at the flagship's serving shapes (a 64-row bucket, k=50:
+    the encoder's first block at 64 rows, the rest at 3200, the decode
+    output block at 64), timed with the library call computing the same
+    function (``torch.addmm`` on the same, already rounded operands;
+    ``torch.sum``). Returns (two records for the JSON line, ok)."""
+    dense_shapes = [(64, 784, 200, True), (64, 200, 100, False),
+                    (3200, 100, 100, True), (3200, 100, 50, False),
+                    (3200, 50, 100, True), (3200, 100, 100, False),
+                    (64, 200, 784, False), (1, 784, 200, True),
+                    (7, 37, 130, True)]
+    ok, worst_d, main_d = True, 0.0, None
+    for dtype in ("fp32", "bf16"):
+        cd = torch.bfloat16 if dtype == "bf16" else None
+        for i, (m, k, n, tanh) in enumerate(dense_shapes):
+            g = torch.Generator().manual_seed(100 + i)
+            x = torch.randn((m, k), generator=g).cuda()
+            w = (torch.randn((k, n), generator=g) * k ** -0.5).cuda()
+            b = (torch.randn((n,), generator=g) * 0.1).cuda()
+            got = ri.dense(x, w, b, cd, tanh)
+            want = ri.dense_plain(x, w, b, cd, tanh)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            # the same products in another order: K terms whose absolute
+            # sum is ~20 here, so ~sqrt(K) 2^-24 20 apart; 2e-4 allows it
+            within = err <= 2e-4 and bool(torch.isfinite(got).all())
+            ok &= within
+            worst_d = max(worst_d, err)
+            line = (f"kernel row_dense {dtype} M={m} K={k} N={n} "
+                    f"tanh={tanh}: max_abs_err={err:.3e} tol=2e-4 "
+                    f"{'ok' if within else 'OUT OF TOLERANCE'}")
+            if m in (64, 3200) and i < 7:
+                xr, wr = (x.to(cd).float(), w.to(cd).float()) if cd \
+                    else (x, w)
+                t = timings(lambda: ri.dense(x, w, b, cd, tanh),
+                            lambda: ri.dense_plain(x, w, b, cd, tanh),
+                            torch)
+                lib = time_ms(lambda: torch.addmm(b, xr, wr), torch)
+                bound, by = dense_bound_ms(m, k, n, dtype)
+                line += timing_text(t, bound, by, 2.0 * m * k * n) + \
+                    f" library_ms(torch.addmm)={lib:.4f}"
+                if dtype == "bf16" and (m, k, n, tanh) == (3200, 100, 100,
+                                                           False):
+                    main_d = dict(t, bound_ms=bound, bound_by=by,
+                                  library_ms=lib)
+            print(line, flush=True)
+    sum_shapes = [((50, 64, 100), -1), ((50, 64, 50), -1), ((50, 64), 0),
+                  ((50, 64, 50), 0), ((1, 1, 784), -1), ((250, 8), 0)]
+    worst_s, main_s = 0.0, None
+    for i, (shape, dim) in enumerate(sum_shapes):
+        g = torch.Generator().manual_seed(200 + i)
+        x = torch.randn(shape, generator=g).cuda()
+        got = ri.fixed_sum(x, dim)
+        want = torch.sum(x, dim=dim)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # fp32 terms of magnitude ~1 added in another order, at most 784
+        within = err <= 1e-4 and bool(torch.isfinite(got).all())
+        ok &= within
+        worst_s = max(worst_s, err)
+        d = dim % len(shape)
+        outer, r, inner = (math.prod(shape[:d]), shape[d],
+                           math.prod(shape[d + 1:]))
+        t = timings(lambda: ri.fixed_sum(x, dim),
+                    lambda: torch.sum(x, dim=dim), torch)
+        bound, by = sum_bound_ms(outer, r, inner)
+        line = (f"kernel row_sum {tuple(shape)} dim={dim}: "
+                f"max_abs_err={err:.3e} tol=1e-4 "
+                f"{'ok' if within else 'OUT OF TOLERANCE'}"
+                + timing_text(t, bound, by)
+                + f" library_ms(torch.sum)={t['plain_ms']:.4f}")
+        if i == 0:
+            main_s = dict(t, bound_ms=bound, bound_by=by,
+                          library_ms=t["plain_ms"])
+        print(line, flush=True)
+    src = "iwae_replication_project_tpu_torch/csrc/"
+    why = ("no TPU kernel: the serving programs' cuBLAS GEMMs and torch.sum "
+           "reductions, row-invariant as iwae_replication_project_tpu/"
+           "serving/programs.py:1")
+    records = [
+        {"name": ri.KERNEL_DENSE, "route": "cuda",
+         "source": src + "row_dense.cu", "replaces": why, "launches": None,
+         "max_abs_err": worst_d, **main_d,
+         "bound_share": main_d["bound_ms"] / main_d["ms"],
+         "shape": "bf16 M=3200 K=100 N=100"},
+        {"name": ri.KERNEL_SUM, "route": "cuda",
+         "source": src + "row_sum.cu", "replaces": why, "launches": None,
+         "max_abs_err": worst_s, **main_s,
+         "bound_share": main_s["bound_ms"] / main_s["ms"],
+         "shape": "[50, 64, 100] over the last axis"}]
+    return records, ok
+
+
+def _serve_rows(eng, op, rows, seeds, k=None):
+    """`rows` as one batch with `seeds` (serial engine): the results."""
+    fs = [eng.submit(op, r, k=k, seed=s) for r, s in zip(rows, seeds)]
+    eng.flush()
+    return [f.result(timeout=300) for f in fs]
+
+
+def bucket_invariance(torch, np, run_dir):
+    """Phase 12a: every row of a seeded ragged set served in each bucket
+    1..64 beside other neighbours (fast engine, score/encode/decode, bf16
+    and fp32), and a k=5000 row in buckets 1, 2, 4 and 8 of the sharded
+    engine: each row's bits the same in every bucket. Returns ok."""
+    from iwae_replication_project_tpu_torch.serving.buckets import (
+        BucketLadder)
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+
+    t0 = time.perf_counter()
+    ok = True
+    n_rows = 8
+    with cc.isolated_aot_registry(budget_bytes=None):
+        for precision in ("bf16", "fp32"):
+            eng = ServingEngine(run_dir, precision=precision,
+                                ladder=BucketLadder(tuple(range(1, 65))),
+                                timeout_s=None)
+            for op in ("score", "encode", "decode"):
+                rng = np.random.RandomState(12)
+                d = eng.row_dims[op]
+
+                def draw(n):
+                    return (rng.rand(n, d) > 0.5).astype(np.float32) \
+                        if op != "decode" else \
+                        rng.randn(n, d).astype(np.float32)
+                targets = draw(n_rows)
+                got = {r: [] for r in range(n_rows)}
+                neighbour_seed = 100_000
+                for b in range(1, 65):
+                    order = list(rng.permutation(n_rows))
+                    while order:
+                        mine, order = order[:b], order[b:]
+                        slots = sorted(rng.choice(b, len(mine),
+                                                  replace=False))
+                        rows, seeds, where = draw(b), [], {}
+                        for j in range(b):
+                            if slots and j == slots[0]:
+                                r = mine[len(where)]
+                                rows[j], where[r] = targets[r], j
+                                seeds.append(500 + r)
+                                slots.pop(0)
+                            else:
+                                seeds.append(neighbour_seed)
+                                neighbour_seed += 1
+                        out = _serve_rows(eng, op, rows, seeds)
+                        for r, j in where.items():
+                            got[r].append(np.asarray(out[j]))
+                same = sum(all(np.array_equal(v, got[r][0])
+                               for v in got[r]) for r in range(n_rows))
+                ok &= same == n_rows
+                print(f"invariance: fast {precision} {op}: {same}/{n_rows} "
+                      f"rows bitwise the same in all 64 buckets (each "
+                      f"beside other neighbours; "
+                      f"{sum(len(v) for v in got.values())} servings) "
+                      f"{'ok' if same == n_rows else 'FAIL'}", flush=True)
+        big = ShardedScoreEngine(run_dir, k_chunk=SHARDED_KC,
+                                 k_max=SHARDED_KMAX, max_batch=SHARDED_BATCH,
+                                 timeout_s=None)
+        rng = np.random.RandomState(13)
+        row = (rng.rand(784) > 0.5).astype(np.float32)
+        vals = []
+        for b in big.ladder.buckets:
+            rows = (rng.rand(b, 784) > 0.5).astype(np.float32)
+            rows[b // 2] = row
+            seeds = [900 + j for j in range(b)]
+            seeds[b // 2] = 77
+            vals.append(_serve_rows(big, "score", rows, seeds,
+                                    k=SHARDED_KMAX)[b // 2])
+        same = all(np.array_equal(v, vals[0]) for v in vals)
+        ok &= same
+        print(f"invariance: sharded k={SHARDED_KMAX} (k_chunk "
+              f"{SHARDED_KC}) row in buckets {list(big.ladder.buckets)}: "
+              f"{vals[0]:.6f}, bitwise the same in every bucket={same}; "
+              f"phase 12a {time.perf_counter() - t0:.1f}s "
+              f"{'ok' if same else 'FAIL'}", flush=True)
+    return ok
+
+
+def store_on_the_flagship(torch, np, run_dir):
+    """Phase 12b: every (op, bucket) program of the flagship captured into
+    the store: its replay bitwise its eager program, the capture's ms, the
+    replay's and the eager program's device ms (CUDA events, 20 calls on
+    the engine's stream), the bill beside the bytes the capture reserved;
+    then an eviction of everything and the bytes it gave back. Returns
+    ({op: sum of bills}, ok)."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+
+    eng = ServingEngine(run_dir, timeout_s=None)
+    ok = True
+    bills = {}
+    rng = np.random.RandomState(14)
+    with cc.isolated_aot_registry(budget_bytes=None):
+        store = cc.executable_store()
+        for op in ("score", "encode", "decode"):
+            k = eng.k if op != "decode" else 0
+            d = eng.row_dims[op]
+            for bucket in eng.ladder.buckets:
+                payload = (rng.rand(bucket, d) > 0.5).astype(np.float32) \
+                    if op != "decode" else \
+                    rng.randn(bucket, d).astype(np.float32)
+                program = eng._program_for(op, k, bucket)
+                with eng._launch_context():
+                    args, kwargs = eng._dispatch_args(
+                        op, k, bucket, payload, list(range(bucket)))
+                    fn, tensors, _, _, graph = eng._entry(
+                        op, k, bucket, program, args, kwargs)
+                    nbytes = eng._program_nbytes(op, k, bucket)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    exe, hit = cc.aot_warm(
+                        eng._aot_name(op), fn, tensors,
+                        build_key=eng._build_key(op, k, bucket),
+                        model=eng.store_label, nbytes=nbytes, graph=graph,
+                        sig=cc.signature(tensors))
+                    torch.cuda.synchronize()
+                    cap_ms = (time.perf_counter() - t1) * 1e3
+                    replay = exe(*tensors)
+                    eager = fn(*tensors)
+                    torch.cuda.synchronize()
+                    same = torch.equal(replay, eager)
+                    rep_ms = time_ms(lambda: exe(*tensors), torch)
+                    eag_ms = time_ms(lambda: fn(*tensors), torch)
+                bills[op] = bills.get(op, 0) + nbytes
+                good = graph and not hit and same
+                ok &= good
+                print(f"store: {op} bucket={bucket}: capture (with its "
+                      f"warm-up run) {cap_ms:.2f} ms, replay "
+                      f"{rep_ms:.4f} ms vs eager {eag_ms:.4f} ms (CUDA "
+                      f"events, 20 calls back to back), bill {nbytes} B vs "
+                      f"static {exe.static_bytes} B + reserved by the "
+                      f"capture {exe.pool_bytes} B, replay bitwise eager="
+                      f"{same} {'ok' if good else 'FAIL'}", flush=True)
+        torch.cuda.synchronize()
+        pool = sum(e["pool_bytes"] for e in store.entries())
+        before = torch.cuda.memory_reserved()
+        store.set_budget(0)
+        torch.cuda.empty_cache()
+        freed = before - torch.cuda.memory_reserved()
+        evict_ok = len(store) == 0 and freed > 0
+        ok &= evict_ok
+        print(f"store: every entry evicted ({len(store)} left): the "
+              f"allocator gave back {freed} B after empty_cache (the "
+              f"captures had reserved {pool} B); bills per op {bills} "
+              f"{'ok' if evict_ok else 'FAIL'}", flush=True)
+    return bills, ok
+
+
+def _replay_dispatches(np, engines_by_model, recs):
+    """Every recorded dispatch replayed on a dedicated engine of its model
+    (the same rows, seeds and k, one flush): (rows bitwise equal, rows)."""
+    same, n = 0, 0
+    for r in recs:
+        eng = engines_by_model[r.eng.model]
+        for inf in r.log:
+            want = _serve_rows(eng, inf.op, [q.payload for q in inf.batch],
+                               [q.seed for q in inf.batch],
+                               k=inf.k or None)
+            for q, w in zip(inf.batch, want):
+                if q.future.exception() is None:
+                    same += int(np.array_equal(q.future.result(), w))
+                    n += 1
+    return same, n
+
+
+def multi_model_tier(torch, np, hot_loop, bills):
+    """Phase 12c: three full-width presets behind one TCP tier
+    (``zoo.serving_engines``), the store's budget about one model's
+    programs; a burst alternating the models, every answer bitwise a
+    dedicated engine's; then ``crash_aot_dispatch`` on one dispatch.
+    Returns (B1 launches of the burst, row kernels' launches, ok)."""
+    from iwae_replication_project_tpu_torch import zoo
+    from iwae_replication_project_tpu_torch.ops import row_invariant as ri
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.serving.faults import (
+        crash_aot_dispatch)
+    from iwae_replication_project_tpu_torch.serving.frontend import (
+        ServingTier, TierClient)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+    from iwae_replication_project_tpu_torch.utils import faults
+    from iwae_replication_project_tpu_torch.utils.tree import tree_map
+
+    t_phase = time.perf_counter()
+    ok = True
+    with cc.isolated_aot_registry(budget_bytes=None):
+        store = cc.executable_store()
+        engines = zoo.serving_engines(MM_PRESETS, timeout_s=None)
+        tier = ServingTier(engines, monitor_interval_s=0.05)
+        warm = tier.warmup(ops=("score", "encode", "decode"))
+        costs = store.model_costs()
+        budget = max(costs.values())
+        store.set_budget(budget)
+        tier.start()
+        print(f"multimodel: ServingTier on 127.0.0.1:{tier.port} over "
+              f"{MM_PRESETS}, one replica each; warmup {warm}; bills per "
+              f"model {costs} (phase 12b's flagship per op: {bills}); "
+              f"store budget {budget} B (the largest model's programs), "
+              f"{len(store)} entries resident after it", flush=True)
+        recs = [_Recorder(e) for e in engines]
+        rng = np.random.RandomState(15)
+        reqs = []
+        for i in range(MM_REQUESTS):
+            model = MM_PRESETS[i % len(MM_PRESETS)]
+            op = ("score", "encode", "decode")[(i // 3) % 3]
+            n = (1, 4, 9, 2, 16)[i % 5]
+            d = engines[0].row_dims[op]
+            rows = (rng.rand(n, d) > 0.5).astype(np.float32) \
+                if op != "decode" else rng.randn(n, d).astype(np.float32)
+            reqs.append((op, rows.tolist(), None,
+                         700_000 + i if n == 1 else None, {"model": model}))
+        torch.cuda.synchronize()
+        hot_loop.reset_launch_counts()
+        ri.reset_launch_counts()
+        s0 = cc.cache_stats()
+        with TierClient("127.0.0.1", tier.port, timeout_s=300) as c:
+            resps, lat, wall = _wire_stream(np, c, reqs)
+        torch.cuda.synchronize()
+        d = cc.stats_delta(s0)
+        launches = hot_loop.launch_counts()[hot_loop.KERNEL]
+        row_launches = ri.launch_counts()
+        all_ok = all(r["ok"] for r in resps)
+        if not all_ok:
+            print("multimodel: failed responses " + str(
+                [(r.get("error"), r.get("message", "")[:300])
+                 for r in resps if not r["ok"]][:4]), flush=True)
+        want = sum(1 for r in recs for inf in r.log if inf.op == "score")
+        churn = d["store_evictions"] > 0 and d["store_readmits"] > 0 and \
+            d["kernel_builds"] == 0 and d["aot_warmups"] == 0
+        ok &= all_ok and churn and launches == want
+        print("multimodel: " + _lat_text(
+            np, f"burst alternating {len(MM_PRESETS)} models "
+            f"({sum(len(r[1]) for r in reqs)} rows, score/encode/decode)",
+            lat, len(reqs), wall)
+            + f"; all ok={all_ok}; store over the burst: hits "
+            f"{d['store_hits']} misses {d['store_misses']} evictions "
+            f"{d['store_evictions']} readmits {d['store_readmits']} "
+            f"captures {d['aot_captures']} warm-ups {d['aot_warmups']} "
+            f"kernel builds {d['kernel_builds']}; B1 launches {launches} "
+            f"(expected {want}: one per score dispatch, replays included); "
+            f"row kernels {row_launches} "
+            f"{'ok' if all_ok and churn and launches == want else 'FAIL'}",
+            flush=True)
+
+        # crash_aot_dispatch on one dispatch: that batch fails, typed, and
+        # the tier serves on once the monitor's probe readmits the replica
+        row = (rng.rand(784) > 0.5).astype(np.float32).tolist()
+        sched = faults.FaultSchedule([crash_aot_dispatch(times=1)])
+        with TierClient("127.0.0.1", tier.port, timeout_s=300) as c:
+            before = c.score([row], seed=7, model=MM_PRESETS[1])
+            with faults.installed(sched):
+                rid = c.submit("score", [row], seed=7, model=MM_PRESETS[1])
+                crashed = c.drain([rid])[rid]
+            t1 = time.perf_counter()
+            while True:
+                rid = c.submit("score", [row], seed=7, model=MM_PRESETS[1])
+                after = c.drain([rid])[rid]
+                if after["ok"] or time.perf_counter() - t1 > 60:
+                    break
+                time.sleep(0.05)
+            others = [c.score([row], seed=7, model=m) for m in MM_PRESETS]
+        crash_ok = len(sched.log) == 1 and crashed["ok"] is False and \
+            crashed["error"] in ("unavailable", "internal") and \
+            after["ok"] and after["result"] == before and \
+            others[1] == before
+        ok &= crash_ok
+        print(f"multimodel: crash_aot_dispatch on one {MM_PRESETS[1]} "
+              f"dispatch: fired {len(sched.log)}x, that request answered "
+              f"{crashed.get('error')!r} (typed), the tier served it again "
+              f"after {time.perf_counter() - t1:.2f}s, bitwise the answer "
+              f"before={after.get('result') == before}; the other models "
+              f"served on {'ok' if crash_ok else 'FAIL'}", flush=True)
+        tier.stop(timeout_s=60)
+        for r in recs:
+            r.eng._launch = r._launch
+
+    # every burst answer against a dedicated engine of its model (its own
+    # copy of the weights, its own store), the same rows, seeds and k
+    with cc.isolated_aot_registry(budget_bytes=None):
+        dedicated = {e.model: ServingEngine(
+            params=tree_map(lambda t: t.clone(), e._params),
+            model_config=e.cfg, k=e.k, timeout_s=None, model=e.model)
+            for e in engines}
+        same, n = _replay_dispatches(np, dedicated, recs)
+    eq_ok = same == n and n >= sum(len(r[1]) for r in reqs)
+    ok &= eq_ok
+    print(f"multimodel: {same}/{n} rows of the burst bitwise a dedicated "
+          f"single-model engine's; phase 12c "
+          f"{time.perf_counter() - t_phase:.1f}s "
+          f"{'ok' if eq_ok else 'FAIL'}", flush=True)
+    return launches, row_launches, ok
+
+
+def autoscaler(torch, np, hot_loop, run_dir):
+    """Phase 12d: the autoscaler on the card (JAX
+    scripts/autoscale_smoke.py's four claims at the flagship's width, from
+    phase 7's run dir). Returns (B1 launches of the elastic run, ok)."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.serving.faults import (
+        SITE_ENGINE_LAUNCH)
+    from iwae_replication_project_tpu_torch.serving.fleet import (
+        AutoscaleConfig, FleetManager)
+    from iwae_replication_project_tpu_torch.serving.frontend import (
+        ServingTier, TierClient)
+    from iwae_replication_project_tpu_torch.telemetry.slo import (
+        SLOMonitor, SLOObjective)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+    from iwae_replication_project_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    first = ServingEngine(run_dir, timeout_s=30.0)
+
+    def engine():
+        return ServingEngine(params=first._params, model_config=first.cfg,
+                             k=first.k, timeout_s=30.0)
+
+    rng = np.random.RandomState(16)
+    n = 4 * AS_PHASE
+    rows = (rng.rand(n, 784) > 0.5).astype(np.float32)
+
+    def burst(c, lo, hi):
+        ids = [c.submit("score", [rows[i].tolist()]) for i in range(lo, hi)]
+        done = c.drain(ids)
+        return [done[rid] for rid in ids]
+
+    static = ServingTier([engine()], monitor_interval_s=0.05)
+    static.warmup(ops=("score",))
+    static.start()
+    try:
+        with TierClient("127.0.0.1", static.port, timeout_s=300) as c:
+            ref = [r["result"][0] for r in burst(c, 0, n)]
+    finally:
+        static.stop(timeout_s=60)
+
+    slo = SLOMonitor(default=SLOObjective(latency_s=1e-6),
+                     windows=((AS_FAST_S, "5m"), (AS_SLOW_S, "1h")))
+    tier = ServingTier([first], slo=slo, monitor_interval_s=0.05)
+    tier.warmup(ops=("score",))
+    tier.start()
+    mgr = FleetManager(tier, engine, AutoscaleConfig(
+        min_replicas=1, max_replicas=3, scale_up_burn=1.0,
+        scale_down_burn=0.25, up_cooldown_s=0.0, down_cooldown_s=0.5,
+        seed=1234), warmup_ops=("score",), drain_timeout_s=60.0)
+    joined, recs = [], [_Recorder(first)]
+
+    def tracked():
+        e = engine()
+        joined.append(e)
+        recs.append(_Recorder(e))
+        return e
+    mgr._factory = tracked
+    sched = faults.FaultSchedule([faults.FaultRule(
+        site=SITE_ENGINE_LAUNCH, after=0, times=None,
+        match=lambda ctx: bool(joined) and ctx.get("engine") is joined[0],
+        name="crash_replica",
+        action=faults.raise_fault("replica crash (chaos)"))], seed=1234)
+    torch.cuda.synchronize()
+    hot_loop.reset_launch_counts()
+    s0 = cc.cache_stats()
+    resps, checks = [], {}
+    t_join = []
+    try:
+        with faults.installed(sched), TierClient(
+                "127.0.0.1", tier.port, timeout_s=300) as c:
+            resps += burst(c, 0, AS_PHASE)
+            t1 = time.perf_counter()
+            d1 = mgr.step()
+            t_join.append(time.perf_counter() - t1)
+            checks["up on burn-breach"] = d1.action == "up" and \
+                d1.rule == "burn-breach" and len(tier.router.engines) == 2
+            tier.router.prime_affinity(None, "score", None, 1)
+            resps += burst(c, AS_PHASE, 2 * AS_PHASE)
+            deadline = time.perf_counter() + 60
+            while not sched.log and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            t1 = time.perf_counter()
+            d2 = mgr.step()
+            t_join.append(time.perf_counter() - t1)
+            live = sum(1 for s in tier.router.replica_states()
+                       if s["healthy"] and not s["draining"])
+            checks["crash, then up again"] = bool(sched.log) and \
+                d2.action == "up" and live == 2
+            resps += burst(c, 2 * AS_PHASE, 3 * AS_PHASE)
+            time.sleep(AS_FAST_S + 0.8)
+            d3 = mgr.step()
+            live = [s for s in tier.router.replica_states()
+                    if s["healthy"] and not s["draining"]]
+            checks["down on idle, by drain"] = d3.action == "down" and \
+                d3.rule == "idle" and len(live) == 1 and \
+                len(mgr.retired) == 1
+            resps += burst(c, 3 * AS_PHASE, n)
+        stats = tier.stats()
+    finally:
+        mgr.stop()
+        tier.stop(timeout_s=60)
+    torch.cuda.synchronize()
+    d = cc.stats_delta(s0)
+    launches = hot_loop.launch_counts()[hot_loop.KERNEL]
+    for r in recs:
+        r.eng._launch = r._launch
+    want = sum(1 for r in recs for inf in r.log if inf.op == "score")
+    got = [r["result"][0] for r in resps if r["ok"]]
+    checks["every response bitwise the static tier's"] = \
+        len(got) == n and got == ref
+    checks["warm joins: 0 captures, 0 misses, 0 builds"] = \
+        d["aot_captures"] == 0 and d["store_misses"] == 0 and \
+        d["kernel_builds"] == 0
+    checks["B1 launches = score dispatches"] = launches == want
+    r = stats["router"]
+    checks["reroutes after the crash"] = r["router/reroutes"] >= 1 and \
+        r["router/replica_failures"] >= 1
+    ok = all(checks.values())
+    for rec in mgr.decision_log:
+        print(f"autoscale: decision t={rec['t']:.3f} {rec['action']} "
+              f"{rec['rule']}: {rec['reason']}", flush=True)
+    print(f"autoscale: {len(got)}/{n} answered; joins took "
+          f"{', '.join(f'{t:.3f}' for t in t_join)} s (step, warm join "
+          f"included); store over the run: captures {d['aot_captures']} "
+          f"misses {d['store_misses']} hits {d['store_hits']} kernel "
+          f"builds {d['kernel_builds']}; B1 launches {launches} (expected "
+          f"{want}); router reroutes {r['router/reroutes']} failures "
+          f"{r['router/replica_failures']}; "
+          + "; ".join(f"{k}: {v}" for k, v in checks.items())
+          + f"; phase 12d {time.perf_counter() - t_phase:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return launches, ok
+
+
+def multi_model_cli(bills):
+    """Phase 12e: the CLI's tier mode with ``--replicas 1 --models A,B
+    --store-budget-mb X --autoscale --autoscale-max 2`` on the card, a
+    client burst per model through ``--client``. Returns ok."""
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    mb = max(1.0, sum(bills.values()) / 2 ** 20)
+    models = ",".join(MM_PRESETS[:2])
+    t0 = time.perf_counter()
+    tier = subprocess.Popen(
+        [sys.executable, "-m", "iwae_replication_project_tpu_torch.serving",
+         "--replicas", "1", "--models", models, "--store-budget-mb",
+         f"{mb:.3f}", "--autoscale", "--autoscale-max", "2", "--port", "0"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root, env=env)
+    ready, clients, final, rc = None, [], None, None
+    try:
+        line = tier.stdout.readline()
+        if line.startswith("{"):
+            ready = json.loads(line)
+        if ready is not None:
+            for m in MM_PRESETS[:2]:
+                clients.append(subprocess.run(
+                    [sys.executable, "-m",
+                     "iwae_replication_project_tpu_torch.serving",
+                     "--client", f"127.0.0.1:{ready['tier']['port']}",
+                     "--requests", "30", "--model", m],
+                    capture_output=True, text=True, timeout=300, cwd=root,
+                    env=env))
+        tier.stdin.close()
+        rc = tier.wait(timeout=300)
+        rest = tier.stdout.read().strip().splitlines()
+        final = json.loads(rest[-1]) if rest else None
+    finally:
+        if tier.poll() is None:
+            tier.kill()
+            tier.wait(timeout=30)
+    outs = [json.loads(c.stdout.strip().splitlines()[-1])
+            if c.returncode == 0 else None for c in clients]
+    ok = ready is not None and rc == 0 and len(outs) == 2 and \
+        all(o is not None and o["errors"] == {} for o in outs) and \
+        final is not None and final["router"]["router/errors"] == 0 and \
+        ready["tier"]["models"] == sorted(MM_PRESETS[:2]) and \
+        ready["tier"]["autoscale"] is not None
+    store = {k: final["store"][k] for k in ("evictions", "readmits", "hits",
+                                            "misses")} if final else None
+    actions = [x["action"] for x in final["fleet"]["decisions"]][:8] \
+        if final else None
+    print(f"cli: --replicas 1 --models {models} --store-budget-mb {mb:.3f} "
+          f"--autoscale --autoscale-max 2: ready models "
+          f"{ready['tier']['models'] if ready else None} warmup "
+          f"{ready['warmup'] if ready else None}; --client --requests 30 "
+          f"per model: rows/s "
+          f"{[o['rows_per_sec'] if o else None for o in outs]}; tier exit "
+          f"{rc}, router/completed "
+          f"{final['router']['router/completed'] if final else None}, "
+          f"store {store}, fleet decisions {actions}; "
+          f"{time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        print(tier.stderr.read()[-4000:] if tier.stderr else "",
+              [c.stderr[-2000:] for c in clients], flush=True)
+    return ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2537,6 +3198,8 @@ def main() -> int:
         from iwae_replication_project_tpu_torch.ops import _kernels, hot_loop
         from iwae_replication_project_tpu_torch.ops import (
             fused_likelihood as fl)
+        from iwae_replication_project_tpu_torch.ops import (
+            row_invariant as ri)
     except ImportError as e:
         return fail(f"the port package is not beside this script: {e}")
     if Path(port.__file__).resolve().parent.parent != here:
@@ -2556,7 +3219,8 @@ def main() -> int:
 
     try:
         secs = _kernels.build([hot_loop.KERNEL, hot_loop.KERNEL_BWD,
-                               fl.KERNEL_FWD, fl.KERNEL_BWD])
+                               fl.KERNEL_FWD, fl.KERNEL_BWD,
+                               ri.KERNEL_DENSE, ri.KERNEL_SUM])
     except RuntimeError as e:
         return fail(str(e))
     for name, s in secs.items():
@@ -2584,11 +3248,17 @@ def main() -> int:
         return fail("the fused_bernoulli_ll path failed")
     for rec in fll_records:
         rec["launches"] = fll_launches[rec["name"]]
+    row_records, ok = check_row_kernels(torch, ri)
+    if not ok:
+        return fail("a row-invariant kernel disagrees with its plain "
+                    "version")
 
     launches, ok = serve(torch, np, zoo, hot_loop)
     if not ok:
         return fail("the serving phase failed")
-    record["launches"] = launches
+    record["launches"] = launches[hot_loop.KERNEL]
+    for rec in row_records:
+        rec["launches"] = launches[rec["name"]]
 
     train_launches, state, ok = train(torch, np, zoo, hot_loop)
     if not ok:
@@ -2632,11 +3302,24 @@ def main() -> int:
             return fail("the sharded gloo phase failed")
         if not sharded_cli(np, run_dir):
             return fail("the serving command line from a checkpoint failed")
-        tier_b1, ok = serving_tier(torch, np, hot_loop, run_dir)
+        tier_b1, tier_rows, ok = serving_tier(torch, np, hot_loop, run_dir)
         if not ok:
             return fail("the serving tier phase failed")
         if not tier_cli(run_dir):
             return fail("the serving CLI's tier and client modes failed")
+        if not bucket_invariance(torch, np, run_dir):
+            return fail("a served row changed its bits with its bucket")
+        bills, ok = store_on_the_flagship(torch, np, run_dir)
+        if not ok:
+            return fail("the executable store's graphs failed")
+        mm_b1, mm_rows, ok = multi_model_tier(torch, np, hot_loop, bills)
+        if not ok:
+            return fail("the multi-model tier phase failed")
+        as_b1, ok = autoscaler(torch, np, hot_loop, run_dir)
+        if not ok:
+            return fail("the autoscaler phase failed")
+        if not multi_model_cli(bills):
+            return fail("the CLI's --models --autoscale tier mode failed")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -2646,11 +3329,16 @@ def main() -> int:
             "sharded_serve_1x1": sharded_launches.get(rec["name"], 0),
             "sharded_serve_gloo_2x2": sharded_gloo_launches.get(rec["name"],
                                                                 0),
-            "serving_tier": tier_b1 if rec is record else 0}
+            "serving_tier": tier_b1 if rec is record else 0,
+            "multi_model_tier": mm_b1 if rec is record else 0,
+            "autoscaler": as_b1 if rec is record else 0}
+    for rec in row_records:
+        rec["launches_by_path"] = {"serving_tier": tier_rows[rec["name"]],
+                                   "multi_model_tier": mm_rows[rec["name"]]}
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
-    print(json.dumps({"kernels": [record, record_bwd] + fll_records}),
-          flush=True)
+    print(json.dumps({"kernels": [record, record_bwd] + fll_records
+                      + row_records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,6 +16,7 @@ import torch
 
 from iwae_replication_project_tpu_torch.models import mlp
 from iwae_replication_project_tpu_torch.ops import distributions as dist
+from iwae_replication_project_tpu_torch.ops import row_invariant as ri_ops
 
 Params = Dict[str, Any]
 
@@ -37,7 +38,11 @@ class ModelConfig:
     ``hot_loop_path`` pins its implementation (``"kernel"`` |
     ``"reference"``; None = the dispatcher's choice by device). The JAX
     config's ``hot_loop_tile`` has no counterpart: the CUDA kernel's tile is
-    fixed inside the kernel.
+    fixed inside the kernel. ``row_invariant`` runs every dense layer and
+    every sum over samples, latents or pixels through
+    ``ops/row_invariant`` (on CUDA: kernels whose per-row arithmetic does
+    not depend on the batch); the serving dispatcher sets it on CUDA,
+    inference only.
     """
 
     n_hidden_enc: Tuple[int, ...]
@@ -50,6 +55,7 @@ class ModelConfig:
     compute_dtype: Optional[str] = None
     fused_likelihood: bool = False
     hot_loop_path: Optional[str] = None
+    row_invariant: bool = False
 
     def __post_init__(self):
         L = self.n_stochastic
@@ -142,6 +148,12 @@ def _noise(eps: Optional[Sequence[torch.Tensor]], i: int):
     return None if eps is None else eps[i]
 
 
+def _sum_last(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The sum over the last axis, in the order ``cfg.row_invariant``
+    asks for."""
+    return ri_ops.sum_over(t, -1, cfg.row_invariant)
+
+
 def encode(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
            generator: Optional[torch.Generator] = None,
            eps: Optional[Sequence[torch.Tensor]] = None,
@@ -161,20 +173,21 @@ def encode(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
                          f"got {len(eps)}")
     dt = cfg.matmul_dtype
     sg = (lambda t: t.detach()) if stop_q_score else (lambda t: t)
+    ri = cfg.row_invariant
     mu, std = mlp.stochastic_block_apply(params["enc"][0], x, cfg.std_floor,
-                                         dt)
+                                         dt, ri)
     h1 = dist.normal_sample(mu, std, (k,), generator=generator,
                             eps=_noise(eps, 0))
-    log_q = torch.sum(dist.normal_log_prob(h1, sg(mu), sg(std)), dim=-1)
+    log_q = _sum_last(dist.normal_log_prob(h1, sg(mu), sg(std)), cfg)
     h = [h1]
     q_last = (mu, std)
     for i in range(1, cfg.n_stochastic):
         mu, std = mlp.stochastic_block_apply(params["enc"][i], h[-1],
-                                             cfg.std_floor, dt)
+                                             cfg.std_floor, dt, ri)
         hi = dist.normal_sample(mu, std, generator=generator,
                                 eps=_noise(eps, i))
-        log_q = log_q + torch.sum(dist.normal_log_prob(hi, sg(mu), sg(std)),
-                                  dim=-1)
+        log_q = log_q + _sum_last(dist.normal_log_prob(hi, sg(mu), sg(std)),
+                                  cfg)
         h.append(hi)
         q_last = (mu, std)
     return tuple(h), log_q, q_last
@@ -183,7 +196,8 @@ def encode(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
 def decode_logits(params: Params, cfg: ModelConfig,
                   h1: torch.Tensor) -> torch.Tensor:
     """Pixel logits from the bottom latent, ``[k, B, x_dim]``."""
-    return mlp.output_block_apply(params["out"], h1, cfg.matmul_dtype)
+    return mlp.output_block_apply(params["out"], h1, cfg.matmul_dtype,
+                                  cfg.row_invariant)
 
 
 def decode_probs(params: Params, cfg: ModelConfig,
@@ -208,7 +222,7 @@ def log_px_given_h(params: Params, cfg: ModelConfig, x: torch.Tensor,
         lp = dist.bernoulli_log_prob(x, probs)
     else:
         lp = dist.bernoulli_log_prob_from_logits(x, logits)
-    return torch.sum(lp, dim=-1)
+    return _sum_last(lp, cfg)
 
 
 def log_prior(params: Params, cfg: ModelConfig,
@@ -216,12 +230,13 @@ def log_prior(params: Params, cfg: ModelConfig,
     """``log p(h)``: standard Normal on the deepest latent plus the decoder's
     conditional chain down to h1 -> ``[k, B]``."""
     L = cfg.n_stochastic
-    log_p = torch.sum(dist.standard_normal_log_prob(h[-1]), dim=-1)
+    log_p = _sum_last(dist.standard_normal_log_prob(h[-1]), cfg)
     for i in range(L - 1):
         mu, std = mlp.stochastic_block_apply(params["dec"][i], h[L - 1 - i],
-                                             cfg.std_floor, cfg.matmul_dtype)
-        log_p = log_p + torch.sum(dist.normal_log_prob(h[L - 2 - i], mu, std),
-                                  dim=-1)
+                                             cfg.std_floor, cfg.matmul_dtype,
+                                             cfg.row_invariant)
+        log_p = log_p + _sum_last(dist.normal_log_prob(h[L - 2 - i], mu, std),
+                                  cfg)
     return log_p
 
 
@@ -238,7 +253,8 @@ def generate_x(params: Params, cfg: ModelConfig, h_top: torch.Tensor, *,
     h = h_top
     for i in range(L - 1):
         mu, std = mlp.stochastic_block_apply(params["dec"][i], h,
-                                             cfg.std_floor, cfg.matmul_dtype)
+                                             cfg.std_floor, cfg.matmul_dtype,
+                                             cfg.row_invariant)
         h = dist.normal_sample(mu, std, generator=generator,
                                eps=_noise(eps, i))
     return decode_probs(params, cfg, h)

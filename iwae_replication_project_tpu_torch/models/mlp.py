@@ -12,6 +12,11 @@ is accumulated in fp32 and returned in fp32. ``torch.matmul`` on bf16 tensors
 would round its output to bf16 a second time, so the operands are rounded and
 then multiplied in fp32 instead (a product of two bf16 values is exact in
 fp32, so only the summation order can differ from JAX).
+
+``row_invariant=True`` (the serving programs on CUDA, set by
+``ops/hot_loop.serving_dispatch_config``) runs each layer through
+``ops/row_invariant.dense``: the same function with every output summed
+over K in one fixed order, so a row's bits do not depend on its batch.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+
+from iwae_replication_project_tpu_torch.ops import row_invariant as ri_ops
 
 Params = Dict[str, Any]
 
@@ -35,12 +42,12 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
 
 
 def dense_apply(p: Params, x: torch.Tensor,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    w = p["w"]
-    if compute_dtype is not None:
-        x = x.to(compute_dtype).float()
-        w = w.to(compute_dtype).float()
-    return torch.matmul(x, w) + p["b"]
+                compute_dtype: Optional[torch.dtype] = None, *,
+                tanh: bool = False,
+                row_invariant: bool = False) -> torch.Tensor:
+    """``x @ w + b`` (then tanh with ``tanh=True``)."""
+    layer = ri_ops.dense if row_invariant else ri_ops.dense_plain
+    return layer(x, p["w"], p["b"], compute_dtype, tanh)
 
 
 def stochastic_block_init(generator: torch.Generator, in_dim: int,
@@ -55,13 +62,16 @@ def stochastic_block_init(generator: torch.Generator, in_dim: int,
 
 def stochastic_block_apply(p: Params, x: torch.Tensor,
                            std_floor: float = 1e-6,
-                           compute_dtype: Optional[torch.dtype] = None):
+                           compute_dtype: Optional[torch.dtype] = None,
+                           row_invariant: bool = False):
     """``(mu, std)`` of the conditional Gaussian given `x`;
     std = exp(head) + floor."""
-    y = torch.tanh(dense_apply(p["l1"], x, compute_dtype))
-    y = torch.tanh(dense_apply(p["l2"], y, compute_dtype))
-    mu = dense_apply(p["mu"], y, compute_dtype)
-    std = torch.exp(dense_apply(p["lstd"], y, compute_dtype)) + std_floor
+    kw = dict(row_invariant=row_invariant)
+    y = dense_apply(p["l1"], x, compute_dtype, tanh=True, **kw)
+    y = dense_apply(p["l2"], y, compute_dtype, tanh=True, **kw)
+    mu = dense_apply(p["mu"], y, compute_dtype, **kw)
+    std = torch.exp(dense_apply(p["lstd"], y, compute_dtype, **kw)) \
+        + std_floor
     return mu, std
 
 
@@ -78,9 +88,10 @@ def output_block_init(generator: torch.Generator, in_dim: int, hidden: int,
 
 
 def output_block_apply(p: Params, x: torch.Tensor,
-                       compute_dtype: Optional[torch.dtype] = None
-                       ) -> torch.Tensor:
+                       compute_dtype: Optional[torch.dtype] = None,
+                       row_invariant: bool = False) -> torch.Tensor:
     """Pixel *logits* of shape ``[..., out_dim]``."""
-    y = torch.tanh(dense_apply(p["l1"], x, compute_dtype))
-    y = torch.tanh(dense_apply(p["l2"], y, compute_dtype))
-    return dense_apply(p["out"], y, compute_dtype)
+    kw = dict(row_invariant=row_invariant)
+    y = dense_apply(p["l1"], x, compute_dtype, tanh=True, **kw)
+    y = dense_apply(p["l2"], y, compute_dtype, tanh=True, **kw)
+    return dense_apply(p["out"], y, compute_dtype, **kw)

@@ -11,6 +11,7 @@ existing library. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -65,6 +66,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "fused_ll_bwd_cta_rows": (_i, [_i] * 2),
         "fused_ll_bwd_splits": (_i, [_i]),
     },
+    "row_dense": {
+        "row_dense": (_i, [_vp] * 4 + [_i] * 5 + [_vp]),
+    },
+    "row_sum": {
+        "row_sum": (_i, [_vp, _vp, ctypes.c_longlong, _i, ctypes.c_longlong,
+                         _vp]),
+    },
 }
 
 _lock = threading.Lock()
@@ -76,11 +84,30 @@ _count_lock = threading.Lock()
 _launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
 
 
+_tls = threading.local()
+
+
 def count(name: str) -> None:
     """Count one launch of kernel `name`; each wrapper calls it where it
     launches its kernel, and nowhere else."""
     with _count_lock:
         _launches[name] += 1
+    tally = getattr(_tls, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """``{name: launches}`` this thread counts inside the block (a graph
+    capture's launches, apart from other threads' launches meanwhile)."""
+    prev = getattr(_tls, "tally", None)
+    tally: Dict[str, int] = {}
+    _tls.tally = tally
+    try:
+        yield tally
+    finally:
+        _tls.tally = prev
 
 
 def launch_counts(names) -> Dict[str, int]:

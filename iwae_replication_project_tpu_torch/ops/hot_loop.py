@@ -46,6 +46,7 @@ import torch
 
 from iwae_replication_project_tpu_torch.ops import _kernels
 from iwae_replication_project_tpu_torch.ops.distributions import softplus
+from iwae_replication_project_tpu_torch.ops.row_invariant import dense_plain
 from iwae_replication_project_tpu_torch.telemetry.registry import get_registry
 
 #: selection outcome -> the ``kernel_path`` gauge value. ``kernel`` keeps the
@@ -161,18 +162,29 @@ def select_path(device: torch.device, force: Optional[str] = None,
 
 
 def serving_dispatch_config(cfg, *, device: torch.device,
-                            force: Optional[str] = None) -> tuple:
-    """``(dispatch cfg, path)`` of the serving score program (JAX :469-496).
+                            force: Optional[str] = None,
+                            gated: bool = True) -> tuple:
+    """``(dispatch cfg, path)`` of a serving program (JAX :469-496).
 
-    Models with ``likelihood="clamp"`` and an explicit ``"reference"``
-    force keep `cfg` unchanged (the unfused program); otherwise the choice
-    of :func:`select_path` at the model's block widths is baked into the
-    config's ``fused_likelihood``/``hot_loop_path`` pins. Unlike the JAX
-    gate it needs no batch shape: the kernel takes every serving (k,
-    bucket) at the widths it takes. `cfg` is duck-typed on the ModelConfig
-    fields (ops/ does not import models/).
+    On CUDA every serving program takes the row-invariant ops
+    (``row_invariant=True``: ``ops/row_invariant``'s dense layers and sums,
+    whose per-row arithmetic does not depend on the bucket), so a row's
+    result is bitwise the same in every bucket, as the JAX programs promise
+    (JAX serving/programs.py:1-11); on the CPU the flag stays as `cfg` has
+    it. ``gated=False`` is a program that never runs the decoder block
+    (encode, decode): it gets only that flag. For a gated program, models
+    with ``likelihood="clamp"`` and an explicit ``"reference"`` force keep
+    the unfused composition; otherwise the choice of :func:`select_path`
+    at the model's block widths is baked into the config's
+    ``fused_likelihood``/``hot_loop_path`` pins. Unlike the JAX gate it
+    needs no batch shape: the kernel takes every serving (k, bucket) at the
+    widths it takes. `cfg` is duck-typed on the ModelConfig fields (ops/
+    does not import models/).
     """
-    if getattr(cfg, "likelihood", None) != "logits" or force == "reference":
+    if torch.device(device).type == "cuda" and not cfg.row_invariant:
+        cfg = dataclasses.replace(cfg, row_invariant=True)
+    if not gated or getattr(cfg, "likelihood", None) != "logits" \
+            or force == "reference":
         return cfg, "reference"
     path = select_path(device, force, widths=block_widths(cfg))
     if path == "reference":
@@ -185,23 +197,14 @@ def serving_dispatch_config(cfg, *, device: torch.device,
 # The plain version
 # --------------------------------------------------------------------------
 
-def _dense(x, w, b, compute_dtype):
-    """``models.mlp.dense_apply``'s op sequence (re-stated: ops/ does not
-    import models/): bf16-rounded operands multiplied in fp32."""
-    if compute_dtype is not None:
-        x = x.to(compute_dtype).float()
-        w = w.to(compute_dtype).float()
-    return torch.matmul(x, w) + b
-
-
 def _reference_impl(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype=None):
     """Unfused composition: the parity oracle and the kernel's plain version.
 
     ``h1`` ``[k, B, H1]``, ``x`` ``[B, D]`` -> ``[k, B]``.
     """
-    y1 = torch.tanh(_dense(h1, w1, b1, compute_dtype))
-    y2 = torch.tanh(_dense(y1, w2, b2, compute_dtype))
-    logits = _dense(y2, w3, b3, compute_dtype)
+    y1 = dense_plain(h1, w1, b1, compute_dtype, tanh=True)
+    y2 = dense_plain(y1, w2, b2, compute_dtype, tanh=True)
+    logits = dense_plain(y2, w3, b3, compute_dtype)
     ll = x[None] * logits - softplus(logits)
     return torch.sum(ll, dim=-1)
 

@@ -6,7 +6,9 @@ rescaled sum) serve large-k evaluation, which folds the k=5000 NLL in
 k-chunks with O(chunk) memory. Every carry is never-NaN: an all ``-inf``
 column finalizes to ``-inf`` and :func:`lse_var_stats` gives it ess 0 and se
 ``+inf``. The element count ``n`` is a Python int: chunk sizes are known on
-the host.
+the host. ``fixed_order=True`` (the serving programs on CUDA) takes every
+sum through ``ops/row_invariant.fixed_sum``, whose outputs do not depend on
+the batch; maxima are exact in any order.
 """
 
 from __future__ import annotations
@@ -16,18 +18,26 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from iwae_replication_project_tpu_torch.ops.row_invariant import (
+    sum_over as _sum,
+)
 
-def logsumexp(log_w: torch.Tensor, dim: int = 0) -> torch.Tensor:
+
+def logsumexp(log_w: torch.Tensor, dim: int = 0,
+              fixed_order: bool = False) -> torch.Tensor:
     """Max-subtracted logsumexp along `dim`; an all ``-inf`` column gives
     ``-inf``, not NaN."""
     m = torch.amax(log_w, dim=dim, keepdim=True).detach()
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    return torch.log(torch.sum(torch.exp(log_w - m), dim=dim)) + m.squeeze(dim)
+    return torch.log(_sum(torch.exp(log_w - m), dim, fixed_order)) \
+        + m.squeeze(dim)
 
 
-def logmeanexp(log_w: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def logmeanexp(log_w: torch.Tensor, dim: int = 0,
+               fixed_order: bool = False) -> torch.Tensor:
     """``log mean exp`` along `dim`: the IWAE bound core."""
-    return logsumexp(log_w, dim=dim) - math.log(float(log_w.shape[dim]))
+    return logsumexp(log_w, dim=dim, fixed_order=fixed_order) \
+        - math.log(float(log_w.shape[dim]))
 
 
 def _safe(m: torch.Tensor) -> torch.Tensor:
@@ -52,12 +62,14 @@ def online_logsumexp_init(shape, dtype=torch.float32,
 
 
 def online_logsumexp_update(state: OnlineLSE, log_w: torch.Tensor,
-                            dim: int = 0) -> OnlineLSE:
+                            dim: int = 0,
+                            fixed_order: bool = False) -> OnlineLSE:
     """Fold a chunk of log-weights (reduced along `dim`) into the state."""
     new_m = torch.maximum(state.m, torch.amax(log_w, dim=dim))
     safe_m = _safe(new_m)
     scaled_old = state.s * torch.exp(state.m - safe_m)
-    chunk_s = torch.sum(torch.exp(log_w - safe_m.unsqueeze(dim)), dim=dim)
+    chunk_s = _sum(torch.exp(log_w - safe_m.unsqueeze(dim)), dim,
+                   fixed_order)
     return OnlineLSE(m=new_m, s=scaled_old + chunk_s,
                      n=state.n + log_w.shape[dim])
 
@@ -101,16 +113,18 @@ def online_lse_var_init(shape, dtype=torch.float32,
 
 
 def online_lse_var_update(state: OnlineLSEVar, log_w: torch.Tensor,
-                          dim: int = 0) -> OnlineLSEVar:
+                          dim: int = 0,
+                          fixed_order: bool = False) -> OnlineLSEVar:
     """Fold a chunk of log-weights into the augmented state; ``s2``
     rescales by ``exp(2 (m_old - m_new))``."""
     new_m = torch.maximum(state.m, torch.amax(log_w, dim=dim))
     safe_m = _safe(new_m)
     scaled_old = state.s * torch.exp(state.m - safe_m)
-    chunk_s = torch.sum(torch.exp(log_w - safe_m.unsqueeze(dim)), dim=dim)
+    chunk_s = _sum(torch.exp(log_w - safe_m.unsqueeze(dim)), dim,
+                   fixed_order)
     scaled_old2 = state.s2 * torch.exp(2.0 * (state.m - safe_m))
-    chunk_s2 = torch.sum(torch.exp(2.0 * (log_w - safe_m.unsqueeze(dim))),
-                         dim=dim)
+    chunk_s2 = _sum(torch.exp(2.0 * (log_w - safe_m.unsqueeze(dim))), dim,
+                    fixed_order)
     return OnlineLSEVar(m=new_m, s=scaled_old + chunk_s,
                         s2=scaled_old2 + chunk_s2,
                         n=state.n + log_w.shape[dim])

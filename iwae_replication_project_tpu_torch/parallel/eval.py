@@ -133,7 +133,8 @@ def local_row_streaming_log_px(params, cfg: model.ModelConfig, mesh: Mesh,
         lw = model.log_weights(params, cfg, x_local, k_chunk,
                                eps=noise([g] * n_rows))
         lw = _mask_from(lw, [k - g * k_chunk] * n_rows)
-        st = online_logsumexp_update(st, lw, dim=0)
+        st = online_logsumexp_update(st, lw, dim=0,
+                                     fixed_order=cfg.row_invariant)
     return st
 
 
@@ -183,7 +184,8 @@ def local_row_adaptive_log_px(params, cfg: model.ModelConfig, mesh: Mesh,
             lw = model.log_weights(params, cfg, x_local, k_chunk,
                                    eps=noise([g] * n_rows))
             lw = _mask_from(lw, [k_cap - g * k_chunk] * n_rows)
-            st = online_lse_var_update(st, lw, dim=0)
+            st = online_lse_var_update(st, lw, dim=0,
+                                       fixed_order=cfg.row_invariant)
         merged = merge_lse_var_over_sp(mesh, st)
         n_drawn = min((r + 1) * sp * k_chunk, k_cap)
         ess, se = lse_var_stats(merged.s, merged.s2, n_drawn)
@@ -203,7 +205,8 @@ def local_row_adaptive_log_px(params, cfg: model.ModelConfig, mesh: Mesh,
             continue
         lw = model.log_weights(params, cfg, x_local, k_chunk, eps=noise(
             [g if v else None for g, v in zip(blocks, valid)]))
-        st2 = online_lse_var_update(st2, _mask_from(lw, valid), dim=0)
+        st2 = online_lse_var_update(st2, _mask_from(lw, valid), dim=0,
+                                    fixed_order=cfg.row_invariant)
     merged = merge_lse_over_sp(mesh, OnlineLSE(m=st2.m, s=st2.s, n=st2.n))
     safe = _safe(merged.m)
     s2 = mesh.all_reduce(st2.s2 * torch.exp(2.0 * (st2.m - safe)), "sum",

@@ -1,8 +1,9 @@
 """The serving CLI (port of ``serving/cli.py``).
 
     python -m iwae_replication_project_tpu_torch.serving \\
-        [--preset NAME | --checkpoint RUN_DIR] [--interactive] [--device cpu]
-        [--replicas N [--sharded-replicas M] [--port P]]
+        [--preset NAME | --checkpoint RUN_DIR | --models A,B,...]
+        [--interactive] [--device cpu] [--store-budget-mb MB]
+        [--replicas N [--sharded-replicas M] [--port P] [--autoscale ...]]
         [--client HOST:PORT [--k-sweep K1,K2] [--target-se SE]]
 
 One program, three roles:
@@ -22,24 +23,35 @@ One program, three roles:
   (``ShardedScoreEngine`` over a world of one, mesh (1, 1)), behind the TCP
   front end (``serving/frontend/``). ``score`` requests with k above
   ``--k-threshold`` go to the sharded replicas, whose ``--k-max`` bounds
-  them. Prints a ready line with the bound port, serves until stdin EOF,
-  then drains and prints the router's final counters: hold stdin open
-  when backgrounding it;
+  them. With ``--models A,B,...`` the tier is multi-model: one (or
+  ``--replicas``) model-labeled replica(s) per zoo preset
+  (``zoo.serving_engines``), requests picking their model with the wire's
+  ``model`` field (the first name is the default), the process executable
+  store bounding the programs of all of them (``--store-budget-mb``: LRU
+  eviction, readmission by re-capture without a kernel build).
+  ``--autoscale`` runs the fleet's control loop (``serving/fleet/``): it
+  reads the tier's burn rates and scales the fast replicas between
+  ``--autoscale-min`` and ``--autoscale-max``, joining warm over the
+  resident programs and leaving by drain. Prints a ready line with the
+  bound port, serves until stdin EOF, then drains and prints the router's
+  final counters (and the fleet's decision log): hold stdin open when
+  backgrounding it;
 * **tier client** (``--client HOST:PORT``): drives a running tier over TCP
   (of this package or of the JAX package: the wire is the same), a
   synthetic ragged load by default, ``--k-sweep`` for a score (or, with
   ``--target-se``/``--ess-floor``, ``score_adaptive``) sweep over k, or
   ``--interactive`` to forward JSON lines from stdin.
 
-The JAX CLI's ``--models`` (the executable store, ROADMAP A10),
-``--autoscale`` and its knobs (``serving/fleet/``, ROADMAP A9),
-``--metrics-port`` and ``--store-budget-mb`` (ROADMAP A10), ``--pin-core``
-and the int8 precision policy (ROADMAP A8) are refused with the reason.
+The JAX CLI's ``--metrics-port`` (ROADMAP A10), ``--pin-core`` and the
+int8 precision policy (ROADMAP A8) are refused with the reason; its
+per-model ``--precision model=policy`` pairs are not ported (one policy
+serves every model).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -54,22 +66,10 @@ from iwae_replication_project_tpu_torch.serving.batcher import (
 from iwae_replication_project_tpu_torch.serving.buckets import BucketLadder
 from iwae_replication_project_tpu_torch.utils.config import _refused
 
-_FLEET = "not ported yet: serving/fleet, the autoscaler (ROADMAP A9)"
 #: the JAX CLI's flags of parts the port lacks -> (reason, takes a value)
 REFUSED = {
-    "--models": ("not ported yet: the multi-model tier needs the executable "
-                 "store (ROADMAP A10)", True),
-    "--autoscale": (_FLEET, False), "--autoscale-min": (_FLEET, True),
-    "--autoscale-max": (_FLEET, True), "--autoscale-up-burn": (_FLEET, True),
-    "--autoscale-down-burn": (_FLEET, True),
-    "--autoscale-up-cooldown-s": (_FLEET, True),
-    "--autoscale-down-cooldown-s": (_FLEET, True),
-    "--autoscale-interval-s": (_FLEET, True),
-    "--autoscale-dry-run": (_FLEET, False),
     "--metrics-port": ("not ported yet: the metrics page, the exporters "
                        "(ROADMAP A10)", True),
-    "--store-budget-mb": ("not ported yet: the executable store "
-                          "(ROADMAP A10)", True),
     "--pin-core": ("the port runs on the card, not one pinned CPU core",
                    True),
 }
@@ -99,6 +99,18 @@ def build_argparser() -> argparse.ArgumentParser:
                      help="zoo preset naming the architecture (fresh, "
                           "untrained weights; default: the flagship "
                           "northstar-iwae-2l-k50)")
+    src.add_argument("--models", default=None, metavar="NAME1,NAME2,...",
+                     help="multi-model tier: several zoo presets behind one "
+                          "endpoint (fresh weights each; requests pick one "
+                          "with the wire's 'model' field, the first is the "
+                          "default). Implies the tier mode; --replicas N "
+                          "runs N replicas per model (default 1)")
+    ap.add_argument("--store-budget-mb", dest="store_budget_mb", type=float,
+                    default=None,
+                    help="device-memory budget (MiB) of the process "
+                         "executable store: past it the least recently "
+                         "used programs are evicted and re-captured on "
+                         "demand, with no kernel build (omit: unbounded)")
     ap.add_argument("--interactive", action="store_true",
                     help="serve JSON-lines requests from stdin instead of "
                          "synthetic load")
@@ -188,6 +200,46 @@ def build_argparser() -> argparse.ArgumentParser:
                       default=None,
                       help="per-client bucket capacity in rows (default 10x "
                            "--quota-rate)")
+    scale = ap.add_argument_group(
+        "elastic fleet (serving/fleet/; needs --replicas or --models)")
+    scale.add_argument("--autoscale", action="store_true",
+                       help="run the SLO-driven autoscaler: a control "
+                            "thread reads the tier's burn rates and scales "
+                            "the fast-replica count between --autoscale-min "
+                            "and --autoscale-max (scale-up joins warm over "
+                            "the resident programs, scale-down drains: no "
+                            "accepted request is lost and results stay "
+                            "bitwise those of a fixed fleet)")
+    scale.add_argument("--autoscale-min", dest="autoscale_min", type=int,
+                       default=1, help="lower replica bound (default 1)")
+    scale.add_argument("--autoscale-max", dest="autoscale_max", type=int,
+                       default=None,
+                       help="upper replica bound (default: 2x --replicas)")
+    scale.add_argument("--autoscale-up-burn", dest="autoscale_up_burn",
+                       type=float, default=1.0,
+                       help="fast-window worst burn rate at or above which "
+                            "the fleet grows (default 1.0)")
+    scale.add_argument("--autoscale-down-burn", dest="autoscale_down_burn",
+                       type=float, default=0.25,
+                       help="fast-window burn at or below which an idle "
+                            "fleet shrinks; the gap up to "
+                            "--autoscale-up-burn is the hysteresis band")
+    scale.add_argument("--autoscale-up-cooldown-s",
+                       dest="autoscale_up_cooldown_s", type=float,
+                       default=30.0, help="minimum seconds between "
+                                          "scale-ups")
+    scale.add_argument("--autoscale-down-cooldown-s",
+                       dest="autoscale_down_cooldown_s", type=float,
+                       default=120.0,
+                       help="minimum seconds from the last scale event (in "
+                            "either direction) to a scale-down")
+    scale.add_argument("--autoscale-interval-s",
+                       dest="autoscale_interval_s", type=float, default=1.0,
+                       help="control-loop tick period")
+    scale.add_argument("--autoscale-dry-run", dest="autoscale_dry_run",
+                       action="store_true",
+                       help="evaluate and log every scaling decision but "
+                            "never act on one")
     tier.add_argument("--client", default=None, metavar="HOST:PORT",
                       help="client mode: drive a running tier over TCP")
     tier.add_argument("--client-id", dest="client_id", default=None,
@@ -281,9 +333,11 @@ def _check_mesh(ap, args) -> None:
                  f"CLI does not start")
 
 
-def _sharded_engines(args, first):
-    """``--sharded-replicas`` large-k engines over `first`'s weights, each
-    a world of one (mesh (1, 1) on the replicas' device)."""
+def _sharded_engines(args, sources):
+    """``--sharded-replicas`` large-k engines per ``(model label, engine)``
+    of `sources`, over that engine's weights, each a world of one (mesh
+    (1, 1) on the replicas' device): the one construction of the
+    single-model and the ``--models`` tiers."""
     from iwae_replication_project_tpu_torch.parallel.mesh import make_mesh
     from iwae_replication_project_tpu_torch.serving.sharded import (
         ShardedScoreEngine)
@@ -297,18 +351,34 @@ def _sharded_engines(args, first):
         mesh=make_mesh(dp=args.mesh_dp, sp=args.mesh_sp or 1,
                        device=first.device),
         k_chunk=args.k_chunk, k_max=args.k_max,
-        precision=first.precision, **knobs)
+        precision=first.precision, model=label, **knobs)
+        for label, first in sources
         for _ in range(args.sharded_replicas)]
 
 
 def build_replicas(args, n: int) -> list:
     """N fast engines (plus the ``--sharded-replicas``) over ONE set of
     weights: the first engine resolves the checkpoint or preset, the rest
-    share its parameter tensors and config."""
+    share its parameter tensors and config. With ``--models``, N engines
+    per preset instead (``zoo.serving_engines``), each model with its own
+    sharded replicas over its weights."""
     from iwae_replication_project_tpu_torch.serving.engine import (
         ServingEngine)
 
     fast_k_max, _ = _k_split(args)
+    if args.models:
+        names = [s for s in args.models.split(",") if s]
+        engines = zoo.serving_engines(
+            names, replicas_per_model=max(1, n), k=args.k,
+            precisions=args.precision, **_engine_knobs(args))
+        if fast_k_max is not None:
+            for e in engines:       # the k split applies per fast replica
+                e.k_max = max(fast_k_max, e.k)
+        if args.sharded_replicas > 0:
+            engines.extend(_sharded_engines(args, [
+                (name, next(e for e in engines if e.model == name))
+                for name in names]))
+        return engines
     first = build_engine(args)
     if fast_k_max is not None:
         # the fast bound is the threshold, but never below the engine's own
@@ -321,8 +391,38 @@ def build_replicas(args, n: int) -> list:
             k_max=first.k_max, precision=first.precision,
             **_engine_knobs(args)))
     if args.sharded_replicas > 0:
-        engines.extend(_sharded_engines(args, first))
+        engines.extend(_sharded_engines(args, [(None, first)]))
     return engines
+
+
+def _fleet(args, tier):
+    """``--autoscale``: the fleet manager over the running tier, its
+    factory a new fast engine over the first fast replica's weights (so
+    its warmup finds every program resident in the store)."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.serving.fleet import (
+        AutoscaleConfig, FleetManager)
+
+    first = next(e for e in tier.router.engines
+                 if not getattr(e, "sharded", False))
+
+    def factory(first=first, knobs=_engine_knobs(args)):
+        return ServingEngine(
+            params=first._params, model_config=first.cfg, k=first.k,
+            k_max=first.k_max, precision=first.precision,
+            model=first.model, **knobs)
+
+    return FleetManager(tier, factory, AutoscaleConfig(
+        min_replicas=max(1, args.autoscale_min),
+        max_replicas=(args.autoscale_max if args.autoscale_max is not None
+                      else max(2 * args.replicas, args.autoscale_min)),
+        scale_up_burn=args.autoscale_up_burn,
+        scale_down_burn=args.autoscale_down_burn,
+        up_cooldown_s=args.autoscale_up_cooldown_s,
+        down_cooldown_s=args.autoscale_down_cooldown_s,
+        interval_s=args.autoscale_interval_s,
+        dry_run=args.autoscale_dry_run, seed=args.seed)).start()
 
 
 def tier_mode(args, ops) -> int:
@@ -344,6 +444,7 @@ def tier_mode(args, ops) -> int:
                        large_k_threshold=threshold, tracing=args.tracing)
     warm = tier.warmup(ops=ops)
     tier.start()
+    fleet = _fleet(args, tier) if args.autoscale else None
     info = tier.info()
     dev = engines[0].device
     print(json.dumps({
@@ -353,24 +454,30 @@ def tier_mode(args, ops) -> int:
                  "k_max": info["k_max"], "port": tier.port,
                  "host": args.host, "models": sorted(info["models"]),
                  "default_model": info["default_model"],
-                 "quota": info["quota"], "autoscale": None},
+                 "quota": info["quota"],
+                 "autoscale": (dataclasses.asdict(fleet.config)
+                               if fleet is not None else None)},
         "warmup": warm, "buckets": info["buckets"], "k": info["k"],
         "metrics_port": None,
         "device": (torch.cuda.get_device_name(dev)
                    if dev.type == "cuda" else "cpu"),
-        "source": args.checkpoint or args.preset
+        "source": args.models or args.checkpoint or args.preset
         or "northstar-iwae-2l-k50"}), flush=True)
     try:
         for _ in sys.stdin:     # lifetime control: serve until stdin EOF
             pass
     except KeyboardInterrupt:
         pass
-    tier.stop()
+    if fleet is not None:
+        fleet.stop()            # the control thread first: no scale event
+    tier.stop()                 # may race the tier's drain
     snap = tier.registry.snapshot()
     print(json.dumps({
         "router": {k: v for k, v in snap["counters"].items()
                    if k.startswith("router/")},
-        "replicas": tier.router.replica_states(), "fleet": None,
+        "replicas": tier.router.replica_states(),
+        "fleet": fleet.doc() if fleet is not None else None,
+        "store": tier.stats()["store"],
         "engines": [e.metrics.snapshot()["counters"]
                     for e in tier.router.engines]}), flush=True)
     return 0
@@ -601,6 +708,18 @@ def main(argv=None) -> int:
     if args.client:
         return client_mode(args)
     _check_mesh(ap, args)
+    if args.store_budget_mb is not None:
+        if args.store_budget_mb < 0:
+            ap.error(f"--store-budget-mb {args.store_budget_mb} must be >= "
+                     f"0 (omit the flag for unbounded)")
+        from iwae_replication_project_tpu_torch.utils.compile_cache import (
+            set_store_budget)
+        set_store_budget(int(args.store_budget_mb * 2 ** 20))
+    if args.models and args.replicas <= 0:
+        args.replicas = 1       # --models is the tier: one replica per model
+    if args.autoscale and args.replicas <= 0:
+        ap.error("--autoscale scales a tier: pass --replicas N (or "
+                 "--models)")
     ops = tuple(s for s in args.ops.split(",") if s)
     if args.replicas > 0:
         return tier_mode(args, ops)

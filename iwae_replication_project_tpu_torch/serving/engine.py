@@ -21,9 +21,9 @@ blocking helpers drain the queue inline on the calling thread.
 Invariants:
 
 * **row independence** -- each request row's noise comes from its own
-  generator (serving/programs.py), so a row's result does not depend on its
-  bucket, its neighbours or the padding, up to the encoder matmuls' choice of
-  algorithm per batch size (the hot-loop kernel itself is row-independent);
+  generator (serving/programs.py), and on the card every op of the program
+  sums a row in an order its bucket does not change, so a row's result does
+  not depend on its bucket, its neighbours or the padding;
 * **bounded everything** -- queue bound (:class:`EngineOverloaded` shed),
   in-flight window, per-request queue timeout (:class:`RequestTimeout`), and
   launch/fetch errors that land in exactly the affected batch's futures
@@ -47,18 +47,33 @@ Invariants:
 
 A dispatch goes through hooks a subclass overrides: :meth:`_resolve_kernel`
 (the hot-loop gate, memoized per :meth:`_stamp_k` key and bucket),
-:meth:`_program_for` and :meth:`_dispatch_args`. The mesh-sharded large-k
-engine (``serving/sharded.py``) swaps in its programs and the
-``score_adaptive`` op (:attr:`_ADAPTIVE_OPS`) through them. The engine
-serves a parameter tree, a compiled ``api.FlexibleModel`` or a checkpoint
-run directory of the driver (``source=``).
+:meth:`_program_for`, :meth:`_dispatch_args` and :meth:`_entry`. The
+mesh-sharded large-k engine (``serving/sharded.py``) swaps in its programs
+and the ``score_adaptive`` op (:attr:`_ADAPTIVE_OPS`) through them. The
+engine serves a parameter tree, a compiled ``api.FlexibleModel`` or a
+checkpoint run directory of the driver (``source=``).
 
-Not ported yet: the executable store, the profiler and the int8 policy
-(ROADMAP A8, A10).
+**The executable store.** Every dispatch resolves its program through the
+process's executable store (``utils/compile_cache.py``) under the engine's
+:attr:`store_label`, keyed by (op, k, bucket, dispatch config, the weights'
+identity), and pins that key from the launch until the batch completes, so
+a budget squeeze by another model never evicts a program in flight. On the
+card a fast engine's entry is the program captured as a CUDA graph, which a
+dispatch replays; on the CPU it is the eager program. The ``aot_hits`` and
+``aot_misses`` counters count the resolutions, ``recompiles`` the kernel
+builds a dispatch caused; :meth:`warmup` fills the store for the ladder.
+
+**Row invariance on the card.** ``serving_dispatch_config`` gives every
+program on CUDA the row-invariant ops (``ops/row_invariant``), so a row's
+result is bitwise the same in every bucket, beside any neighbours and
+padding, as in the JAX package.
+
+Not ported yet: the profiler and the int8 policy (ROADMAP A8, A10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -98,11 +113,16 @@ from iwae_replication_project_tpu_torch.serving.metrics import ServingMetrics
 from iwae_replication_project_tpu_torch.serving.programs import (
     PROGRAMS,
     draw_noise,
+    program_bytes,
 )
+from iwae_replication_project_tpu_torch.utils import compile_cache as cc
 from iwae_replication_project_tpu_torch.utils.device import resolve_device
 from iwae_replication_project_tpu_torch.utils.dtypes import validate_precision
 from iwae_replication_project_tpu_torch.utils.faults import fault_point
-from iwae_replication_project_tpu_torch.utils.tree import tree_map
+from iwae_replication_project_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+)
 
 __all__ = ["ServingEngine", "EngineOverloaded", "RequestTimeout"]
 
@@ -123,6 +143,8 @@ class _InFlight:
     event: Optional[Any] = None        # torch.cuda.Event after the launch
     #: the launched input tensors, kept alive until the batch completes
     inputs: tuple = ()
+    #: the executable-store pin held until the batch completes
+    pin: Optional[Any] = None
     #: trace-stage clock readings: the launch began, the rows were padded,
     #: the program's arguments were staged
     t_launch0: float = 0.0
@@ -232,6 +254,12 @@ class ServingEngine:
                                      queue_limit=queue_limit,
                                      clock=self._clock)
         self._params = to_device(params, self.device)
+        #: the weights' identity in the store's keys: a captured graph
+        #: reads the tensors at these addresses
+        self._weights_key = tuple(t.data_ptr()
+                                  for t in tree_leaves(self._params))
+        #: whether this engine's store entries are captured CUDA graphs
+        self._graphs = self.device.type == "cuda"
         self._stream = None
         if self.device.type == "cuda":
             # every launch runs on this side stream; it first waits for the
@@ -477,14 +505,13 @@ class ServingEngine:
         return hit
 
     def _resolve_kernel(self, op: str, k: int, bucket: int) -> tuple:
-        """Gated ops run the serving gate's choice (the CUDA kernel on the
-        card for logits models, the plain composition otherwise; the
-        port's gate needs no shape); the others never touch the decoder
-        block."""
-        if op not in self._GATED_OPS:
-            return self.cfg, "reference"
+        """The serving gate's choice: gated ops run the CUDA kernel on the
+        card for logits models (the plain composition otherwise; the port's
+        gate needs no shape); the others never touch the decoder block.
+        Every program on the card takes the row-invariant ops."""
         return serving_dispatch_config(self.cfg, device=self.device,
-                                       force=self.kernel_path)
+                                       force=self.kernel_path,
+                                       gated=op in self._GATED_OPS)
 
     def _stamp_k(self, op: str, k: int):
         """The k of the metrics kernel stamp and the gate's memo: the
@@ -512,26 +539,98 @@ class ServingEngine:
         args = (self._params, cfg, self._base_seed, seeds, x)
         return (args + (k,) if takes_k else args), {"noise": noise}
 
+    @property
+    def store_label(self) -> Optional[str]:
+        """The executable-store tenant label of this engine's programs: the
+        model name, ``@precision``-suffixed under a precision policy, so
+        (model, precision) variants hold distinct entries (JAX
+        serving/engine.py:690-699)."""
+        if self.precision is None:
+            return self.model
+        return f"{self.model or 'default'}@{self.precision}"
+
+    def _aot_name(self, op: str) -> str:
+        """The store's and the fault sites' name of the op's program."""
+        return f"serve_{op}"
+
+    def _build_key(self, op: str, k: int, bucket: int) -> tuple:
+        """Everything a program bakes in: the stamp k, the bucket, the
+        dispatch config and the weights' identity."""
+        cfg, _ = self._kernel_for(op, k, bucket)
+        return (self._stamp_k(op, k), bucket, cfg, self._weights_key)
+
+    def _program_nbytes(self, op: str, k: int, bucket: int) -> int:
+        cfg, _ = self._kernel_for(op, k, bucket)
+        return program_bytes(cfg, op, k, bucket)
+
+    def _entry(self, op: str, k: int, bucket: int, program, args: tuple,
+               kwargs: dict) -> tuple:
+        """``(fn, args, kwargs, signature args, graph?)`` of a dispatch's
+        store entry: the program over its payload and noise alone (the
+        weights, config, k and bucket are in the key), captured on the
+        card."""
+        cfg, _ = self._kernel_for(op, k, bucket)
+        params, base = self._params, self._base_seed
+        extra = (k,) if self._programs[op][1] else ()
+        pad_seeds = [0] * bucket     # unused: the noise is given
+
+        def fn(x, *noise):
+            return program(params, cfg, base, pad_seeds, x, *extra,
+                           noise=list(noise))
+        tensors = (args[4],) + tuple(kwargs["noise"])
+        return fn, tensors, {}, tensors, self._graphs
+
+    def _store_call(self, op: str, k: int, bucket: int, program,
+                    args: tuple, kwargs: dict, warm: bool = False):
+        """The dispatch's program through the executable store: ``(output,
+        hit)``; with ``warm`` the entry is admitted (a captured graph runs
+        its first admission's warm-up; an eager entry runs once) and
+        ``(None, hit)`` returned."""
+        fn, call_args, fn_kwargs, sig_args, graph = self._entry(
+            op, k, bucket, program, args, kwargs)
+        kw = dict(build_key=self._build_key(op, k, bucket),
+                  model=self.store_label,
+                  nbytes=self._program_nbytes(op, k, bucket), graph=graph,
+                  sig=cc.signature(sig_args))
+        if warm:
+            with cc.executable_store().pinned(self.store_label,
+                                              self._aot_name(op),
+                                              kw["build_key"]):
+                exe, hit = cc.aot_warm(self._aot_name(op), fn, call_args,
+                                       fn_kwargs, **kw)
+                if not graph:
+                    exe(*call_args, **fn_kwargs)
+            return None, hit
+        return cc.aot_call_async(self._aot_name(op), fn, call_args,
+                                 fn_kwargs, **kw)
+
+    def _launch_context(self):
+        """The card and the engine's side stream (nothing on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
     def _run(self, op: str, k: int, bucket: int, payload: np.ndarray,
              seeds: List[int], targets: Optional[Tuple[float, float]] = None,
              n_real: Optional[int] = None):
         """Launch one program on the device without waiting; returns
-        ``(out, event, inputs, t_args)``, the last the clock once the
-        arguments were staged (the trace's noise/launch boundary)."""
+        ``(out, event, inputs, t_args, hit)``, ``t_args`` the clock once
+        the arguments were staged (the trace's noise/launch boundary),
+        ``hit`` whether the store had the program."""
         program = self._program_for(op, k, bucket)
-        if self._stream is None:
+        with self._launch_context():
             args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
                                                targets, n_real)
             t_args = self._clock()
-            return program(*args, **kwargs), None, (), t_args
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
-                                               targets, n_real)
-            t_args = self._clock()
-            out = program(*args, **kwargs)
+            out, hit = self._store_call(op, k, bucket, program, args, kwargs)
+            if self._stream is None:
+                return out, None, (), t_args, hit
             event = torch.cuda.Event()
             event.record(self._stream)
-        return out, event, (args, kwargs), t_args
+        return out, event, (args, kwargs), t_args, hit
 
     def _launch(self, batch: List[Request]) -> _InFlight:
         """Stage one: pad, launch. Returns the in-flight handle without
@@ -554,17 +653,29 @@ class ServingEngine:
         self.metrics.set_kernel(op, self._stamp_k(op, k), bucket,
                                 PATH_CODES[path], path)
         t_pad = self._clock()
-        out, event, inputs, t_args = self._run(op, k, bucket, payload, seeds,
-                                               targets, n)
+        builds = cc.kernel_builds()
+        # the dispatch's store entry stays pinned until the batch completes:
+        # a budget squeeze never evicts a program the card is running
+        pin = cc.executable_store().pin_prefix(
+            self.store_label, self._aot_name(op), self._build_key(op, k,
+                                                                  bucket))
+        try:
+            out, event, inputs, t_args, hit = self._run(
+                op, k, bucket, payload, seeds, targets, n)
+        except BaseException:
+            pin.release()
+            raise
         t_disp = self._clock()
         for r in batch:
             r.t_dispatch = t_disp
         self.metrics.count("dispatches")
         self.metrics.count("real_rows", n)
         self.metrics.count("padded_rows", bucket - n)
+        self.metrics.count("aot_hits" if hit else "aot_misses")
+        self.metrics.count("recompiles", cc.kernel_builds() - builds)
         return _InFlight(batch=batch, op=op, k=k, bucket=bucket, out=out,
-                         event=event, inputs=inputs, t_launch0=t_launch0,
-                         t_pad=t_pad, t_args=t_args)
+                         event=event, inputs=inputs, pin=pin,
+                         t_launch0=t_launch0, t_pad=t_pad, t_args=t_args)
 
     def _launch_routed(self, batch: List[Request]) -> Optional[_InFlight]:
         """:meth:`_launch` with failure routing: an exception lands in
@@ -626,12 +737,17 @@ class ServingEngine:
             fault_point(SITE_ENGINE_FETCH, engine=self, op=inf.op)
             out = self._fetch(inf)
         except Exception as e:
+            if inf.pin is not None:
+                inf.pin.release()
             self._emit_trace_spans(inf, t_fetch0, self._clock(),
                                    error="internal")
             for r in inf.batch:
                 self.metrics.count("errors")
                 self._complete(r.future, exc=e)
             return
+        if inf.pin is not None:
+            # the batch is complete: its program may be evicted again
+            inf.pin.release()
         now = self._clock()
         self._emit_trace_spans(inf, t_fetch0, now)
         for i, r in enumerate(inf.batch):
@@ -656,13 +772,17 @@ class ServingEngine:
 
     def warmup(self, ops: Sequence[str] = ("score", "encode", "decode")
                ) -> Dict[str, float]:
-        """Run every (op, bucket) of the ladder once at the engine's k on
-        zero payloads (an adaptive op with its targets off, so to its cap),
-        so the kernel is built and loaded and the device's libraries and
-        memory pools are initialised before the first request. Returns
-        ``{"programs": N, "seconds": S}``."""
+        """Admit every (op, bucket) of the ladder at the engine's k into the
+        executable store (zero payloads; an adaptive op with its targets
+        off), so the kernels are built and every first request is a store
+        hit: on the card each program's first admission runs it once and
+        captures its graph, an eager entry runs once. Returns
+        ``{"programs": N, "captures": C, "builds": B, "seconds": S}``: C
+        the programs the store did not hold, B the kernel builds it took (a
+        replica joining over resident programs: 0 and 0)."""
+        b0 = cc.kernel_builds()
         t0 = time.perf_counter()
-        n_programs = 0
+        n_programs = captures = 0
         for op in ops:
             if op not in self._programs:
                 raise ValueError(f"unknown op {op!r}")
@@ -671,10 +791,16 @@ class ServingEngine:
             targets = (0.0, 0.0) if op in self._ADAPTIVE_OPS else None
             for bucket in self.ladder.buckets:
                 payload = np.zeros((bucket, self.row_dims[op]), np.float32)
-                _, event, _, _ = self._run(op, k, bucket, payload,
-                                           [0] * bucket, targets, bucket)
-                if event is not None:
-                    event.synchronize()
+                program = self._program_for(op, k, bucket)
+                with self._launch_context():
+                    args, kwargs = self._dispatch_args(
+                        op, k, bucket, payload, [0] * bucket, targets,
+                        bucket)
+                    _, hit = self._store_call(op, k, bucket, program, args,
+                                              kwargs, warm=True)
+                if self._stream is not None:
+                    self._stream.synchronize()
+                captures += not hit
                 _, path = self._kernel_for(op, k, bucket)
                 self.metrics.set_kernel(op, self._stamp_k(op, k), bucket,
                                         PATH_CODES[path], path)
@@ -683,7 +809,8 @@ class ServingEngine:
                                    self.ladder.buckets[0])
         self.metrics.registry.gauge("kernel_path").set(
             float(PATH_CODES[path]))
-        return {"programs": float(n_programs),
+        return {"programs": float(n_programs), "captures": float(captures),
+                "builds": float(cc.kernel_builds() - b0),
                 "seconds": round(time.perf_counter() - t0, 3)}
 
 

@@ -23,8 +23,9 @@ SITE_REMOTE_SEND      ``RemoteEngine.submit``, inside the send try
                       (``addr``): an ``OSError`` here poisons the proxy
 ====================  =====================================================
 
-The JAX package's ``crash_aot_dispatch`` fires inside its executable
-store, which the port does not have yet (ROADMAP A10).
+:func:`crash_aot_dispatch` fires at ``utils.faults.SITE_AOT_CALL_ASYNC``,
+inside the executable store (``utils/compile_cache.aot_call_async``), where
+every serving dispatch enters it (``name``: the program, ``serve_<op>``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import contextlib
 import socket
 
 from iwae_replication_project_tpu_torch.utils.faults import (
+    SITE_AOT_CALL_ASYNC,
     FaultContext,
     FaultRule,
     delay,
@@ -41,9 +43,9 @@ from iwae_replication_project_tpu_torch.utils.faults import (
 )
 
 __all__ = ["SITE_ENGINE_LAUNCH", "SITE_ENGINE_FETCH", "SITE_ROUTER_DISPATCH",
-           "SITE_TIER_WRITE", "SITE_REMOTE_SEND", "crash_replica",
-           "slow_replica", "drop_tier_connection", "garble_tier_connection",
-           "sever_remote"]
+           "SITE_TIER_WRITE", "SITE_REMOTE_SEND", "SITE_AOT_CALL_ASYNC",
+           "crash_replica", "slow_replica", "drop_tier_connection",
+           "garble_tier_connection", "crash_aot_dispatch", "sever_remote"]
 
 SITE_ENGINE_LAUNCH = "serve.engine.launch"
 SITE_ENGINE_FETCH = "serve.engine.fetch"
@@ -111,6 +113,19 @@ def garble_tier_connection(after: int = 0, times=1,
     reads a malformed frame and must treat the connection as poisoned."""
     return FaultRule(site=SITE_TIER_WRITE, after=after, times=times,
                      name=name, action=_garble_sock)
+
+
+def crash_aot_dispatch(after: int = 0, times=1,
+                       program_prefix: str = "serve_",
+                       name: str = "crash_aot") -> FaultRule:
+    """Raise inside the executable store's ``aot_call_async`` for programs
+    whose name starts with `program_prefix`: the failure class of a launch
+    (out of memory, a poisoned context) that must land in exactly the
+    affected batch's futures and never kill a dispatcher thread."""
+    return FaultRule(
+        site=SITE_AOT_CALL_ASYNC, after=after, times=times, name=name,
+        match=lambda ctx: str(ctx.get("name", "")).startswith(program_prefix),
+        action=raise_fault("AOT dispatch failure (chaos)"))
 
 
 def sever_remote(after: int = 0, times=1,

@@ -661,8 +661,11 @@ class ServingTier:
         """The ``{"op": "stats"}`` control response: live router counters
         and gauges plus each replica engine's own counter snapshot — the
         over-the-wire view of the failure accounting (same numbers the CLI
-        prints at shutdown). ``store`` is None: the port has no executable
-        store yet (ROADMAP A10)."""
+        prints at shutdown), and the process executable store's counters
+        and residency (``utils/compile_cache.store_stats``)."""
+        from iwae_replication_project_tpu_torch.utils.compile_cache import (
+            store_stats)
+
         snap = self.registry.snapshot()
         return {
             "router": {name: v for name, v in snap["counters"].items()
@@ -673,7 +676,7 @@ class ServingTier:
             # what least-estimated-work dispatch weighs adaptive traffic by
             "work_estimates": self.router.work_estimates(),
             "jobs": self.jobs.jobs_doc(),
-            "store": None,
+            "store": store_stats(),
             "replicas": self.router.replica_states(),
             "engines": [_engine_counters(e) for e in self.router.engines],
         }

@@ -39,7 +39,8 @@ class ServingMetrics:
     per-(op, bucket, program k) hot-loop path stamps."""
 
     COUNTERS = ("submitted", "completed", "timeouts", "shed", "errors",
-                "dispatches", "real_rows", "padded_rows")
+                "dispatches", "real_rows", "padded_rows",
+                "aot_hits", "aot_misses", "recompiles")
 
     def __init__(self, model: Optional[str] = None,
                  precision: Optional[str] = None):

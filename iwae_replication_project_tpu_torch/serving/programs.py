@@ -39,9 +39,8 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from iwae_replication_project_tpu_torch.models import iwae as model
-from iwae_replication_project_tpu_torch.objectives.estimators import (
-    iwae_per_example,
-)
+from iwae_replication_project_tpu_torch.ops.logsumexp import logmeanexp
+from iwae_replication_project_tpu_torch.ops.row_invariant import fixed_sum
 from iwae_replication_project_tpu_torch.parallel.eval import (
     _safe,
     local_row_adaptive_log_px,
@@ -109,7 +108,8 @@ def score_rows(params, cfg: model.ModelConfig, base_seed: int,
         noise = draw_noise(cfg, "score", base_seed, seeds, k)
     log_w = model.log_weights(params, cfg, x, k,
                               eps=_noise_on(noise, x.device))   # [k, B]
-    return iwae_per_example(log_w)
+    # iwae_per_example's logmeanexp over k, its sum in a fixed order on CUDA
+    return logmeanexp(log_w, dim=0, fixed_order=cfg.row_invariant)
 
 
 @torch.inference_mode()
@@ -122,6 +122,8 @@ def encode_rows(params, cfg: model.ModelConfig, base_seed: int,
     if noise is None:
         noise = draw_noise(cfg, "encode", base_seed, seeds, k)
     h, _, _ = model.encode(params, cfg, x, k, eps=_noise_on(noise, x.device))
+    if cfg.row_invariant:
+        return fixed_sum(h[-1], 0) / k
     return torch.mean(h[-1], dim=0)
 
 
@@ -144,6 +146,52 @@ PROGRAMS = {
     "encode": (encode_rows, True),
     "decode": (decode_rows, False),
 }
+
+def program_bytes(cfg: model.ModelConfig, op: str, k: int,
+                  bucket: int) -> int:
+    """The executable store's bill of one program at (k, bucket): fp32
+    bytes of its static buffers (payload, per-layer noise, output) plus its
+    largest live activations, the counterpart of the JAX entries'
+    ``peak_bytes``. Live at the peak: every latent sample drawn so far and
+    the ``[rows]`` log-density carries, plus the input and output of the
+    widest dense layer at the program's rows (``k * bucket`` for score and
+    encode; ``bucket`` for decode and the first encoder block). A fused
+    decoder block (the hot-loop kernel) keeps its activations on chip and
+    adds its ``[rows]`` output."""
+    f = 4
+    enc = list(zip([cfg.x_dim] + list(cfg.n_latent_enc[:-1]),
+                   cfg.n_hidden_enc, cfg.n_latent_enc))
+    top_down = list(cfg.n_latent_enc[::-1][:1]) + list(cfg.n_latent_dec)
+    dec = list(zip(top_down[:-2], cfg.n_hidden_dec[:-1],
+                   cfg.n_latent_dec[:-1]))
+    out_block = (top_down[-2], cfg.n_hidden_dec[-1], cfg.x_dim)
+
+    def widest(blocks, rows):
+        # a stochastic block's l1, l2 and its two heads
+        return max([rows * (i + h) for i, h, _ in blocks]
+                   + [rows * (h + h) for _, h, _ in blocks]
+                   + [rows * (h + 2 * o) for _, h, o in blocks] + [0])
+
+    if op == "decode":
+        rows = bucket
+        static = rows * (cfg.n_latent_enc[-1] + sum(cfg.n_latent_dec[:-1])
+                         + cfg.x_dim)
+        i, h, o = out_block
+        peak = max(widest(dec, rows),
+                   rows * max(i + h, 2 * h, h + 2 * o))
+        return f * (static + peak)
+    rows = k * bucket
+    static = bucket * cfg.x_dim + rows * sum(cfg.n_latent_enc) + (
+        bucket if op == "score" else bucket * cfg.n_latent_enc[-1])
+    # the first encoder block runs on the payload rows, before the fan-out
+    peak = max(widest(enc[:1], bucket), widest(enc[1:], rows))
+    if op == "score":
+        i, h, o = out_block
+        peak = max(peak, widest(dec, rows), rows if cfg.fused_likelihood
+                   else rows * max(i + h, 2 * h, h + 2 * o))
+    kept = rows * (sum(cfg.n_latent_enc) + 2)
+    return f * (static + peak + kept)
+
 
 #: op name -> the program arguments whose leading axis carries the engine's
 #: zero-filled padding rows (the JAX audit's contract, :188-203): a padded

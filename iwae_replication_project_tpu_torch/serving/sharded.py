@@ -20,7 +20,14 @@ accuracy-targeted ``score_adaptive`` op beside it
   request seed, g), so results do not depend on coalescing, padding or
   which sp rank streams which block, and equal the offline scorers
   (``parallel/eval.sharded_score_offline``, ``_adaptive_offline``) bitwise,
-  which call the same programs.
+  which call the same programs;
+* **the executable store**: each bucket's program is an eager entry of the
+  store (``utils/compile_cache.py``), keyed and billed as the base engine's
+  (at ``k_chunk`` x ``bucket/dp`` rows): its gloo/NCCL collectives and
+  per-row device generators are not captured as CUDA graphs in this slice.
+  The store's fault site fires after the followers received a dispatch,
+  so on a world of several ranks an injected ``crash_aot_dispatch`` leaves
+  them in the program's first collective until the group's timeout.
 
 **One engine over a process-per-rank mesh.** JAX runs one controller over
 the whole mesh; the port runs one process per rank (``parallel/``). Every
@@ -43,7 +50,6 @@ NCCL a dead peer is seen only at the timeout.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +65,7 @@ from iwae_replication_project_tpu_torch.serving.engine import ServingEngine
 from iwae_replication_project_tpu_torch.serving.programs import (
     make_sharded_score_adaptive,
     make_sharded_score_rows,
+    program_bytes,
 )
 
 __all__ = ["ShardedScoreEngine", "default_sharded_ladder", "serve_rank"]
@@ -159,7 +166,7 @@ class ShardedScoreEngine(ServingEngine):
         if self._multi and self.mesh.rank == 0 and \
                 not self._followers_stopped:
             self._followers_stopped = True
-            with self._device_context():
+            with self._launch_context():
                 self.mesh.broadcast(torch.zeros(_HEADER, dtype=torch.float64,
                                                 device=self.device))
 
@@ -222,19 +229,27 @@ class ShardedScoreEngine(ServingEngine):
                     {"n_real": n_real})
         return (self._params, self._base_seed, seeds, x, k), {}
 
-    def _device_context(self):
-        """The launch context: the card and the engine's side stream."""
-        if self._stream is None:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(self.device))
-        stack.enter_context(torch.cuda.stream(self._stream))
-        return stack
+    def _build_key(self, op: str, k: int, bucket: int) -> tuple:
+        """The base key (the stamp k is ``"dyn"``) with the mesh and the
+        sample block, which the program bakes in."""
+        return super()._build_key(op, k, bucket) + (
+            self.mesh.dp, self.mesh.sp, self.mesh.rank, self.menu.k_chunk)
+
+    def _program_nbytes(self, op: str, k: int, bucket: int) -> int:
+        cfg, _ = self._kernel_for(op, k, bucket)
+        return program_bytes(cfg, "score", self.menu.k_chunk,
+                             bucket // self.mesh.dp)
+
+    def _entry(self, op: str, k: int, bucket: int, program, args: tuple,
+               kwargs: dict) -> tuple:
+        """The program itself, eager, on its full arguments (seeds and k
+        are per dispatch); keyed on the payload's shape."""
+        return program, args, kwargs, (args[3],), False
 
     def _serve_one(self) -> bool:
         """A follower's side of one dispatch; False on rank 0's stop."""
         dev = self.device
-        with self._device_context():
+        with self._launch_context():
             header = torch.zeros(_HEADER, dtype=torch.float64, device=dev)
             self.mesh.broadcast(header)
             code, bucket, k, tse, floor, n_real = header.tolist()

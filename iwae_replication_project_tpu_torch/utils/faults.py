@@ -27,6 +27,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 #: the training driver's fault sites (names as in the JAX package)
 SITE_TRAIN_PASS = "train.pass"            # experiment driver, per dispatch
 SITE_CKPT_SAVE = "train.checkpoint.save"  # utils/checkpoint.save_checkpoint
+#: where a call enters the executable store (utils/compile_cache.py,
+#: ``aot_call_async``), after its entry is resolved and before it runs
+SITE_AOT_CALL_ASYNC = "aot.call_async"
 
 
 class FaultInjected(RuntimeError):

@@ -3,7 +3,9 @@
 The preset table is the JAX package's, name for name; ``serving_engine``
 builds a :class:`~.serving.engine.ServingEngine` for a preset with weights
 freshly initialised from the preset's seed, or from a checkpoint run
-directory, and ``train`` runs a preset through the staged training loop.
+directory, ``serving_engines`` the model-labeled replica set of a
+multi-model tier, and ``train`` runs a preset through the staged training
+loop.
 Architectures: the 1-stochastic-layer model uses two 200-wide deterministic
 layers and a 50-d latent; the 2-layer model is the experiment_example.py:48-51
 stack.
@@ -99,6 +101,58 @@ def configs() -> Dict[str, ExperimentConfig]:
         zoo[f"digits-scaled-{loss.lower()}-1l-k{k}"] = _cfg(
             "digits", 1, loss_function=loss, k=k, passes_scale=0.2)
     return zoo
+
+
+def serving_engines(names, *, replicas_per_model: int = 1, k: int = None,
+                    checkpoint_dirs: Optional[Dict[str, str]] = None,
+                    precisions=None, device=None, **knobs):
+    """The multi-model replica set of a zoo manifest (JAX zoo.py:152-210):
+    one (or ``replicas_per_model``) engine per preset name, each labeled
+    ``model=<name>``, ready to hand a :class:`~.serving.frontend.ServingTier`
+    (the serving CLI's ``--models``).
+
+    The label keys each engine's programs under its tenant in the process
+    executable store (``utils/compile_cache.py``), its metrics carry it,
+    and the tier's router sends ``model``-tagged requests to it. Replicas
+    of one model share one set of weights (initialised once), and so share
+    their store entries. ``checkpoint_dirs`` maps preset names to driver run
+    directories (trained weights); unmapped names serve fresh weights.
+    ``precisions`` is one policy for every model or a ``{name: policy}``
+    dict (unmapped names serve fp32 or the preset's own); int8 is not
+    ported (ROADMAP A8). Unknown presets, unknown policies and dict keys
+    naming no requested preset raise here."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.utils.dtypes import (
+        validate_precision)
+
+    names = list(names)
+    if isinstance(precisions, str):
+        validate_precision(precisions)
+    elif precisions:
+        unknown = sorted(set(precisions) - set(names))
+        if unknown:
+            raise ValueError(f"precisions maps models not in this "
+                             f"manifest: {unknown}; serving {names}")
+        for p in precisions.values():
+            validate_precision(p)
+    for name in names:
+        get(name)                   # an unknown preset fails up front
+    engines = []
+    for name in names:
+        prec = precisions if isinstance(precisions, str) \
+            else (precisions or {}).get(name)
+        first = serving_engine(name, k=k, device=device,
+                               checkpoint_dir=(checkpoint_dirs or {}).get(
+                                   name),
+                               model=name, precision=prec, **knobs)
+        engines.append(first)
+        for _ in range(1, max(1, int(replicas_per_model))):
+            engines.append(ServingEngine(
+                params=first._params, model_config=first.cfg, k=first.k,
+                k_max=first.k_max, model=name, precision=first.precision,
+                device=first.device, **knobs))
+    return engines
 
 
 def get(name: str) -> ExperimentConfig:

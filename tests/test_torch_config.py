@@ -219,11 +219,12 @@ def test_dispatcher_takes_reference_where_a_kernel_refuses(monkeypatch):
     wide = ExperimentConfig(n_hidden_decoder=(100, 256)).model_config("cuda")
     assert thl.block_widths(wide) == (100, 256, True)
     assert wide.fused_likelihood
-    assert thl.serving_dispatch_config(wide, device=cuda) == (wide,
-                                                              "reference")
+    assert thl.serving_dispatch_config(wide, device=cuda) == (
+        dataclasses.replace(wide, row_invariant=True), "reference")
     flag = ExperimentConfig().model_config("cuda")
     out, path = thl.serving_dispatch_config(flag, device=cuda)
     assert path == "kernel" and out.hot_loop_path == "kernel"
+    assert out.row_invariant
     one = ExperimentConfig(n_hidden_encoder=(200,), n_latent_encoder=(50,),
                            n_hidden_decoder=(200,),
                            n_latent_decoder=(784,)).model_config("cuda")

@@ -1,7 +1,9 @@
 """The serving tier on the card (serving/frontend/ over the port's engines
 on ``cuda``): a 2-replica tier over TCP returns bitwise what one direct
-engine returns for the same rows in the same order (every dispatch padded
-to one bucket, so cuBLAS sees one shape), and a large-k ``score`` routed to
+engine returns for the same rows in the same order, the tier's requests
+riding buckets 1-8 of the default ladder and the direct engine's rows one
+bucket of 32 (the serving programs' row-invariant ops make a row's bits
+independent of its bucket), and a large-k ``score`` routed to
 the sharded replica launches B1 ``ceil(k / k_chunk)`` times per dispatch.
 Small widths whose output block the kernels take; the flagship runs in
 chip_smoke.py's tier phase.
@@ -54,9 +56,9 @@ def params():
     return init_params(torch.Generator().manual_seed(2), CFG)
 
 
-def _fast(params, **kw):
+def _fast(params, ladder=None, **kw):
     return ServingEngine(params=params, model_config=CFG, k=K,
-                         ladder=BucketLadder((8,)), timeout_s=WAIT, **kw)
+                         ladder=ladder, timeout_s=WAIT, **kw)
 
 
 def _rows(n, seed=0):
@@ -93,7 +95,8 @@ def test_large_k_goes_to_the_sharded_replica_one_b1_per_block(cuda, params,
     big = ShardedScoreEngine(params=params, model_config=CFG, k=K,
                              k_chunk=KC, k_max=1000, max_batch=8,
                              timeout_s=WAIT)
-    tier = ServingTier([_fast(params), big], large_k_threshold=256,
+    tier = ServingTier([_fast(params, BucketLadder((8,))), big],
+                       large_k_threshold=256,
                        monitor_interval_s=0.05)
     tier.warmup(ops=("score",))
     tier.start()

@@ -4,6 +4,8 @@ against the JAX package: the plain ``decoder_score`` against JAX's
 serving-gate outcomes. The CUDA kernel itself is held against its plain
 version on the card by tests/test_torch_kernels.py and chip_smoke.py."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,8 +120,9 @@ def test_serving_gate_outcomes(likelihood, device, force, path,
                                monkeypatch):
     """The JAX gate's rule (hot_loop.py:483-484): clamp models and a
     reference force keep the unfused config; logits models on CUDA bake the
-    kernel pin into the dispatch config. The gate reads the kernel
-    libraries' numbers at the model's widths, stubbed here as "both
+    kernel pin into the dispatch config. Every CUDA dispatch config takes
+    the row-invariant ops; the CPU's is `cfg` itself. The gate reads the
+    kernel libraries' numbers at the model's widths, stubbed here as "both
     kernels take them" (no library is built on the CPU)."""
     monkeypatch.setattr(thl, "library_limits",
                         lambda *w: thl.BlockLimits(1024, 1024, True, True))
@@ -127,7 +130,10 @@ def test_serving_gate_outcomes(likelihood, device, force, path,
     out, got = thl.serving_dispatch_config(cfg, device=torch.device(device),
                                            force=force)
     assert got == path
+    assert out.row_invariant == (device == "cuda")
     if path == "kernel":
         assert out.fused_likelihood and out.hot_loop_path == "kernel"
+    elif device == "cuda":
+        assert out == dataclasses.replace(cfg, row_invariant=True)
     else:
         assert out is cfg

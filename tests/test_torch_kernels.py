@@ -22,6 +22,7 @@ from iwae_replication_project_tpu_torch.models.iwae import (
     init_params,
 )
 from iwae_replication_project_tpu_torch.ops import hot_loop as thl
+from iwae_replication_project_tpu_torch.ops import row_invariant as tri
 from iwae_replication_project_tpu_torch.serving import programs as tprog
 from iwae_replication_project_tpu_torch.serving.engine import ServingEngine
 
@@ -157,19 +158,19 @@ def test_engine_serves_through_the_kernel(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 3, 7, 17])
 def test_engine_padded_bucket_parity_on_the_card(cuda, n):
-    """Engine score over n rows padded to their bucket vs the program on
-    exactly those rows. The kernel is bucket-independent, but cuBLAS may
-    choose another algorithm for the encoder matmuls at another batch size,
-    so on the card this is held to 1e-3 nats rather than bitwise."""
+    """Engine score over n rows padded to their bucket (a graph replayed
+    from the executable store) vs the eager program on exactly those rows:
+    bitwise, as the JAX programs promise. The serving programs run the
+    row-invariant dense layers and sums on the card (ops/row_invariant), so
+    neither the bucket nor the padding changes a row's bits."""
     eng = _flagship_engine(max_batch=32)
     x = (np.random.RandomState(n).rand(n, 784) > 0.5).astype(np.float32)
     got = eng.score(x)
     cfg, _ = eng._kernel_for("score")
+    assert cfg.row_invariant
     direct = tprog.score_rows(eng._params, cfg, 0, list(range(n)),
                               torch.from_numpy(x).cuda(), 50).cpu().numpy()
-    np.testing.assert_allclose(got, direct, atol=1e-3, rtol=0)
-    print(f"n={n}: bitwise={np.array_equal(got, direct)} "
-          f"max_abs={np.abs(got - direct).max():.3e}")
+    assert np.array_equal(got, direct), np.abs(got - direct).max()
 
 
 # --------------------------------------------------------------------------
@@ -475,3 +476,102 @@ def test_fused_ll_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tfl.fused_ll_forward(*big[:4])
     with pytest.raises(ValueError, match="shared memory"):
         tfl.fused_ll_backward(*big)
+
+
+# --------------------------------------------------------------------------
+# the row-invariant kernels of the serving programs (csrc/row_dense.cu,
+# csrc/row_sum.cu)
+# --------------------------------------------------------------------------
+
+#: (M, K, N): the flagship's serving layers (encoder at the bucket and at
+#: k x bucket rows, the decoder blocks, the output block of decode) and
+#: ragged ones
+DENSE_SHAPES = [(1, 784, 200), (64, 784, 200), (3200, 100, 100),
+                (3200, 200, 100), (64, 200, 784), (7, 37, 130),
+                (129, 16, 65), (1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES)
+def test_row_dense_matches_plain_version(cuda, m, k, n, tanh, cd):
+    """The kernel against ``models.mlp.dense_apply``'s ops on the same
+    operands: the same (bf16-rounded) products summed in another order.
+    K <= 784 terms whose absolute sum is ~20 at these scales: an fp32
+    reordering moves the sum by ~sqrt(K) 2^-24 20 ~ 3e-5, so 2e-4
+    absolute."""
+    g = torch.Generator().manual_seed(m * 7 + k)
+    x = torch.randn((m, k), generator=g).cuda()
+    w = (torch.randn((k, n), generator=g) * k ** -0.5).cuda()
+    b = (torch.randn((n,), generator=g) * 0.1).cuda()
+    tri.reset_launch_counts()
+    got = tri.dense(x, w, b, cd, tanh)
+    want = tri.dense_plain(x, w, b, cd, tanh)
+    torch.cuda.synchronize()
+    assert tri.launch_counts()[tri.KERNEL_DENSE] == 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+def test_row_dense_row_does_not_depend_on_its_batch(cuda, cd):
+    """A row's outputs are the same bits at every row count and position."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((200, 784), generator=g).cuda()
+    w = (torch.randn((784, 200), generator=g) * 0.03).cuda()
+    b = torch.randn((200,), generator=g).cuda()
+    alone = tri.dense(x[5:6], w, b, cd, True)
+    for m in (2, 7, 64, 65, 200):
+        lo = min(5, m - 1)
+        part = tri.dense(x[5 - lo:5 - lo + m].contiguous(), w, b, cd, True)
+        assert torch.equal(part[lo], alone[0]), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [((50, 64, 100), -1), ((50, 64), 0),
+                                       ((50, 3, 50), 0), ((1, 1, 784), -1),
+                                       ((7, 33, 5), 1), ((250, 8), 0)])
+def test_row_sum_matches_torch_sum(cuda, shape, dim):
+    """The fixed-order sum against torch.sum: the same fp32 terms added in
+    another order, at most 784 terms of magnitude ~1."""
+    g = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(shape, generator=g).cuda()
+    tri.reset_launch_counts()
+    got = tri.fixed_sum(x, dim)
+    want = torch.sum(x, dim=dim)
+    torch.cuda.synchronize()
+    assert tri.launch_counts()[tri.KERNEL_SUM] == 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_row_sum_column_does_not_depend_on_the_batch(cuda):
+    """The sum over k of a [k, B] block: column 0's bits are the same in
+    every B, and a last-axis row sum's the same in every row count."""
+    g = torch.Generator().manual_seed(9)
+    lw = torch.randn((50, 64), generator=g).cuda()
+    col = tri.fixed_sum(lw[:, :1].contiguous(), 0)
+    for b in (2, 3, 17, 64):
+        assert torch.equal(tri.fixed_sum(lw[:, :b].contiguous(), 0)[0],
+                           col[0])
+    rows = torch.randn((64, 100), generator=g).cuda()
+    one = tri.fixed_sum(rows[:1], -1)
+    assert torch.equal(tri.fixed_sum(rows, -1)[0], one[0])
+
+
+@pytest.mark.cuda
+def test_row_invariant_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn((4, 8), device="cuda")
+    w = torch.randn((8, 3), device="cuda")
+    b = torch.randn((3,), device="cuda")
+    with pytest.raises(ValueError, match="shape"):
+        tri.dense(x, w[:7], b)
+    with pytest.raises(TypeError, match="float32"):
+        tri.dense(x.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tri.fixed_sum(x.t(), 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tri.dense(x, w.requires_grad_(), b)
