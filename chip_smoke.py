@@ -148,8 +148,9 @@ phases, one line per phase, and exits non-zero on the first failure:
    encode, decode; bf16 and fp32), and a k=5000 row of the sharded engine
    in buckets 1, 2, 4 and 8; (b) every (op, bucket) program of the flagship
    captured into the executable store: replay bitwise eager, capture ms,
-   replay and eager device ms, the bill beside the bytes reserved, an
-   eviction's bytes given back; (c) three full-width presets behind one TCP
+   replay and eager device ms, the bill (the larger of the bytes reckoned
+   from the shapes and the bytes the capture holds, C7), an eviction's
+   bytes given back; (c) three full-width presets behind one TCP
    tier (``zoo.serving_engines``) under a store budget of about one
    model's programs: a burst alternating the models, all ok and bitwise a
    dedicated engine's, evictions and readmits with no kernel build, B1's
@@ -161,8 +162,23 @@ phases, one line per phase, and exits non-zero on the first failure:
    bitwise a static tier's, the decision log printed; (e) the CLI's
    ``--replicas 1 --models A,B --store-budget-mb X --autoscale
    --autoscale-max 2`` with a ``--client`` burst per model;
-13. prints the kernels' JSON record (launches of the serving and training
-   runs, and per path of phases 8-12 under ``launches_by_path``) and, last,
+13. the observability plane, with the weights of phase 7's run directory:
+   (a) two flagship engines, profiling on and off, the same ragged score
+   stream (groups of 1-64 rows at k=50): rows bitwise the same, B1's
+   launches equal to the score dispatches, ``detect_chip_peaks()`` naming
+   the H100 row, per profiler key its count, EWMA and p50 device ms, MFU,
+   HBM fraction and ceiling ratio, score/b64 beside phase 12b's replay, the
+   drift findings and the largest z; (b) the sharded engine's profiler at
+   the request's k under "dyn" and at the rows' ``k_used``; (c) the CLI's
+   tier mode with ``--metrics-port 0`` (/metrics, /healthz, /traces, /prof)
+   and the trace dump (``telemetry/trace_cli``) against it, then engine
+   mode's page; (d) one score dispatch under ``utils.profiling.trace``:
+   the ``serve/dispatch/score`` range and B1's kernel in the Chrome trace;
+   (e) the driver's ``span/*`` names and p50 from phase 7; (f) C7: after
+   phase 12c's burst the resident entries hold at most the budget plus the
+   largest entry, every bill at least its pool bytes;
+14. prints the kernels' JSON record (launches of the serving and training
+   runs, and per path of phases 8-13 under ``launches_by_path``) and, last,
    the contract line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
@@ -275,6 +291,11 @@ MM_PRESETS = ["northstar-iwae-2l-k50", "table1-iwae-1l-k50",
 MM_REQUESTS = 90
 AS_PHASE = 12
 AS_FAST_S, AS_SLOW_S = 2.0, 4.0
+#: phase 13: the profiled score stream (groups of 1-64 rows at the
+#: flagship's k=50, every fourth a full 64-row group) and the sharded
+#: engine's score k and dispatches
+OBS_GROUPS = 48
+OBS_SHARDED = [(5000, 3), (1000, 8), (5000, 1)]
 
 
 def fail(msg: str) -> int:
@@ -2770,16 +2791,18 @@ def store_on_the_flagship(torch, np, run_dir):
     """Phase 12b: every (op, bucket) program of the flagship captured into
     the store: its replay bitwise its eager program, the capture's ms, the
     replay's and the eager program's device ms (CUDA events, 20 calls on
-    the engine's stream), the bill beside the bytes the capture reserved;
-    then an eviction of everything and the bytes it gave back. Returns
-    ({op: sum of bills}, ok)."""
+    the engine's stream), the store's bill beside the bytes reckoned from
+    the shapes and the bytes the capture holds (the graph pool's segments
+    plus the static inputs; the bill is the larger, C7); then an eviction
+    of everything and the bytes it gave back. Returns ({op: sum of bills},
+    {(op, bucket): replay ms}, ok)."""
     from iwae_replication_project_tpu_torch.serving.engine import (
         ServingEngine)
     from iwae_replication_project_tpu_torch.utils import compile_cache as cc
 
     eng = ServingEngine(run_dir, timeout_s=None)
     ok = True
-    bills = {}
+    bills, replays = {}, {}
     rng = np.random.RandomState(14)
     with cc.isolated_aot_registry(budget_bytes=None):
         store = cc.executable_store()
@@ -2812,16 +2835,21 @@ def store_on_the_flagship(torch, np, run_dir):
                     same = torch.equal(replay, eager)
                     rep_ms = time_ms(lambda: exe(*tensors), torch)
                     eag_ms = time_ms(lambda: fn(*tensors), torch)
-                bills[op] = bills.get(op, 0) + nbytes
-                good = graph and not hit and same
+                bill = store.entries()[-1]["bytes"]      # the MRU entry
+                bills[op] = bills.get(op, 0) + bill
+                replays[op, bucket] = rep_ms
+                good = graph and not hit and same and \
+                    bill == max(nbytes, exe.pool_bytes)
                 ok &= good
                 print(f"store: {op} bucket={bucket}: capture (with its "
                       f"warm-up run) {cap_ms:.2f} ms, replay "
                       f"{rep_ms:.4f} ms vs eager {eag_ms:.4f} ms (CUDA "
-                      f"events, 20 calls back to back), bill {nbytes} B vs "
-                      f"static {exe.static_bytes} B + reserved by the "
-                      f"capture {exe.pool_bytes} B, replay bitwise eager="
-                      f"{same} {'ok' if good else 'FAIL'}", flush=True)
+                      f"events, 20 calls back to back), bill {bill} B = "
+                      f"max(reckoned {nbytes} B, held by the capture "
+                      f"{exe.pool_bytes} B: pool segments + static inputs; "
+                      f"static buffers {exe.static_bytes} B), replay "
+                      f"bitwise eager={same} {'ok' if good else 'FAIL'}",
+                      flush=True)
         torch.cuda.synchronize()
         pool = sum(e["pool_bytes"] for e in store.entries())
         before = torch.cuda.memory_reserved()
@@ -2832,9 +2860,9 @@ def store_on_the_flagship(torch, np, run_dir):
         ok &= evict_ok
         print(f"store: every entry evicted ({len(store)} left): the "
               f"allocator gave back {freed} B after empty_cache (the "
-              f"captures had reserved {pool} B); bills per op {bills} "
+              f"captures held {pool} B); bills per op {bills} "
               f"{'ok' if evict_ok else 'FAIL'}", flush=True)
-    return bills, ok
+    return bills, replays, ok
 
 
 def _replay_dispatches(np, engines_by_model, recs):
@@ -2859,7 +2887,8 @@ def multi_model_tier(torch, np, hot_loop, bills):
     (``zoo.serving_engines``), the store's budget about one model's
     programs; a burst alternating the models, every answer bitwise a
     dedicated engine's; then ``crash_aot_dispatch`` on one dispatch.
-    Returns (B1 launches of the burst, row kernels' launches, ok)."""
+    Returns (B1 launches of the burst, row kernels' launches, the store
+    after the burst for phase 13f, ok)."""
     from iwae_replication_project_tpu_torch import zoo
     from iwae_replication_project_tpu_torch.ops import row_invariant as ri
     from iwae_replication_project_tpu_torch.serving.engine import (
@@ -2908,6 +2937,9 @@ def multi_model_tier(torch, np, hot_loop, bills):
             resps, lat, wall = _wire_stream(np, c, reqs)
         torch.cuda.synchronize()
         d = cc.stats_delta(s0)
+        after_burst = {"entries": store.entries(), "budget": budget,
+                       "evictions": d["store_evictions"],
+                       "readmits": d["store_readmits"]}
         launches = hot_loop.launch_counts()[hot_loop.KERNEL]
         row_launches = ri.launch_counts()
         all_ok = all(r["ok"] for r in resps)
@@ -2979,7 +3011,7 @@ def multi_model_tier(torch, np, hot_loop, bills):
           f"single-model engine's; phase 12c "
           f"{time.perf_counter() - t_phase:.1f}s "
           f"{'ok' if eq_ok else 'FAIL'}", flush=True)
-    return launches, row_launches, ok
+    return launches, row_launches, after_burst, ok
 
 
 def autoscaler(torch, np, hot_loop, run_dir):
@@ -3182,6 +3214,388 @@ def multi_model_cli(bills):
               [c.stderr[-2000:] for c in clients], flush=True)
     return ok
 
+# --------------------------------------------------------------------------
+# phase 13: the observability plane
+# --------------------------------------------------------------------------
+
+def _watch_observe(prof):
+    """Wrap a profiler's ``observe``: keeps each call's keywords and the
+    key's z after it (the snapshot's ``last_z``)."""
+    seen = []
+    observe = prof.observe
+
+    def watched(**kw):
+        finding = observe(**kw)
+        key = prof._key(kw["program"], kw["bucket"], kw["k_class"])
+        doc = prof.snapshot()["keys"].get(key, {})
+        seen.append(dict(kw, key=key, z=doc.get("last_z")))
+        return finding
+    prof.observe = watched
+    return seen
+
+
+def profiled_serving(torch, np, hot_loop, run_dir, replays, smi):
+    """Phase 13a: two flagship engines on phase 7's weights, profiling on
+    and off, the same ragged score stream: rows bitwise the same, B1's
+    launches equal to the score dispatches, the H100 row of the peak table;
+    per profiler key its count, EWMA and p50 device ms, MFU, HBM fraction
+    and ceiling ratio; score/b64 beside phase 12b's replay; the drift
+    findings and the largest z. Returns (B1 launches, ok)."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.telemetry.profiling import (
+        detect_chip_peaks)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+
+    peaks = detect_chip_peaks()
+    ok = peaks["peak_flops"] == 989e12 and peaks["peak_hbm_bytes"] == 3.35e12
+    print(f"obs: detect_chip_peaks() = {peaks} on {smi} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    rng = np.random.RandomState(16)
+    sizes = [64 if i % 4 == 0 else int(rng.randint(1, 65))
+             for i in range(OBS_GROUPS)]
+    groups = [(rng.rand(n, 784) > 0.5).astype(np.float32) for n in sizes]
+    rows = {True: [], False: []}
+    with cc.isolated_aot_registry(budget_bytes=None):
+        engines = {p: ServingEngine(run_dir, timeout_s=None, profiling=p)
+                   for p in (True, False)}
+        for eng in engines.values():
+            eng.warmup(ops=("score",))
+            eng.start()
+        prof = engines[True].profiler
+        seen = _watch_observe(prof)
+        torch.cuda.synchronize()
+        hot_loop.reset_launch_counts()
+        d0 = {p: e.metrics.snapshot()["counters"]["dispatches"]
+              for p, e in engines.items()}
+        seed = 0
+        for x in groups:
+            for p, eng in engines.items():
+                futs = [eng.submit("score", r, seed=seed + i)
+                        for i, r in enumerate(x)]
+                rows[p] += [f.result(timeout=300) for f in futs]
+            seed += len(x)
+        for eng in engines.values():
+            eng.stop()
+        torch.cuda.synchronize()
+        launches = hot_loop.launch_counts()[hot_loop.KERNEL]
+        dispatches = sum(e.metrics.snapshot()["counters"]["dispatches"]
+                         - d0[p] for p, e in engines.items())
+        same = sum(int(np.array_equal(a, b))
+                   for a, b in zip(rows[True], rows[False]))
+        hists = engines[True].metrics.registry.snapshot()["histograms"]
+        snap = prof.snapshot()
+    good = same == len(rows[True]) == sum(sizes) and \
+        launches == dispatches and len(seen) == \
+        engines[True].metrics.snapshot()["counters"]["dispatches"] - \
+        d0[True] and engines[False].profiler is None
+    ok &= good
+    print(f"obs: profiled vs unprofiled flagship engines, {len(groups)} "
+          f"groups of 1-64 rows at k=50 ({sum(sizes)} rows): {same}/"
+          f"{len(rows[True])} rows bitwise; B1 launches {launches} = score "
+          f"dispatches {dispatches} (both engines); {len(seen)} profiler "
+          f"observations {'ok' if good else 'FAIL'}", flush=True)
+    for key in sorted(snap["keys"], key=lambda k: int(
+            k.split("/b")[1].split("/")[0])):
+        doc = snap["keys"][key]
+        h = hists.get(f"prof/device_s/{key}", {})
+        print(f"obs: prof {key}: count {doc['count']}, EWMA "
+              f"{doc['ewma_s'] * 1e3:.4f} ms, p50 "
+              f"{(h.get('p50') or 0.0) * 1e3:.4f} ms (CUDA events), last_mfu "
+              f"{doc['last_mfu']}, last_hbm_frac {doc['last_hbm_frac']}, "
+              f"last_ceiling_ratio {doc['last_ceiling_ratio']} ({smi})",
+              flush=True)
+    b64 = snap["keys"].get("serve_score/b64/k50")
+    h64 = hists.get("prof/device_s/serve_score/b64/k50", {})
+    steady = [o["z"] for o in seen if o["z"] is not None]
+    good = b64 is not None and b64["last_mfu"] is not None
+    ok &= good
+    print(f"obs: score/b64 device ms from the profiler: EWMA "
+          f"{b64['ewma_s'] * 1e3 if b64 else float('nan'):.4f}, p50 "
+          f"{(h64.get('p50') or 0.0) * 1e3:.4f} (start event before the "
+          f"store call to the fetch's event: copy-in, replay, output clone) "
+          f"vs phase 12b's replay {replays.get(('score', 64), 0.0):.4f} ms "
+          f"(20 replays back to back), same run; prof/drift findings "
+          f"{len(prof.findings())}, largest z in the stream "
+          f"{max(steady) if steady else None} ({smi}) "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return launches, ok
+
+
+def profiled_sharded(torch, np, zoo, hot_loop, run_dir):
+    """Phase 13b: the sharded engine's profiler: each k=5000/1000 score
+    dispatch's FLOPs at the request's own k under the bucket's "dyn" key,
+    one score_adaptive dispatch's at its rows' k_used, whose mean the key's
+    ``ewma_k_used`` equals. Returns ok."""
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.serving.sharded import (
+        ShardedScoreEngine)
+    from iwae_replication_project_tpu_torch.utils.flops import (
+        serving_score_flops_per_row)
+
+    eng = ShardedScoreEngine(run_dir, k_chunk=SHARDED_KC,
+                             k_max=SHARDED_KMAX, max_batch=SHARDED_BATCH,
+                             timeout_s=None)
+    ds = load_dataset(zoo.get(PRESET).dataset, data_dir="data")
+    data = ds.x_test.reshape(len(ds.x_test), -1).astype(np.float32)
+    eng.warmup()
+    seen = _watch_observe(eng.profiler)
+    torch.cuda.synchronize()
+    hot_loop.reset_launch_counts()
+    i, ks = 0, []
+    for k, n in OBS_SHARDED:
+        x = data[i:i + n]
+        i += n
+        eng.score(x, k)
+        ks.append((k, n))
+    x = data[i:i + SHARDED_BATCH]
+    out = eng.score_adaptive(x, SHARDED_KMAX, target_se=0.5)
+    torch.cuda.synchronize()
+    launches = hot_loop.launch_counts()[hot_loop.KERNEL]
+    snap = eng.profiler.snapshot()
+    scores = [o for o in seen if o["program"] == "serve_score"]
+    flops_ok = len(scores) == len(ks) and all(
+        o["k_class"] == "dyn" and o["flops"] == serving_score_flops_per_row(
+            eng.cfg, k) * n for o, (k, n) in zip(scores, ks))
+    ada = [o for o in seen if o["program"] == "serve_score_adaptive"]
+    k_used = out[:, 2]
+    doc = snap["keys"].get(ada[0]["key"], {}) if ada else {}
+    ada_ok = len(ada) == 1 and ada[0]["samples"] == float(k_used.sum()) \
+        and doc.get("ewma_k_used") == float(k_used.sum()) / len(k_used) \
+        and ada[0]["flops"] == sum(serving_score_flops_per_row(
+            eng.cfg, int(ku)) for ku in k_used)
+    ok = flops_ok and ada_ok
+    print(f"obs: sharded engine, {len(ks)} score dispatches at k "
+          f"{[k for k, _ in ks]} (rows {[n for _, n in ks]}): FLOPs at the "
+          f"request k under 'dyn' {flops_ok}; one score_adaptive dispatch of "
+          f"{len(k_used)} rows at cap {SHARDED_KMAX}: k_used "
+          f"{[int(v) for v in k_used]}, ewma_k_used "
+          f"{doc.get('ewma_k_used')} = mean k_used "
+          f"{float(k_used.mean())}: {ada_ok}; keys "
+          f"{ {k: v['count'] for k, v in snap['keys'].items()} }; B1 "
+          f"launches {launches} {'ok' if ok else 'FAIL'}", flush=True)
+    eng.stop()
+    return ok
+
+
+def _http_get(port, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def _cli(run_dir, args):
+    """The serving CLI from the run dir, stdin held open, and its first
+    JSON line."""
+    root = str(Path(__file__).resolve().parent)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "iwae_replication_project_tpu_torch.serving",
+         "--checkpoint", run_dir, "--metrics-port", "0"] + args,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root, env=dict(os.environ))
+    ready = None
+    while ready is None:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        if line.startswith("{"):
+            ready = json.loads(line)
+    return proc, ready
+
+
+def _cli_exit(proc):
+    """Close stdin, wait; (exit code, the rest of stdout, stderr's tail)."""
+    try:
+        proc.stdin.close()
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+            rc = None
+    return rc, proc.stdout.read(), proc.stderr.read()[-4000:]
+
+
+def metrics_page(np, run_dir, tmp):
+    """Phase 13c: the CLI's tier mode with ``--replicas 2 --port 0
+    --metrics-port 0`` and a ``--client`` burst: /metrics, /healthz,
+    /traces and /prof; the trace dump against the tier; then engine mode
+    with ``--metrics-port 0 --interactive``: its page carries the prof_*
+    and span_serve_* families. Both exit 0 on stdin EOF. Returns ok."""
+    root = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    proc, ready = _cli(run_dir, ["--replicas", "2", "--port", "0"])
+    checks = {}
+    try:
+        if ready is not None:
+            port, mport = ready["tier"]["port"], ready["metrics_port"]
+            client = subprocess.run(
+                [sys.executable, "-m",
+                 "iwae_replication_project_tpu_torch.serving", "--client",
+                 f"127.0.0.1:{port}", "--requests", "40"],
+                capture_output=True, text=True, timeout=300, cwd=root)
+            checks["client"] = client.returncode == 0
+            status, ctype, body = _http_get(mport, "/metrics")
+            page = body.decode()
+            checks["metrics"] = status == 200 and ctype.startswith(
+                "text/plain; version=0.0.4") and \
+                "iwae_router_completed_total" in page and "iwae_slo_" in page
+            status, _, body = _http_get(mport, "/healthz")
+            checks["healthz"] = status == 200 and json.loads(body)["ok"]
+            status, _, body = _http_get(mport, "/traces")
+            checks["traces"] = status == 200 and \
+                "traceEvents" in json.loads(body)
+            status, _, body = _http_get(mport, "/prof")
+            profs = json.loads(body).get("profilers", []) \
+                if status == 200 else []
+            checks["prof"] = len(profs) == 2 and all(
+                p["peaks"]["peak_flops"] == 989e12 for p in profs)
+            out = os.path.join(tmp, "traces.json")
+            dump = subprocess.run(
+                [sys.executable, "-m",
+                 "iwae_replication_project_tpu_torch.telemetry.trace_cli",
+                 f"127.0.0.1:{port}", "--out", out],
+                capture_output=True, text=True, timeout=120, cwd=root)
+            checks["trace_cli"] = dump.returncode == 0 and \
+                "traceEvents" in json.loads(Path(out).read_text())
+            n_events = len(json.loads(Path(out).read_text())["traceEvents"]) \
+                if checks["trace_cli"] else None
+    finally:
+        rc, _, err = _cli_exit(proc)
+    checks["tier_exit"] = rc == 0
+    ok = ready is not None and all(checks.values())
+    print(f"obs: cli --checkpoint RUN_DIR --replicas 2 --port 0 "
+          f"--metrics-port 0 and --client --requests 40: "
+          f"{checks}; /prof documents "
+          f"{len(profs) if ready else None}, the trace dump's events "
+          f"{n_events if ready else None}; "
+          f"{time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        print(err, flush=True)
+
+    t0 = time.perf_counter()
+    proc, ready = _cli(run_dir, ["--interactive"])
+    echecks = {}
+    try:
+        if ready is not None:
+            mport = ready["metrics_port"]
+            row = (np.random.RandomState(17).rand(784) > 0.5).astype(
+                np.float32).tolist()
+            for _ in range(2):
+                proc.stdin.write(json.dumps({"op": "score", "x": [row]})
+                                 + "\n")
+                proc.stdin.flush()
+                echecks.setdefault("results", True)
+                echecks["results"] &= "result" in json.loads(
+                    proc.stdout.readline())
+            page = _http_get(mport, "/metrics")[2].decode()
+            echecks["families"] = "iwae_prof_" in page and \
+                "iwae_span_serve_" in page
+            status, _, body = _http_get(mport, "/prof")
+            echecks["prof"] = status == 200 and \
+                len(json.loads(body)["profilers"]) == 1
+    finally:
+        rc, _, err = _cli_exit(proc)
+    echecks["engine_exit"] = rc == 0
+    good = ready is not None and all(echecks.values())
+    ok &= good
+    print(f"obs: cli --checkpoint RUN_DIR --metrics-port 0 --interactive: "
+          f"{echecks}; {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    if not good:
+        print(err, flush=True)
+    return ok
+
+
+def spans_on_the_timeline(torch, np, run_dir, tmp):
+    """Phase 13d: one score dispatch of a fresh engine (its program's first
+    admission: the eager warm-up, the capture, a replay) under
+    ``utils.profiling.trace``: the Chrome trace holds the
+    ``serve/dispatch/score`` range and B1's kernel. Returns ok."""
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+    from iwae_replication_project_tpu_torch.utils.profiling import trace
+
+    with cc.isolated_aot_registry(budget_bytes=None):
+        eng = ServingEngine(run_dir, timeout_s=None)
+        x = (np.random.RandomState(18).rand(1, 784) > 0.5).astype(np.float32)
+        with trace(os.path.join(tmp, "trace")) as tr:
+            eng.score(x)
+            torch.cuda.synchronize()
+    events = json.loads(Path(tr.path).read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("name") == "serve/dispatch/score"]
+    b1 = [e for e in events if "hot_loop_fwd" in str(e.get("name", ""))
+          and e.get("cat") == "kernel"]
+    ok = bool(ranges) and bool(b1)
+    print(f"obs: trace of one score dispatch: {len(events)} events, "
+          f"'serve/dispatch/score' ranges {len(ranges)}, B1 kernel events "
+          f"{len(b1)} ({b1[0]['name'][:60] if b1 else None}, "
+          f"{b1[0].get('dur') if b1 else None} us) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def driver_spans():
+    """Phase 13e: the ``span/train*`` and ``span/eval*`` histograms phase
+    7's driver run left in the process registry. Returns ok."""
+    from iwae_replication_project_tpu_torch.telemetry.registry import (
+        get_registry)
+
+    hists = get_registry().snapshot()["histograms"]
+    names = sorted(n for n in hists if n.startswith(("span/train",
+                                                     "span/eval")))
+    for n in names:
+        print(f"obs: {n}: count {hists[n]['count']}, p50 "
+              f"{hists[n]['p50'] * 1e3:.3f} ms (host)", flush=True)
+    ok = {"span/train/stage", "span/eval/statistics"} <= set(names)
+    print(f"obs: {len(names)} driver span names {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return ok
+
+
+def store_bound(after_burst):
+    """Phase 13f: C7 after phase 12c's burst: the resident entries' pool
+    bytes sum to at most the budget plus the largest entry, and every bill
+    is at least its pool bytes. Returns ok."""
+    entries = after_burst["entries"]
+    pools = [e["pool_bytes"] for e in entries]
+    budget = after_burst["budget"]
+    held = sum(pools)
+    bound_ok = held <= budget + max(pools, default=0)
+    bills_ok = all(e["bytes"] >= e["pool_bytes"] for e in entries)
+    ok = bound_ok and bills_ok and bool(entries)
+    print(f"obs: C7 after phase 12c's burst: {len(entries)} resident "
+          f"entries hold {held} B (pool segments + static inputs) under a "
+          f"budget of {budget} B (largest entry {max(pools, default=0)} B): "
+          f"{bound_ok}; every bill >= its pool bytes: {bills_ok}; "
+          f"evictions {after_burst['evictions']}, readmits "
+          f"{after_burst['readmits']} {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def observability(torch, np, zoo, hot_loop, run_dir, replays, after_burst,
+                  smi, tmp):
+    """Phase 13: (a)-(f) above. Returns (B1 launches of 13a, ok)."""
+    t0 = time.perf_counter()
+    launches, ok = profiled_serving(torch, np, hot_loop, run_dir, replays,
+                                    smi)
+    ok &= profiled_sharded(torch, np, zoo, hot_loop, run_dir)
+    ok &= metrics_page(np, run_dir, tmp)
+    ok &= spans_on_the_timeline(torch, np, run_dir, tmp)
+    ok &= driver_spans()
+    ok &= store_bound(after_burst)
+    print(f"obs: phase 13 {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return launches, ok
+
 
 def main() -> int:
     try:
@@ -3309,10 +3723,11 @@ def main() -> int:
             return fail("the serving CLI's tier and client modes failed")
         if not bucket_invariance(torch, np, run_dir):
             return fail("a served row changed its bits with its bucket")
-        bills, ok = store_on_the_flagship(torch, np, run_dir)
+        bills, replays, ok = store_on_the_flagship(torch, np, run_dir)
         if not ok:
             return fail("the executable store's graphs failed")
-        mm_b1, mm_rows, ok = multi_model_tier(torch, np, hot_loop, bills)
+        mm_b1, mm_rows, after_burst, ok = multi_model_tier(torch, np,
+                                                           hot_loop, bills)
         if not ok:
             return fail("the multi-model tier phase failed")
         as_b1, ok = autoscaler(torch, np, hot_loop, run_dir)
@@ -3320,6 +3735,10 @@ def main() -> int:
             return fail("the autoscaler phase failed")
         if not multi_model_cli(bills):
             return fail("the CLI's --models --autoscale tier mode failed")
+        obs_b1, ok = observability(torch, np, zoo, hot_loop, run_dir,
+                                   replays, after_burst, smi, tmp)
+        if not ok:
+            return fail("the observability phase failed")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -3331,7 +3750,8 @@ def main() -> int:
                                                                 0),
             "serving_tier": tier_b1 if rec is record else 0,
             "multi_model_tier": mm_b1 if rec is record else 0,
-            "autoscaler": as_b1 if rec is record else 0}
+            "autoscaler": as_b1 if rec is record else 0,
+            "observability": obs_b1 if rec is record else 0}
     for rec in row_records:
         rec["launches_by_path"] = {"serving_tier": tier_rows[rec["name"]],
                                    "multi_model_tier": mm_rows[rec["name"]]}

@@ -74,6 +74,7 @@ from iwae_replication_project_tpu_torch.telemetry.diagnostics import (
     estimator_diagnostics,
 )
 from iwae_replication_project_tpu_torch.telemetry.registry import get_registry
+from iwae_replication_project_tpu_torch.telemetry.spans import span
 from iwae_replication_project_tpu_torch.training import (
     burda_stages,
     create_train_state,
@@ -276,16 +277,19 @@ def run_experiment(cfg: ExperimentConfig,
             pass_means, last_diag = [], None
             remaining = passes - offset
             n_blocks = remaining // PASS_BLOCK
-            for per_call, calls in ((PASS_BLOCK, n_blocks),
-                                    (1, remaining - n_blocks * PASS_BLOCK)):
-                for _ in range(calls):
-                    state, out = epoch_fn_for(spec, per_call)(state, x_train)
-                    if diag_cfg is not None:
-                        out, last_diag = out
-                    pass_means.append(out.view(per_call, -1).mean(1))
-                    done += per_call
-                    since_save += per_call
-                    pass_boundary()
+            with span("train/stage"):
+                for per_call, calls in (
+                        (PASS_BLOCK, n_blocks),
+                        (1, remaining - n_blocks * PASS_BLOCK)):
+                    for _ in range(calls):
+                        state, out = epoch_fn_for(spec, per_call)(state,
+                                                                  x_train)
+                        if diag_cfg is not None:
+                            out, last_diag = out
+                        pass_means.append(out.view(per_call, -1).mean(1))
+                        done += per_call
+                        since_save += per_call
+                        pass_boundary()
             means = torch.cat(pass_means).cpu()  # the stage's one fetch
             train_s = time.perf_counter() - t0
 
@@ -306,22 +310,28 @@ def run_experiment(cfg: ExperimentConfig,
                            nll_chunk=cfg.nll_chunk,
                            activity_samples=cfg.activity_samples,
                            generator=eval_generator(cfg.seed, stage, dev))
-            res, res2 = training_statistics(
-                state.params, model_cfg, x_test, cfg.eval_k, **eval_kw) \
-                if mesh is None else parallel_training_statistics(
-                    state.params, model_cfg, mesh, x_test, cfg.eval_k,
-                    **eval_kw)
+            with span("eval/statistics"):
+                res, res2 = training_statistics(
+                    state.params, model_cfg, x_test, cfg.eval_k,
+                    **eval_kw) if mesh is None \
+                    else parallel_training_statistics(
+                        state.params, model_cfg, mesh, x_test, cfg.eval_k,
+                        **eval_kw)
             row.update(res)
             row["number_of_active_units"] = res2["number_of_active_units"]
             row["number_of_PCA_active_units"] = \
                 res2["number_of_PCA_active_units"]
             if diag_cfg is not None:
                 ebs = largest_divisor_leq(n_test, eval_batch)
-                diag_vals = {} if cfg.multihost else estimator_diagnostics(
-                    state.params, model_cfg,
-                    x_test.reshape(n_test // ebs, ebs, -1), cfg.eval_k,
-                    diag_cfg,
-                    generator=eval_generator(cfg.seed, 30_000 + stage, dev))
+                diag_vals = {}
+                if not cfg.multihost:
+                    with span("eval/diagnostics"):
+                        diag_vals = estimator_diagnostics(
+                            state.params, model_cfg,
+                            x_test.reshape(n_test // ebs, ebs, -1),
+                            cfg.eval_k, diag_cfg,
+                            generator=eval_generator(cfg.seed, 30_000 + stage,
+                                                     dev))
                 diag_vals.update(last_diag)  # the stage's last pass
                 fetched = torch.stack([v.float() for v in diag_vals.values()])
                 reg = get_registry()

@@ -71,6 +71,7 @@ from iwae_replication_project_tpu_torch.objectives.gradients import (
 from iwae_replication_project_tpu_torch.ops import distributions as dist
 from iwae_replication_project_tpu_torch.ops.logsumexp import logmeanexp
 from iwae_replication_project_tpu_torch.parallel.mesh import AXES, Mesh
+from iwae_replication_project_tpu_torch.telemetry.spans import spanned
 from iwae_replication_project_tpu_torch.training.train_step import (
     TrainState,
     apply_gradients,
@@ -375,8 +376,9 @@ def make_parallel_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig,
         shard=(lo, lo + b_local))
     name = f"parallel_epoch_{spec.name}_k{spec.k}" if epochs_per_call == 1 \
         else f"parallel_epoch_block{epochs_per_call}_{spec.name}_k{spec.k}"
+    epoch = epoch.__wrapped__           # re-spanned under the mesh's name
     epoch.__name__ = epoch.__qualname__ = name
-    return epoch
+    return spanned(epoch, "train/parallel_epoch")
 
 
 def make_parallel_train_step(spec: ObjectiveSpec, cfg: model.ModelConfig,

@@ -66,6 +66,7 @@ from iwae_replication_project_tpu_torch.ops.logsumexp import (
 )
 from iwae_replication_project_tpu_torch.parallel.dp import mix_seed
 from iwae_replication_project_tpu_torch.parallel.mesh import AXES, Mesh
+from iwae_replication_project_tpu_torch.telemetry.spans import span
 from iwae_replication_project_tpu_torch.utils.sizes import largest_divisor_leq
 
 
@@ -458,17 +459,22 @@ def parallel_training_statistics(params, cfg: model.ModelConfig, mesh: Mesh,
     b_local = batch_size // n_dp
     batches = x_test.reshape(n_batches, batch_size, -1)
     lo = mesh.dp_rank * b_local
-    scalars = parallel_dataset_scalars(
-        params, cfg, mesh, batches[:, lo:lo + b_local], k, nll_k, chunk,
-        generator=gen, generator_dp=gen_dp, noise=noise.get("batches"))
-    means = parallel_posterior_means(params, cfg, mesh, x_test.reshape(n, -1),
-                                     activity_samples, generator=gen,
-                                     noise=noise.get("activity"))
+    # the JAX driver's spans (JAX :571-603); they time the host's launches,
+    # the suite fetching once at its end
+    with span("eval/scalars"):
+        scalars = parallel_dataset_scalars(
+            params, cfg, mesh, batches[:, lo:lo + b_local], k, nll_k, chunk,
+            generator=gen, generator_dp=gen_dp, noise=noise.get("batches"))
+    with span("eval/activity"):
+        means = parallel_posterior_means(
+            params, cfg, mesh, x_test.reshape(n, -1), activity_samples,
+            generator=gen, noise=noise.get("activity"))
     variances, eigvals = activity.activity_from_means(means)
     masks, n_active, n_active_pca = activity.active_units(variances, eigvals)
-    pruned = parallel_pruned_nll(params, cfg, mesh, batches[0], masks,
-                                 k=nll_k, chunk=chunk, generator=gen,
-                                 noise=noise.get("pruned"))
+    with span("eval/pruned_nll"):
+        pruned = parallel_pruned_nll(params, cfg, mesh, batches[0], masks,
+                                     k=nll_k, chunk=chunk, generator=gen,
+                                     noise=noise.get("pruned"))
     fetched = torch.cat([scalars, n_active.float(), n_active_pca.float(),
                          pruned.reshape(1)]).cpu().tolist()  # the one fetch
     L = len(masks)

@@ -42,10 +42,19 @@ One program, three roles:
   ``--target-se``/``--ess-floor``, ``score_adaptive``) sweep over k, or
   ``--interactive`` to forward JSON lines from stdin.
 
-The JAX CLI's ``--metrics-port`` (ROADMAP A10), ``--pin-core`` and the
-int8 precision policy (ROADMAP A8) are refused with the reason; its
-per-model ``--precision model=policy`` pairs are not ported (one policy
-serves every model).
+``--metrics-port P`` (engine and tier modes; 0 = an ephemeral port,
+printed as ``metrics_port`` in the warm-up line) serves the metrics page at
+``http://127.0.0.1:P/metrics`` with ``/traces``, ``/prof`` and ``/healthz``
+(telemetry/exporters.py). In tier mode the page holds the process registry
+and the tier's (router and SLO families; the replicas' engine registries
+are left out, their names would collide), ``/traces`` the tier's flight
+recorder, ``/prof`` one document per replica engine, ``/healthz`` 503 once
+no replica is healthy. In engine mode it holds the process registry and the
+engine's (``serve/*`` spans, ``prof/*``), ``/prof`` the engine's profiler.
+
+The JAX CLI's ``--pin-core`` and the int8 precision policy (ROADMAP A8b)
+are refused with the reason; its per-model ``--precision model=policy``
+pairs are not ported (one policy serves every model).
 """
 
 from __future__ import annotations
@@ -68,8 +77,6 @@ from iwae_replication_project_tpu_torch.utils.config import _refused
 
 #: the JAX CLI's flags of parts the port lacks -> (reason, takes a value)
 REFUSED = {
-    "--metrics-port": ("not ported yet: the metrics page, the exporters "
-                       "(ROADMAP A10)", True),
     "--pin-core": ("the port runs on the card, not one pinned CPU core",
                    True),
 }
@@ -148,6 +155,12 @@ def build_argparser() -> argparse.ArgumentParser:
                          "directory (utils/logging.MetricsLogger)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--metrics-port", dest="metrics_port", type=int,
+                    default=None,
+                    help="serve the metrics page (/metrics, /traces, /prof, "
+                         "/healthz) at http://127.0.0.1:PORT (0 = an "
+                         "ephemeral port, printed in the warm-up line; omit "
+                         "= off)")
     ap.add_argument("--rate", type=float, default=0.0,
                     help="client mode's synthetic load: offered request "
                          "batches a second (0 = as fast as it can send)")
@@ -445,6 +458,22 @@ def tier_mode(args, ops) -> int:
     warm = tier.warmup(ops=ops)
     tier.start()
     fleet = _fleet(args, tier) if args.autoscale else None
+    metrics_srv = None
+    if args.metrics_port is not None:
+        from iwae_replication_project_tpu_torch.telemetry import (
+            get_registry, start_metrics_server)
+
+        def _tier_health():
+            states = tier.router.replica_states()
+            healthy = sum(1 for st in states if st["healthy"])
+            return {"ok": healthy > 0, "replicas": len(states),
+                    "healthy": healthy,
+                    "outstanding": tier.router.outstanding}
+
+        metrics_srv = start_metrics_server(
+            (get_registry(), tier.registry), args.metrics_port,
+            recorder=tier.recorder, profilers=tier.router.profilers(),
+            health=_tier_health)
     info = tier.info()
     dev = engines[0].device
     print(json.dumps({
@@ -458,7 +487,8 @@ def tier_mode(args, ops) -> int:
                  "autoscale": (dataclasses.asdict(fleet.config)
                                if fleet is not None else None)},
         "warmup": warm, "buckets": info["buckets"], "k": info["k"],
-        "metrics_port": None,
+        "metrics_port": (metrics_srv.server_address[1]
+                         if metrics_srv is not None else None),
         "device": (torch.cuda.get_device_name(dev)
                    if dev.type == "cuda" else "cpu"),
         "source": args.models or args.checkpoint or args.preset
@@ -471,6 +501,8 @@ def tier_mode(args, ops) -> int:
     if fleet is not None:
         fleet.stop()            # the control thread first: no scale event
     tier.stop()                 # may race the tier's drain
+    if metrics_srv is not None:
+        metrics_srv.shutdown()
     snap = tier.registry.snapshot()
     print(json.dumps({
         "router": {k: v for k, v in snap["counters"].items()
@@ -727,10 +759,30 @@ def main(argv=None) -> int:
     warm = eng.warmup(ops=ops)
     device = (torch.cuda.get_device_name(eng.device)
               if eng.device.type == "cuda" else "cpu")
+    metrics_srv = None
+    if args.metrics_port is not None:
+        from iwae_replication_project_tpu_torch.telemetry import (
+            get_registry, start_metrics_server)
+        metrics_srv = start_metrics_server(
+            (get_registry(), eng.metrics.registry), args.metrics_port,
+            profilers=(eng.profiler,) if eng.profiler is not None else (),
+            health=lambda: {"ok": True, "mode": "engine", "ops": list(ops)})
     print(json.dumps({"warmup": warm, "buckets": list(eng.ladder.buckets),
                       "k": eng.k, "device": device,
+                      "metrics_port": (metrics_srv.server_address[1]
+                                       if metrics_srv is not None else None),
                       "source": args.checkpoint or args.preset
                       or "northstar-iwae-2l-k50"}), flush=True)
+    try:
+        return _engine_mode(eng, args, ops, warm, device)
+    finally:
+        if metrics_srv is not None:
+            metrics_srv.shutdown()
+
+
+def _engine_mode(eng, args, ops, warm, device) -> int:
+    """The in-process engine's run after its warm-up line: stdin's JSON
+    lines, or the synthetic load and its summary."""
     if args.interactive:
         interactive(eng, sys.stdin)
         return 0

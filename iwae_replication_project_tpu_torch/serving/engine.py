@@ -68,7 +68,27 @@ program on CUDA the row-invariant ops (``ops/row_invariant``), so a row's
 result is bitwise the same in every bucket, beside any neighbours and
 padding, as in the JAX package.
 
-Not ported yet: the profiler and the int8 policy (ROADMAP A8, A10).
+**Profiling.** ``profiling=`` (a
+:class:`~..telemetry.profiling.ProfilingConfig`; True or None = on, the
+default; False = off) attaches a :class:`~..telemetry.profiling.
+DispatchProfiler` on the engine's registry, labelled :attr:`store_label`:
+one ``observe`` per dispatch at completion, with the dispatch's device
+interval, its FLOPs (:meth:`_prof_flops`, or :meth:`_prof_adaptive`'s at
+each row's ``k_used``) and its static cost record
+(``serving/programs.static_cost``). On the card the interval is
+``start.elapsed_time(end)`` of two timing events on the engine's stream:
+``start`` right before the store call (the arguments staged), ``end`` the
+event the fetch waits on. A store entry shared with another engine first
+waits for that engine's previous replay of it, and that wait falls inside
+the interval; this engine's own earlier work on its stream does not. On the
+CPU the interval is the host's, from the store call to the fetched result.
+Profiling never touches seeds, payloads or programs. The spans
+``serve/dispatch/<op>`` (the launch, on the engine's registry; the store's
+``aot/<name>`` nests in it on the process registry),
+``serve/complete/<op>`` (the fetch) and ``serve/warmup`` wrap host calls
+only, never a capture.
+
+Not ported yet: the int8 policy (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -114,7 +134,9 @@ from iwae_replication_project_tpu_torch.serving.programs import (
     PROGRAMS,
     draw_noise,
     program_bytes,
+    static_cost,
 )
+from iwae_replication_project_tpu_torch.telemetry.spans import span
 from iwae_replication_project_tpu_torch.utils import compile_cache as cc
 from iwae_replication_project_tpu_torch.utils.device import resolve_device
 from iwae_replication_project_tpu_torch.utils.dtypes import validate_precision
@@ -145,6 +167,9 @@ class _InFlight:
     inputs: tuple = ()
     #: the executable-store pin held until the batch completes
     pin: Optional[Any] = None
+    #: the profiler's timing event recorded before the program's call (on
+    #: the card, with profiling on)
+    start: Optional[Any] = None
     #: trace-stage clock readings: the launch began, the rows were padded,
     #: the program's arguments were staged
     t_launch0: float = 0.0
@@ -171,8 +196,9 @@ class ServingEngine:
     plain version on the CPU; ``"kernel"`` or ``"reference"`` pins one for
     every score dispatch), ``model`` (tenant label; a submit naming another
     model is a bad request), ``precision`` (None, ``"fp32"`` or ``"bf16"``:
-    bf16 matmul operands with fp32 accumulation) and ``device`` (None =
-    ``cuda``, which must exist; pass ``"cpu"`` to serve on the CPU).
+    bf16 matmul operands with fp32 accumulation), ``device`` (None =
+    ``cuda``, which must exist; pass ``"cpu"`` to serve on the CPU) and
+    ``profiling`` (module docstring).
     """
 
     #: ops whose program runs the hot-loop block and is therefore gated
@@ -193,7 +219,7 @@ class ServingEngine:
                  kernel_path: Optional[str] = None,
                  model: Optional[str] = None,
                  precision: Optional[str] = None,
-                 device=None):
+                 device=None, profiling=None):
         self.device = resolve_device(device)
         if isinstance(source, (str, os.PathLike)):
             params, model_config, stored_k = _load_checkpoint(
@@ -248,6 +274,18 @@ class ServingEngine:
         max_batch = self.ladder.max_batch
         self.metrics = ServingMetrics(model=self.model,
                                       precision=self.precision)
+        self.profiler = None
+        if profiling is not False:
+            from iwae_replication_project_tpu_torch.telemetry import (
+                profiling as prof)
+            prof_cfg = profiling \
+                if isinstance(profiling, prof.ProfilingConfig) \
+                else prof.ProfilingConfig()
+            if prof_cfg.enabled:
+                self.profiler = prof.DispatchProfiler(
+                    registry=self.metrics.registry, config=prof_cfg,
+                    label=self.store_label,
+                    peaks=prof.detect_chip_peaks(self.device))
         self._clock = time.monotonic
         self._batcher = MicroBatcher(max_batch=max_batch,
                                      max_wait_us=max_wait_us,
@@ -617,20 +655,27 @@ class ServingEngine:
              seeds: List[int], targets: Optional[Tuple[float, float]] = None,
              n_real: Optional[int] = None):
         """Launch one program on the device without waiting; returns
-        ``(out, event, inputs, t_args, hit)``, ``t_args`` the clock once
-        the arguments were staged (the trace's noise/launch boundary),
-        ``hit`` whether the store had the program."""
+        ``(out, event, inputs, t_args, hit, start)``, ``t_args`` the clock
+        once the arguments were staged (the trace's noise/launch boundary),
+        ``hit`` whether the store had the program, ``start`` the profiler's
+        timing event before the program's call (None off the card or with
+        profiling off)."""
         program = self._program_for(op, k, bucket)
+        timed = self.profiler is not None and self._stream is not None
         with self._launch_context():
             args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
                                                targets, n_real)
             t_args = self._clock()
+            start = None
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self._stream)
             out, hit = self._store_call(op, k, bucket, program, args, kwargs)
             if self._stream is None:
-                return out, None, (), t_args, hit
-            event = torch.cuda.Event()
+                return out, None, (), t_args, hit, None
+            event = torch.cuda.Event(enable_timing=timed)
             event.record(self._stream)
-        return out, event, (args, kwargs), t_args, hit
+        return out, event, (args, kwargs), t_args, hit, start
 
     def _launch(self, batch: List[Request]) -> _InFlight:
         """Stage one: pad, launch. Returns the in-flight handle without
@@ -660,8 +705,9 @@ class ServingEngine:
             self.store_label, self._aot_name(op), self._build_key(op, k,
                                                                   bucket))
         try:
-            out, event, inputs, t_args, hit = self._run(
-                op, k, bucket, payload, seeds, targets, n)
+            with span(f"serve/dispatch/{op}", registry=self.metrics.registry):
+                out, event, inputs, t_args, hit, start = self._run(
+                    op, k, bucket, payload, seeds, targets, n)
         except BaseException:
             pin.release()
             raise
@@ -674,7 +720,7 @@ class ServingEngine:
         self.metrics.count("aot_hits" if hit else "aot_misses")
         self.metrics.count("recompiles", cc.kernel_builds() - builds)
         return _InFlight(batch=batch, op=op, k=k, bucket=bucket, out=out,
-                         event=event, inputs=inputs, pin=pin,
+                         event=event, inputs=inputs, pin=pin, start=start,
                          t_launch0=t_launch0, t_pad=t_pad, t_args=t_args)
 
     def _launch_routed(self, batch: List[Request]) -> Optional[_InFlight]:
@@ -696,6 +742,55 @@ class ServingEngine:
             with torch.cuda.device(self.device):
                 return inf.out.cpu().numpy()
         return inf.out.numpy()
+
+    def _prof_flops(self, op: str, k: int, rows: int) -> Optional[float]:
+        """Analytic matmul FLOPs of one dispatch's real rows (the measured
+        MFU's numerator, ``utils/flops.py``). Only ``score`` runs the stack
+        the accounting models; other ops profile device time without an
+        MFU gauge."""
+        if op != "score":
+            return None
+        from iwae_replication_project_tpu_torch.utils.flops import (
+            serving_score_flops_per_row)
+        return serving_score_flops_per_row(self.cfg, k) * rows
+
+    def _static_cost_for(self, op: str, k: int, bucket: int
+                         ) -> Optional[dict]:
+        """This dispatch shape's static cost record
+        (``serving/programs.static_cost``); None for an adaptive op, whose
+        work depends on its rows."""
+        if op in self._ADAPTIVE_OPS:
+            return None
+        return static_cost(self.cfg, op, k, bucket)
+
+    def _prof_adaptive(self, inf: _InFlight, out: np.ndarray):
+        """``(flops, total k_used)`` of an adaptive dispatch from the
+        fetched rows, or None for fixed-k ops (none here)."""
+        return None
+
+    def _device_seconds(self, inf: _InFlight, now: float) -> float:
+        """The dispatch's device interval (module docstring): the timing
+        events' on the card, else the host's from the store call to the
+        fetched result."""
+        if inf.start is not None:
+            return inf.start.elapsed_time(inf.event) / 1e3
+        return now - inf.t_args
+
+    def _profile_dispatch(self, inf: _InFlight, now: float,
+                          out: np.ndarray) -> None:
+        """One profiler observation per dispatch, at its (program, bucket,
+        k-class) key."""
+        flops = self._prof_flops(inf.op, inf.k, len(inf.batch))
+        samples = None
+        adaptive = self._prof_adaptive(inf, out)
+        if adaptive is not None:
+            flops, samples = adaptive
+        self.profiler.observe(
+            program=self._aot_name(inf.op), bucket=inf.bucket,
+            k_class=self._stamp_k(inf.op, inf.k), rows=len(inf.batch),
+            device_s=self._device_seconds(inf, now), flops=flops,
+            cost=self._static_cost_for(inf.op, inf.k, inf.bucket),
+            samples=samples)
 
     def _trace_attrs(self, op: str, k: int, bucket: int, n: int) -> dict:
         """Attrs of a traced dispatch's ``engine/dispatch`` span (the
@@ -733,9 +828,11 @@ class ServingEngine:
         """Stage two: fetch, slice padding, complete this batch's futures."""
         t_fetch0 = self._clock()
         try:
-            # a raise here models a deferred device failure
-            fault_point(SITE_ENGINE_FETCH, engine=self, op=inf.op)
-            out = self._fetch(inf)
+            with span(f"serve/complete/{inf.op}",
+                      registry=self.metrics.registry):
+                # a raise here models a deferred device failure
+                fault_point(SITE_ENGINE_FETCH, engine=self, op=inf.op)
+                out = self._fetch(inf)
         except Exception as e:
             if inf.pin is not None:
                 inf.pin.release()
@@ -749,6 +846,8 @@ class ServingEngine:
             # the batch is complete: its program may be evicted again
             inf.pin.release()
         now = self._clock()
+        if self.profiler is not None:
+            self._profile_dispatch(inf, now, out)
         self._emit_trace_spans(inf, t_fetch0, now)
         for i, r in enumerate(inf.batch):
             self.metrics.record_latency(inf.op, inf.bucket, now - r.t_enqueue)
@@ -780,6 +879,10 @@ class ServingEngine:
         ``{"programs": N, "captures": C, "builds": B, "seconds": S}``: C
         the programs the store did not hold, B the kernel builds it took (a
         replica joining over resident programs: 0 and 0)."""
+        with span("serve/warmup", registry=self.metrics.registry):
+            return self._warmup(ops)
+
+    def _warmup(self, ops: Sequence[str]) -> Dict[str, float]:
         b0 = cc.kernel_builds()
         t0 = time.perf_counter()
         n_programs = captures = 0

@@ -502,9 +502,13 @@ class ReplicaRouter:
         return any(r.serves(op) for r in self._replicas)
 
     def profilers(self) -> tuple:
-        """The replica engines' dispatch profilers: none until the
-        profiling plane is ported (ROADMAP A10), so an empty tuple."""
-        return ()
+        """The live :class:`~...telemetry.profiling.DispatchProfiler` of
+        every replica engine that carries one (in-process engines do by
+        default; RemoteEngine proxies and fakes do not): the ``/prof``
+        view's backing set. Lock-free: the replica list is copy-on-write,
+        the same basis as :meth:`serves_op`."""
+        return tuple(p for p in (getattr(r.engine, "profiler", None)
+                                 for r in self._replicas) if p is not None)
 
     def replica_states(self) -> List[dict]:
         with self._lock:

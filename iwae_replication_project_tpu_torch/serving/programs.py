@@ -193,6 +193,59 @@ def program_bytes(cfg: model.ModelConfig, op: str, k: int,
     return f * (static + peak + kept)
 
 
+def static_cost(cfg: model.ModelConfig, op: str, k: int,
+                bucket: int) -> dict:
+    """The static cost record of one program at (k, bucket), the counterpart
+    of the JAX store's trace-time ``static_cost`` (the port traces nothing):
+    ``flops``, the analytic matmul FLOPs of the program's layers at the
+    bucket's rows (``utils/flops.py``'s accounting: score the whole forward,
+    encode the encoder, decode the decoder), and ``bytes_accessed_fused``,
+    the traffic no schedule avoids: the weights the program reads, at their
+    dtype, plus the payload, the injected noise and the output, each read
+    or written once. The profiler divides by it (``prof/hbm_frac``,
+    ``static_floor_s``)."""
+    from iwae_replication_project_tpu_torch.utils.flops import (
+        forward_flops,
+        output_block_macs,
+        stochastic_block_macs,
+    )
+
+    def block_params(i, h, o):          # weights and biases
+        return stochastic_block_macs(i, h, o) + 2 * h + 2 * o
+
+    enc = list(zip([cfg.x_dim] + list(cfg.n_latent_enc[:-1]),
+                   cfg.n_hidden_enc, cfg.n_latent_enc))
+    top_down = list(cfg.n_latent_enc[-1:]) + list(cfg.n_latent_dec)
+    dec = list(zip(top_down[:-2], cfg.n_hidden_dec[:-1],
+                   cfg.n_latent_dec[:-1]))
+    i, h, o = top_down[-2], cfg.n_hidden_dec[-1], cfg.x_dim
+    out_macs = output_block_macs(i, h, o)
+    enc_params = sum(block_params(*b) for b in enc)
+    dec_params = sum(block_params(*b) for b in dec) + out_macs + 2 * h + o
+    dec_macs = sum(stochastic_block_macs(*b) for b in dec) + out_macs
+    w = 4       # weights, payload, noise and output are all stored fp32
+    if op == "decode":
+        flops = 2.0 * bucket * dec_macs
+        weights = dec_params
+        io = bucket * (cfg.n_latent_enc[-1] + sum(cfg.n_latent_dec[:-1])
+                       + cfg.x_dim)
+    else:
+        noise = k * bucket * sum(cfg.n_latent_enc)
+        payload = bucket * cfg.x_dim
+        if op == "score":
+            flops = forward_flops(cfg, bucket, k)
+            weights = enc_params + dec_params
+            io = payload + noise + bucket
+        else:
+            first = stochastic_block_macs(*enc[0])
+            flops = 2.0 * (bucket * first + k * bucket * sum(
+                stochastic_block_macs(*b) for b in enc[1:]))
+            weights = enc_params
+            io = payload + noise + bucket * cfg.n_latent_enc[-1]
+    return {"flops": float(flops),
+            "bytes_accessed_fused": float(w * (weights + io))}
+
+
 #: op name -> the program arguments whose leading axis carries the engine's
 #: zero-filled padding rows (the JAX audit's contract, :188-203): a padded
 #: row must never reach a real row's result

@@ -178,6 +178,21 @@ class ShardedScoreEngine(ServingEngine):
         never per request k."""
         return "dyn"
 
+    def _prof_adaptive(self, inf, out):
+        """An adaptive dispatch's ``(flops, total k_used)`` at each row's
+        own ``k_used`` (the result's third column), never the cap: a batch
+        of easy rows bills what it computed. The base engine's
+        :meth:`_prof_flops` already counts a score dispatch at the
+        request's own k under the bucket's ``"dyn"`` key."""
+        if inf.op not in self._ADAPTIVE_OPS or out is None:
+            return None
+        from iwae_replication_project_tpu_torch.utils.flops import (
+            serving_score_flops_per_row)
+        k_used = out[:len(inf.batch), 2]
+        flops = float(sum(serving_score_flops_per_row(self.cfg, int(ku))
+                          for ku in k_used))
+        return flops, float(k_used.sum())
+
     def _trace_attrs(self, op: str, k: int, bucket: int, n: int) -> dict:
         """The base attrs plus the streaming shape, so a large-k dispatch's
         time in a trace reads against its blocks: the request k (the cap

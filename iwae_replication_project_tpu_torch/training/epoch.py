@@ -65,6 +65,7 @@ from iwae_replication_project_tpu_torch.telemetry.diagnostics import (
     grad_accum_update,
     grad_snr_summary,
 )
+from iwae_replication_project_tpu_torch.telemetry.spans import spanned
 from iwae_replication_project_tpu_torch.training.train_step import (
     make_train_step,
 )
@@ -171,6 +172,9 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
     first_in_window = n_batches - window
     step = make_train_step(spec, cfg) if value_and_grad is None \
         else make_train_step(spec, cfg, value_and_grad)
+    # the step's body without its train/step span: a span inside a captured
+    # step would run at capture time only
+    step = getattr(step, "__wrapped__", step)
     n_losses = n_batches * epochs_per_call
     lo, hi = shard if shard is not None else (0, batch_size)
     if not 0 <= lo < hi <= batch_size:
@@ -271,4 +275,5 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
     name = f"epoch_{spec.name}_k{spec.k}" if epochs_per_call == 1 \
         else f"epoch_block{epochs_per_call}_{spec.name}_k{spec.k}"
     epoch.__name__ = epoch.__qualname__ = name
-    return epoch
+    return spanned(epoch, "train/epoch" if epochs_per_call == 1
+                   else "train/epoch_block")

@@ -34,6 +34,7 @@ from iwae_replication_project_tpu_torch.objectives import (
     ObjectiveSpec,
     objective_value_and_grad,
 )
+from iwae_replication_project_tpu_torch.telemetry.spans import spanned
 from iwae_replication_project_tpu_torch.utils.device import resolve_device
 from iwae_replication_project_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -141,6 +142,10 @@ def make_train_step(spec: ObjectiveSpec, cfg: model.ModelConfig,
     grads)`` replaces :func:`..objectives.objective_value_and_grad` of
     `spec`: the seam through which ``parallel/dp.py`` hands in the
     mesh's, whose gradients are already reduced over the ranks.
+
+    The step runs under a ``train/step`` span; ``training/epoch.py`` runs
+    its unspanned body (``step.__wrapped__``), as the JAX epoch runs
+    ``make_train_step_fn``'s, so no span sits inside a captured step.
     """
     if value_and_grad is None:
         def value_and_grad(params, batch, *, generator=None, eps=None):
@@ -155,4 +160,4 @@ def make_train_step(spec: ObjectiveSpec, cfg: model.ModelConfig,
         loss = -bound
         return state, {"loss": loss, spec.name: loss, "grads": grads}
 
-    return step
+    return spanned(step, "train/step")

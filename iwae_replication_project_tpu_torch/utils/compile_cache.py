@@ -34,11 +34,17 @@ What differs from the JAX store:
   this slice), the entry is the eager program (:class:`EagerProgram`), so
   the store's bookkeeping is the same everywhere.
 * **The bill.** JAX bills an entry the ``peak_bytes`` of its trace-time
-  cost record. The port bills the bytes the caller reckons from the
-  program's shapes (``serving.programs.program_bytes``: the static buffers
-  plus the largest live activations at its bucket and k), or, without one,
-  the bytes of its tensor arguments. A :class:`GraphProgram` also records
-  the bytes its capture reserved (``pool_bytes``) beside the bill.
+  cost record. The port bills the larger of two numbers: the bytes the
+  caller reckons from the program's shapes
+  (``serving.programs.program_bytes``: the static buffers plus the largest
+  live activations at its bucket and k; without one, the bytes of its
+  tensor arguments) and, for a :class:`GraphProgram`, the device bytes the
+  capture holds (``pool_bytes``: the segments of the graph's private pool,
+  read from the caching allocator's snapshot by the pool's id, plus the
+  static input buffers). The allocator reserves whole segments, so on the
+  card the second is the larger, and the budget bounds device bytes; an
+  eager entry holds none (``pool_bytes`` 0), so CPU bills are the
+  reckoned ones.
 * **Eviction, readmission and builds.** Eviction drops the graph, its
   static buffers and its pool (the pool's memory returns to the caching
   allocator, which gives it back to the device at its next
@@ -80,6 +86,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from iwae_replication_project_tpu_torch.telemetry.spans import span
 from iwae_replication_project_tpu_torch.utils.faults import (
     SITE_AOT_CALL_ASYNC,
     fault_point,
@@ -153,7 +160,6 @@ class GraphProgram:
 
         with _capture_lock, torch.inference_mode(), torch.cuda.device(dev), \
                 torch.cuda.stream(side):
-            reserved0 = torch.cuda.memory_reserved(dev)
             self._static = [t.clone() for t in tensors]
             if warm:
                 fn(*self._static)
@@ -165,8 +171,11 @@ class GraphProgram:
                     out = fn(*self._static)
                 finally:
                     graph.capture_end()
-            #: bytes the static buffers and the capture reserved
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
+            #: the device bytes this entry holds: the segments of the
+            #: graph's private pool (the capture's intermediates and its
+            #: output) plus the static input buffers, which live outside it
+            self.pool_bytes = _pool_segment_bytes(dev, graph.pool()) + sum(
+                t.numel() * t.element_size() for t in self._static)
         cur.wait_stream(side)
         #: the kernel launches of one replay
         self.launches = dict(tally)
@@ -208,6 +217,20 @@ class GraphProgram:
             self._out = None
             self._static = []
             self._done = None
+
+
+def _pool_segment_bytes(device, pool) -> int:
+    """Bytes of the caching allocator's segments that belong to the memory
+    pool `pool` (a ``CUDAGraph.pool()`` id) on `device`. Unlike a
+    ``memory_reserved`` delta it neither counts blocks another thread
+    reserved meanwhile nor misses blocks of the general pool that a capture
+    reused."""
+    pool = tuple(pool)
+    index = torch.device(device).index
+    return sum(seg["total_size"]
+               for seg in torch.cuda.memory._snapshot(device)["segments"]
+               if tuple(seg["segment_pool_id"]) == pool
+               and seg["device"] == index)
 
 
 def _release(entries) -> None:
@@ -483,7 +506,10 @@ class ExecutableStore:
                 exe = prev.exe
             else:
                 self._demoted.pop(key, None)
-                entry = _StoreEntry(exe, nbytes)
+                # a captured entry is billed at least the bytes it holds
+                entry = _StoreEntry(exe, max(int(nbytes),
+                                             int(getattr(exe, "pool_bytes",
+                                                         0))))
                 self._entries[key] = entry
                 self._resident += entry.bytes
                 self._count("misses", model)
@@ -664,16 +690,21 @@ def aot_call_async(name: str, fn: Callable, args: Tuple = (),
     `args` when ``graph``, else the eager `fn`; billed `nbytes`, or the
     arguments' bytes), pinned for the resolve and the enqueue; then the
     fault point ``SITE_AOT_CALL_ASYNC`` fires (``name=``) and the entry
-    runs on the current stream. ``build_key`` must hold everything `fn`
-    bakes in, the weights' identity included: two programs must never share
-    a slot. `sig` replaces the signature of the arguments (a caller whose
-    arguments carry per-request values keys on their shapes alone)."""
+    runs on the current stream under the span ``aot/<name>``.
+    ``build_key`` must hold everything `fn` bakes in, the weights' identity
+    included: two programs must never share a slot. `sig` replaces the
+    signature of the arguments (a caller whose arguments carry per-request
+    values keys on their shapes alone)."""
     kwargs = kwargs or {}
     with _store.pinned(model, name, build_key):
         exe, hit = _resolve(name, fn, args, kwargs, build_key, model,
                             nbytes, graph, True, sig)
         fault_point(SITE_AOT_CALL_ASYNC, name=name)
-        return exe(*args, **kwargs), hit
+        # every store dispatch funnels through here: one span site for all
+        # of them, in the process registry (the host time of the enqueue or
+        # the graph's replay, not the device's completion)
+        with span(f"aot/{name}"):
+            return exe(*args, **kwargs), hit
 
 
 def aot_call(name: str, fn: Callable, args: Tuple = (),

@@ -836,3 +836,57 @@ def test_scale_events_with_real_engines_match_a_static_tier():
                        for e in [first] + list(tier.router.engines)) >= 10
         finally:
             tier.stop(timeout_s=10)
+
+
+# ---------------------------------------------------------------------------
+# the last-replica guard (the port's own rule; JAX's manager drains any
+# victim the controller picks)
+# ---------------------------------------------------------------------------
+
+def _two_model_manager(models, clock):
+    engines = [FakeEngine("auto", model=m) for m in models]
+    router = ReplicaRouter(engines, clock=clock)
+    slo = SLOMonitor(registry=router.registry, clock=clock,
+                     default=SLOObjective(latency_s=0.01))
+
+    class StubTier:
+        pass
+
+    tier = StubTier()
+    tier.router, tier.slo, tier.clock = router, slo, clock
+    mgr = FleetManager(
+        tier, lambda: FakeEngine("auto", model=models[0]),
+        AutoscaleConfig(min_replicas=1, max_replicas=4, up_cooldown_s=0.0,
+                        down_cooldown_s=0.0),
+        store=StubStore(), warm_join=True, clock=clock)
+    return mgr, engines
+
+
+def test_scale_down_never_drains_a_models_last_replica():
+    """A two-model router with a spare replica of model "a": asked to drain
+    model "b"'s only replica, scale_down drains a spare of "a" instead;
+    with every model at one replica it raises, and the manager's step
+    holds both replicas and logs the refused actuation."""
+    clock = FakeClock()
+    mgr, engines = _two_model_manager(["a", "a", "b"], clock)
+    only_b = next(s["index"] for s in mgr.router.replica_states()
+                  if s["model"] == "b")
+    victim = mgr.scale_down(victim=only_b)
+    assert victim != only_b
+    left = mgr.router.replica_states()
+    assert sorted(s["model"] for s in left) == ["a", "b"]
+    assert mgr.retired == [engines[victim]] and engines[victim].stopped
+    with pytest.raises(ValueError, match="last replica"):
+        mgr.scale_down(victim=only_b)
+    with pytest.raises(ValueError, match="last replica"):
+        mgr.scale_down()
+    # idle long enough for the controller to decide "down": the step
+    # returns its decision, but no replica leaves
+    clock.t = 5000.0
+    d = mgr.step()
+    assert d.action == "down"
+    assert sorted(s["model"] for s in mgr.router.replica_states()) == \
+        ["a", "b"]
+    assert mgr.placement_log[-1]["event"] == "actuation-error"
+    assert "last replica" in mgr.placement_log[-1]["error"]
+    mgr.router.drain(timeout_s=5)

@@ -1,8 +1,10 @@
 """The executable store's CUDA graphs and the fleet's warm join on the card
 (utils/compile_cache.py, serving/engine.py, serving/fleet/): every bucket's
 replayed graph is bitwise its eager program, an evicted program readmits by
-re-capture with no kernel build, and a replica joining over resident
-programs captures nothing. Small widths whose output block the kernels
+re-capture with no kernel build, a replica joining over resident
+programs captures nothing, and two models' engines dispatching from their
+own threads under a one-model budget readmit each other's programs and
+serve every row bitwise. Small widths whose output block the kernels
 take; the flagship runs in chip_smoke.py's phase 12.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
@@ -10,6 +12,8 @@ one. The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fleet_cuda.py -m cuda
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -30,6 +34,11 @@ K = 50
 CFG = ModelConfig(n_hidden_enc=(64, 32), n_latent_enc=(16, 8),
                   n_hidden_dec=(32, 64), n_latent_dec=(16, 784),
                   likelihood="logits", compute_dtype="bfloat16")
+#: a second model for the concurrent readmits: one stochastic layer, the
+#: same output block widths
+CFG_B = ModelConfig(n_hidden_enc=(64,), n_latent_enc=(16,),
+                    n_hidden_dec=(64,), n_latent_dec=(784,),
+                    likelihood="logits", compute_dtype="bfloat16")
 
 
 @pytest.fixture
@@ -138,3 +147,75 @@ def test_warm_join_captures_nothing_and_matches(cuda, params):
             assert np.array_equal(got, want)
         finally:
             tier.stop(timeout_s=30)
+
+
+@pytest.mark.cuda
+def test_concurrent_readmits_serve_every_row_bitwise(cuda, params):
+    """Two models' engines, each started, dispatch ragged score batches
+    from their own threads while the store's budget holds about one
+    model's programs: the models evict and readmit each other's graphs
+    (captures on the store's high-priority stream under its capture lock,
+    beside the other engine's replays). Every result must be ok and
+    bitwise what a dedicated engine of its model serves."""
+    models = {"a": (CFG, params),
+              "b": (CFG_B, init_params(torch.Generator().manual_seed(5),
+                                       CFG_B))}
+    sizes = [1, 3, 16, 2, 9, 5, 12, 1, 7, 16, 4, 11]
+    batches = {m: [(_rows(n, seed=100 * i + j), list(range(j * 16,
+                                                            j * 16 + n)))
+                   for j, n in enumerate(sizes)]
+               for i, m in enumerate(models)}
+
+    def engine(m):
+        cfg, p = models[m]
+        return ServingEngine(params=p, model_config=cfg, k=K, max_batch=16,
+                             timeout_s=60.0, model=m)
+
+    want = {}
+    with cc.isolated_aot_registry(budget_bytes=None):
+        for m in models:
+            eng = engine(m)
+            want[m] = []
+            for x, seeds in batches[m]:
+                futs = [eng.submit("score", row, seed=s)
+                        for row, s in zip(x, seeds)]
+                eng.flush()
+                want[m].append(np.stack([f.result(timeout=60)
+                                         for f in futs]))
+    with cc.isolated_aot_registry(budget_bytes=None):
+        engines = {m: engine(m) for m in models}
+        for eng in engines.values():
+            eng.warmup(ops=("score",))
+        store = cc.executable_store()
+        one_model = max(store.model_costs().values())
+        store.set_budget(one_model)
+        s0 = cc.cache_stats()
+        got = {m: [] for m in models}
+        errors = []
+
+        def drive(m):
+            eng = engines[m].start()
+            try:
+                for x, seeds in batches[m]:
+                    futs = [eng.submit("score", row, seed=s)
+                            for row, s in zip(x, seeds)]
+                    got[m].append(np.stack([f.result(timeout=120)
+                                            for f in futs]))
+            except Exception as e:              # collected, then asserted
+                errors.append(f"{m}: {type(e).__name__}: {e}")
+            finally:
+                eng.stop()
+
+        threads = [threading.Thread(target=drive, args=(m,))
+                   for m in models]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        d = cc.stats_delta(s0)
+        assert not errors, errors
+        assert d["store_readmits"] > 0 and d["kernel_builds"] == 0
+        for m in models:
+            assert len(got[m]) == len(sizes)
+            for g, w in zip(got[m], want[m]):
+                assert np.array_equal(g, w), m

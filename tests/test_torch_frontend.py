@@ -1094,17 +1094,19 @@ def test_cli_client_interactive_forwards_job_ops(tiny):
     (["--models", "a,b"], None),
     (["--replicas", "2", "--autoscale"], None),
     (["--autoscale-min", "1"], None),
-    (["--metrics-port", "0"], "A10"),
+    (["--metrics-port", "0"], None),
     (["--store-budget-mb", "1"], None),
     (["--pin-core", "0"], "pinned"),
 ])
 def test_cli_refusals_name_their_roadmap_item(argv, match, capsys):
     """A flag still refused names its ROADMAP item; the multi-model
-    tier's and the fleet's flags (match None) are ported and parse."""
+    tier's, the fleet's and the metrics page's flags (match None) are
+    ported and parse."""
     if match is None:
         args = cli.build_argparser().parse_args(argv)
         assert args.models == "a,b" or args.autoscale or \
-            args.autoscale_min == 1 or args.store_budget_mb == 1
+            args.autoscale_min == 1 or args.store_budget_mb == 1 or \
+            args.metrics_port == 0
         return
     with pytest.raises(SystemExit) as e:
         cli.build_argparser().parse_args(argv)

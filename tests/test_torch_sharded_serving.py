@@ -845,17 +845,19 @@ def test_cli_checkpoint_load_with_log_dir(run_dir, tmp_path, capsys):
     (["--autoscale-dry-run"], None),
     (["--sharded-replicas", "1", "--autoscale-min", "1"], None),
     (["--autoscale"], None),
-    (["--metrics-port", "0"], "A10"),
+    (["--metrics-port", "0"], None),
     (["--store-budget-mb", "10"], None),
     (["--checkpoint", "a", "--preset", "b"], "not allowed"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match, capsys):
     """What the port lacks is an argparse error with its reason; the
-    fleet's and the store's flags (match None) are ported and parse."""
+    fleet's, the store's and the metrics page's flags (match None) are
+    ported and parse."""
     if match is None:
         args = cli.build_argparser().parse_args(argv)
         assert args.autoscale or args.autoscale_dry_run or \
-            args.autoscale_min == 1 or args.store_budget_mb == 10
+            args.autoscale_min == 1 or args.store_budget_mb == 10 or \
+            args.metrics_port == 0
         return
     with pytest.raises(SystemExit) as e:
         cli.build_argparser().parse_args(argv)
