@@ -2604,26 +2604,71 @@ def sum_bound_ms(outer, r, inner) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+#: phase 3d's dense layers (M, K, N, tanh, timed): the flagship's served
+#: shapes at a 64-row bucket, k=50 (the encoder's first block at 64 rows,
+#: the rest at 3200, decode's output block at 64), and ragged ones
+ROW_DENSE_SHAPES = [(64, 784, 200, True, True), (64, 200, 100, False, True),
+                    (3200, 100, 100, True, True),
+                    (3200, 100, 50, False, True),
+                    (3200, 50, 100, True, True),
+                    (3200, 100, 100, False, True),
+                    (64, 200, 784, False, True), (1, 784, 200, True, False),
+                    (7, 37, 130, True, False), (64, 200, 200, True, True)]
+#: phase 3d's sums (shape, dim): the latents' and a score's sums over the
+#: last axis, the logsumexp's and encode's sums over k, ragged ones
+ROW_SUM_SHAPES = [((50, 64, 100), -1), ((50, 64, 50), -1), ((50, 64), 0),
+                  ((50, 64, 50), 0), ((1, 1, 784), -1), ((250, 8), 0)]
+
+
+def row_dense_inputs(torch, m, k, n, seed):
+    """Phase 3d's operands of one dense layer, drawn on the host."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).cuda()
+    w = (torch.randn((k, n), generator=g) * k ** -0.5).cuda()
+    b = (torch.randn((n,), generator=g) * 0.1).cuda()
+    return x, w, b
+
+
+def row_dense_times(torch, ri, x, w, b, cd, tanh) -> dict:
+    """:func:`timings` of ``ri.dense`` beside its plain version, and the
+    library call computing the same product (``torch.addmm`` on the same,
+    already rounded operands) back to back and replayed."""
+    xr, wr = (x.to(cd).float(), w.to(cd).float()) if cd else (x, w)
+    t = timings(lambda: ri.dense(x, w, b, cd, tanh),
+                lambda: ri.dense_plain(x, w, b, cd, tanh), torch)
+    t["library_ms"] = time_ms(lambda: torch.addmm(b, xr, wr), torch)
+    t["library_graph_ms"] = device_ms(lambda: torch.addmm(b, xr, wr), torch)
+    return t
+
+
+def row_sum_times(torch, ri, x, dim) -> dict:
+    """:func:`timings` of ``ri.fixed_sum``; its plain version is the
+    library call, ``torch.sum``."""
+    t = timings(lambda: ri.fixed_sum(x, dim),
+                lambda: torch.sum(x, dim=dim), torch)
+    t["library_ms"], t["library_graph_ms"] = t["plain_ms"], \
+        t["plain_graph_ms"]
+    return t
+
+
+def sum_dims(shape, dim) -> tuple:
+    """(outer, R, inner) of a sum of `shape` over `dim`."""
+    d = dim % len(shape)
+    return math.prod(shape[:d]), shape[d], math.prod(shape[d + 1:])
+
+
 def check_row_kernels(torch, ri):
     """Phase 3d: the serving programs' row-invariant kernels against their
-    plain versions at the flagship's serving shapes (a 64-row bucket, k=50:
-    the encoder's first block at 64 rows, the rest at 3200, the decode
-    output block at 64), timed with the library call computing the same
-    function (``torch.addmm`` on the same, already rounded operands;
-    ``torch.sum``). Returns (two records for the JSON line, ok)."""
-    dense_shapes = [(64, 784, 200, True), (64, 200, 100, False),
-                    (3200, 100, 100, True), (3200, 100, 50, False),
-                    (3200, 50, 100, True), (3200, 100, 100, False),
-                    (64, 200, 784, False), (1, 784, 200, True),
-                    (7, 37, 130, True)]
+    plain versions at :data:`ROW_DENSE_SHAPES` and :data:`ROW_SUM_SHAPES`,
+    the timed ones with the library call computing the same function
+    (``torch.addmm``; ``torch.sum``), back to back and replayed, and each
+    dense layer's CTAs as the plan chose them. Returns (two records for
+    the JSON line, ok)."""
     ok, worst_d, main_d = True, 0.0, None
     for dtype in ("fp32", "bf16"):
         cd = torch.bfloat16 if dtype == "bf16" else None
-        for i, (m, k, n, tanh) in enumerate(dense_shapes):
-            g = torch.Generator().manual_seed(100 + i)
-            x = torch.randn((m, k), generator=g).cuda()
-            w = (torch.randn((k, n), generator=g) * k ** -0.5).cuda()
-            b = (torch.randn((n,), generator=g) * 0.1).cuda()
+        for i, (m, k, n, tanh, timed) in enumerate(ROW_DENSE_SHAPES):
+            x, w, b = row_dense_inputs(torch, m, k, n, 100 + i)
             got = ri.dense(x, w, b, cd, tanh)
             want = ri.dense_plain(x, w, b, cd, tanh)
             torch.cuda.synchronize()
@@ -2631,54 +2676,56 @@ def check_row_kernels(torch, ri):
             # the same products in another order: K terms whose absolute
             # sum is ~20 here, so ~sqrt(K) 2^-24 20 apart; 2e-4 allows it
             within = err <= 2e-4 and bool(torch.isfinite(got).all())
+            tile = ri.dense_plan(m, n)
+            ctas = ri.dense_ctas(m, n, k, cd is not None)
+            launched = ri.kernel_ctas(m, n, k, cd is not None)
+            within &= ctas == launched
             ok &= within
             worst_d = max(worst_d, err)
             line = (f"kernel row_dense {dtype} M={m} K={k} N={n} "
-                    f"tanh={tanh}: max_abs_err={err:.3e} tol=2e-4 "
+                    f"tanh={tanh}: max_abs_err={err:.3e} tol=2e-4 tile="
+                    f"{tile[0]}x{tile[1]} parts of K="
+                    f"{ri.dense_splits(k, cd is not None)} ctas={launched} "
+                    f"(planned {ctas}) "
                     f"{'ok' if within else 'OUT OF TOLERANCE'}")
-            if m in (64, 3200) and i < 7:
-                xr, wr = (x.to(cd).float(), w.to(cd).float()) if cd \
-                    else (x, w)
-                t = timings(lambda: ri.dense(x, w, b, cd, tanh),
-                            lambda: ri.dense_plain(x, w, b, cd, tanh),
-                            torch)
-                lib = time_ms(lambda: torch.addmm(b, xr, wr), torch)
+            if timed:
+                t = row_dense_times(torch, ri, x, w, b, cd, tanh)
                 bound, by = dense_bound_ms(m, k, n, dtype)
                 line += timing_text(t, bound, by, 2.0 * m * k * n) + \
-                    f" library_ms(torch.addmm)={lib:.4f}"
+                    (f" library_ms(torch.addmm)={t['library_ms']:.4f} "
+                     f"library_graph_ms={t['library_graph_ms']:.4f}")
                 if dtype == "bf16" and (m, k, n, tanh) == (3200, 100, 100,
                                                            False):
-                    main_d = dict(t, bound_ms=bound, bound_by=by,
-                                  library_ms=lib)
+                    main_d = dict(t, bound_ms=bound, bound_by=by)
             print(line, flush=True)
-    sum_shapes = [((50, 64, 100), -1), ((50, 64, 50), -1), ((50, 64), 0),
-                  ((50, 64, 50), 0), ((1, 1, 784), -1), ((250, 8), 0)]
     worst_s, main_s = 0.0, None
-    for i, (shape, dim) in enumerate(sum_shapes):
+    for i, (shape, dim) in enumerate(ROW_SUM_SHAPES):
         g = torch.Generator().manual_seed(200 + i)
         x = torch.randn(shape, generator=g).cuda()
         got = ri.fixed_sum(x, dim)
         want = torch.sum(x, dim=dim)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        # fp32 terms of magnitude ~1 added in another order, at most 784
-        within = err <= 1e-4 and bool(torch.isfinite(got).all())
+        # fp32 terms of magnitude ~1 added in another order, at most 784;
+        # and bitwise the in-order chain each output's thread adds
+        in_order = torch.equal(got, ri.sum_in_order(x, dim))
+        within = err <= 1e-4 and bool(torch.isfinite(got).all()) \
+            and in_order
         ok &= within
         worst_s = max(worst_s, err)
-        d = dim % len(shape)
-        outer, r, inner = (math.prod(shape[:d]), shape[d],
-                           math.prod(shape[d + 1:]))
-        t = timings(lambda: ri.fixed_sum(x, dim),
-                    lambda: torch.sum(x, dim=dim), torch)
-        bound, by = sum_bound_ms(outer, r, inner)
+        t = row_sum_times(torch, ri, x, dim)
+        bound, by = sum_bound_ms(*sum_dims(shape, dim))
         line = (f"kernel row_sum {tuple(shape)} dim={dim}: "
-                f"max_abs_err={err:.3e} tol=1e-4 "
+                f"max_abs_err={err:.3e} tol=1e-4 bitwise the in-order sum="
+                f"{in_order} "
                 f"{'ok' if within else 'OUT OF TOLERANCE'}"
                 + timing_text(t, bound, by)
-                + f" library_ms(torch.sum)={t['plain_ms']:.4f}")
+                + f" bound_us={bound * 1e3:.4f} graph_bound_share="
+                f"{bound / t['graph_ms']:.3%} library_ms(torch.sum)="
+                f"{t['library_ms']:.4f} library_graph_ms="
+                f"{t['library_graph_ms']:.4f}")
         if i == 0:
-            main_s = dict(t, bound_ms=bound, bound_by=by,
-                          library_ms=t["plain_ms"])
+            main_s = dict(t, bound_ms=bound, bound_by=by)
         print(line, flush=True)
     src = "iwae_replication_project_tpu_torch/csrc/"
     why = ("no TPU kernel: the serving programs' cuBLAS GEMMs and torch.sum "

@@ -11,138 +11,448 @@
 // ops/hot_loop.serving_dispatch_config on CUDA).
 //
 // What it computes, for x [M, K], W [K, N], b [N] (contiguous fp32):
-//   y[m, n] = act(b[n] + sum_{k=0}^{K-1} op(x[m, k]) op(W[k, n]))
+//   y[m, n] = act(b[n] + sum_k op(x[m, k]) op(W[k, n]))
 // where op rounds to bf16 (round to nearest even, as .to(bfloat16)) when
 // bf16 = 1 and is the identity otherwise, and act is tanh or the identity.
-// The sum runs k = 0, 1, ..., K-1 as one chain of fused multiply-adds into an
-// fp32 accumulator that starts at 0, then adds the bias: the arithmetic of an
-// output depends on its row of x, its column of W and K only. Neither M, the
-// tile a row lands in, nor its position in the tile changes it, and nothing
-// is split over K. A product of two bf16 values is exact in fp32, so with
-// bf16 = 1 this is dense_apply's bf16 semantics (JAX jnp.dot on bf16 operands
-// with fp32 accumulation) summed in one fixed order.
 //
-// Bound: 2 M K N operations against 4 (M K + K N + N + M N) bytes. The
-// serving layers are small (K, N <= 784, M = bucket or k * bucket <= 3200 at
-// the flagship), ~100 FLOP per byte at most: below the H100's
-// operations-per-byte ridge in fp32 on the CUDA cores (67 TFLOP/s over
-// 3.35 TB/s = 20) only for the narrowest layers, so most are bound by
-// operations on the CUDA cores. This first version runs every product on the
-// CUDA cores, so bf16 operands do not reach the tensor cores' rate; a later
-// version can use mma.sync with a fixed accumulation order, as B1 does
-// (tc_bf16.cuh).
+// The order of the sum, which is what keeps a row's bits the same in every
+// bucket (contract C6):
+//  - bf16: K is cut into P parts of whole 64-wide slabs, P a function of K
+//    alone (1 up to K = 256, then ceil(slabs / 4), at most 8). In each part
+//    one fp32 accumulator per output, starting at 0, takes the products of
+//    the part's k16 steps in index order, K zero-padded to a multiple of 16,
+//    each step one mma.sync.m16n8k16 (bf16 x bf16 -> fp32) on the tensor
+//    cores; then the parts' sums are added in part order 0, 1, ..., P - 1;
+//  - fp32: one chain of fused multiply-adds per output on the CUDA cores,
+//    k = 0, 1, ..., K - 1 in order (then exact zeros up to the next multiple
+//    of 16), never cut: bitwise the first version of this kernel;
+// then the bias is added and act applied. None of it depends on M, on the
+// tile a row lands in, on its place in the tile or on the grid: every tile
+// of the menu walks the same steps with the same instruction per output,
+// rows and columns start at multiples of 16 and 8 so an output keeps its
+// place in its mma fragment. No atomics, no scratch in device memory: the
+// parts meet in shared memory.
 //
-// Design: a 256-thread CTA owns a 64 x 64 output tile, each thread a 4 x 4
-// micro-tile; x and W stream through shared memory in slabs of 16 along K
-// (rounded to bf16 as they are staged), and each thread walks the slab's
-// 16 k in order. Rows past M and columns past N compute on zeros and are not
-// written; K's ragged last slab adds exact zeros.
+// Bound: 2 M K N operations against 4 (M K + K N + N + M N) bytes. At the
+// serving shapes (K, N <= 784; M = a bucket of 1-64 rows for the encoder's
+// first block and decode's output block, k x bucket <= 3200 rows for the
+// rest) the bound is under a microsecond either way: bytes for most
+// layers, the CUDA cores' rate for the wider fp32 ones. What holds the
+// kernel back is latency, and on the card (PERF.md §6) the bytes one
+// CTA pulls through its SM, at a rate far under the SM's: the 64-row,
+// K = 784 layer needs more CTAs than its output tiles give.
+//
+// Design:
+//  - the grid: output tiles from a fixed menu (64x64, 32x64, 16x64, 16x32),
+//    chosen by the caller from (M, N) alone (ops/row_invariant.dense_tile:
+//    the largest tile that still gives each of the 132 SMs a CTA, else the
+//    smallest), times the P parts of K along z, the parts of a tile one
+//    thread-block cluster. 64x784x200 in bf16 runs 28 tiles x 4 parts,
+//    3200x100x100 200 tiles;
+//  - the loads: x and W stream through shared memory in slabs of 64 along K
+//    by cp.async (16-byte copies where K, or N, is a multiple of 4 and the
+//    base is aligned, 4-byte ones otherwise; zero-filled past M, N and K),
+//    in a ring of 3-8 slots (about 110 KB a CTA), so the next slabs' copies
+//    are in flight while this one's products run; a part of up to seven
+//    slabs on a 16-row tile (every served one) is in flight whole from the
+//    start;
+//  - bf16: the CTA's four warps each own 16 rows by 8-64 columns. A and B
+//    fragments are packed from the fp32 slab with the round to nearest even
+//    (cvt.rn.bf16x2.f32, tc::pack) as they are read, so the staged operands
+//    stay fp32 and one loader serves both types (ldmatrix needs bf16 in
+//    shared memory, which a copy engine cannot round to);
+//  - fp32: each thread owns TM x TN outputs spread over the tile (rows
+//    16 apart, columns 8 apart: the warp's reads of the slab fall in
+//    distinct banks or broadcast);
+//  - the epilogue: accumulators go through shared memory, so bias, tanh and
+//    the stores run row-major with neighbouring threads on neighbouring
+//    columns; with P parts each CTA of the cluster finishes a share of the
+//    tile, reading the P partial tiles through distributed shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cooperative_groups.h>
+
+#include <atomic>
+#include <type_traits>
+
+#include "tc_bf16.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
+namespace rd {
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+constexpr int THREADS = 128;   // four warps
+constexpr int BK = 64;         // a slab's extent along K
+constexpr int XS = BK + 8;     // row stride of a staged x slab (floats)
+constexpr int RING_BYTES = 114688;
+constexpr int MAX_STAGES = 8;
 
-template <bool BF16>
-__device__ __forceinline__ float op(float v) {
-  if (BF16) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
+// the menu of output tiles; the C interface's `tile` indexes it
+constexpr int NTILES = 4;
+constexpr int TILE_M[NTILES] = {64, 32, 16, 16};
+constexpr int TILE_N[NTILES] = {64, 64, 64, 32};
+
+template <int BM, int BN>
+struct Tile {
+  static constexpr int WS = BN + 4;  // row stride of a staged W slab
+  static constexpr int CS = BN + 4;  // row stride of the epilogue's tile
+  static constexpr int STAGE = BM * XS + BK * WS;  // floats in a slot
+  static constexpr int STAGES =
+      RING_BYTES / (STAGE * 4) < MAX_STAGES ? RING_BYTES / (STAGE * 4)
+                                            : MAX_STAGES;
+  static_assert(STAGES >= 2, "a ring needs two slots");
+  static_assert(BM * CS <= STAGE, "the epilogue reuses slot 0");
+};
+
+// x rows [m0, m0 + BM) and W columns [n0, n0 + BN), k in [k0, k0 + BK),
+// into one slot of the ring; zeros outside [0, M) x [0, K) x [0, N)
+template <int BM, int BN>
+__device__ __forceinline__ void load_slab(float* slot,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ w,
+                                          long m0, int n0, int k0, int M,
+                                          int K, int N, bool vx, bool vw) {
+  typedef Tile<BM, BN> T;
+  float* xs = slot;
+  float* ws = slot + BM * XS;
+  if (vx) {
+    for (int c = threadIdx.x; c < BM * (BK / 4); c += THREADS) {
+      const int r = c / (BK / 4), q = (c % (BK / 4)) * 4;
+      const long m = m0 + r;
+      const int k = k0 + q;
+      const bool in = m < M && k < K;  // K % 4 == 0: all four or none
+      tma::cp_async16_zfill(xs + r * XS + q, in ? x + m * K + k : x,
+                            in ? 16u : 0u);
+    }
+  } else {
+    for (int c = threadIdx.x; c < BM * BK; c += THREADS) {
+      const int r = c / BK, q = c % BK;
+      const long m = m0 + r;
+      const int k = k0 + q;
+      const bool in = m < M && k < K;
+      tma::cp_async4_zfill(xs + r * XS + q, in ? x + m * K + k : x,
+                           in ? 4u : 0u);
+    }
+  }
+  if (vw) {
+    for (int c = threadIdx.x; c < BK * (BN / 4); c += THREADS) {
+      const int r = c / (BN / 4), q = (c % (BN / 4)) * 4;
+      const int k = k0 + r, n = n0 + q;
+      const bool in = k < K && n < N;  // N % 4 == 0: all four or none
+      tma::cp_async16_zfill(ws + r * T::WS + q,
+                            in ? w + (long)k * N + n : w, in ? 16u : 0u);
+    }
+  } else {
+    for (int c = threadIdx.x; c < BK * BN; c += THREADS) {
+      const int r = c / BN, q = c % BN;
+      const int k = k0 + r, n = n0 + q;
+      const bool in = k < K && n < N;
+      tma::cp_async4_zfill(ws + r * T::WS + q, in ? w + (long)k * N + n : w,
+                           in ? 4u : 0u);
+    }
+  }
 }
 
-template <bool BF16, bool TANH>
+// The products of one staged slab, `steps` k16 steps of it, into the
+// thread's accumulators. bf16: warp `wid` owns rows [wr, wr + 16) and
+// columns [wc, wc + 8 NT) of the tile, acc[j] one m16n8 fragment.
+template <int BM, int BN>
+struct Bf16Math {
+  static constexpr int RG = BM / 16;      // warps along the rows
+  static constexpr int WC = 4 / RG;       // warps along the columns
+  static constexpr int NT = BN / WC / 8;  // n8 fragments of a warp
+  static constexpr int ACC = NT * 4;
+  static_assert(RG * WC == 4 && NT >= 1, "four warps cover the tile");
+
+  __device__ static void slab(float (&acc)[ACC], const float* slot,
+                              int steps) {
+    typedef Tile<BM, BN> T;
+    const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wr = (wid / WC) * 16, wc = (wid % WC) * (BN / WC);
+    const float* xa = slot + (wr + g) * XS + 2 * t;
+    const float* wb = slot + BM * XS + 2 * t * T::WS + wc + g;
+    for (int s = 0; s < steps; ++s) {
+      const int kk = 16 * s;
+      // A: rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9
+      const float2 p0 = *reinterpret_cast<const float2*>(xa + kk);
+      const float2 p1 = *reinterpret_cast<const float2*>(xa + 8 * XS + kk);
+      const float2 p2 = *reinterpret_cast<const float2*>(xa + kk + 8);
+      const float2 p3 =
+          *reinterpret_cast<const float2*>(xa + 8 * XS + kk + 8);
+      const uint32_t a[4] = {tc::pack(p0.x, p0.y), tc::pack(p1.x, p1.y),
+                             tc::pack(p2.x, p2.y), tc::pack(p3.x, p3.y)};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // B: rows 2t, 2t + 1 and 2t + 8, 2t + 9 of column g of fragment j
+        const float* pb = wb + kk * T::WS + 8 * j;
+        const uint32_t b0 = tc::pack(pb[0], pb[T::WS]);
+        const uint32_t b1 = tc::pack(pb[8 * T::WS], pb[9 * T::WS]);
+        tc::mma(&acc[4 * j], a, b0, b1);
+      }
+    }
+  }
+
+  // the accumulators into the epilogue's tile [BM][CS]
+  __device__ static void store(const float (&acc)[ACC], float* cs) {
+    typedef Tile<BM, BN> T;
+    const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wr = (wid / WC) * 16, wc = (wid % WC) * (BN / WC);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float* p = cs + (wr + g) * T::CS + wc + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(p + 8 * T::CS) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+};
+
+// fp32: thread (tx, ty) = (tid % 8, tid / 8) owns rows ty + 16 i and columns
+// tx + 8 j of the tile
+template <int BM, int BN>
+struct Fp32Math {
+  static constexpr int TM = BM / 16, TN = BN / 8;
+  static constexpr int ACC = TM * TN;
+
+  __device__ static void slab(float (&acc)[ACC], const float* slot,
+                              int steps) {
+    typedef Tile<BM, BN> T;
+    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+    const float* xa = slot + ty * XS;
+    const float* wb = slot + BM * XS + tx;
+    for (int s = 0; s < steps; ++s) {
+#pragma unroll
+      for (int kk = 16 * s; kk < 16 * s + 16; ++kk) {
+        float a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = xa[16 * i * XS + kk];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = wb[kk * T::WS + 8 * j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i * TN + j] = fmaf(a[i], b[j], acc[i * TN + j]);
+      }
+    }
+  }
+
+  __device__ static void store(const float (&acc)[ACC], float* cs) {
+    typedef Tile<BM, BN> T;
+    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        cs[(ty + 16 * i) * T::CS + tx + 8 * j] = acc[i * TN + j];
+  }
+};
+
+// The parts of K: `splits` ranges of whole slabs, part p taking slabs
+// [p nslab / splits, (p + 1) nslab / splits). bf16 splits a K of more than
+// four slabs into up to 8 parts of about four slabs, each part a CTA of one
+// cluster; fp32 never splits (its chain is the first version's). A function
+// of K (and the type) alone.
+__host__ __device__ inline int splits(int K, bool bf16) {
+  const int nslab = (K + BK - 1) / BK;
+  if (!bf16 || nslab <= 4) return 1;
+  const int s = (nslab + 3) / 4;
+  return s < 8 ? s : 8;
+}
+
+// y[m, n] = act(v + b[n])
+template <bool TANH>
+__device__ __forceinline__ void finish(float v, const float* __restrict__ b,
+                                       float* __restrict__ y, long m, int n,
+                                       int N) {
+  v += b[n];
+  if (TANH) v = tanhf(v);
+  y[m * N + n] = v;
+}
+
+// One CTA: the tile (blockIdx.x, blockIdx.y) over part blockIdx.z of K. With
+// one part the CTA finishes its tile; with several, the cluster's CTAs (one
+// per part, gridDim.z of them) leave their partial tiles in shared memory
+// and each finishes a share of the tile's outputs, adding the parts in
+// order 0, 1, ... through distributed shared memory.
+template <bool BF16, bool TANH, int BM, int BN>
 __global__ void __launch_bounds__(THREADS)
     row_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ b, float* __restrict__ y,
-                     int M, int K, int N) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+                     int M, int K, int N, bool vx, bool vw) {
+  typedef Tile<BM, BN> T;
+  typedef typename std::conditional<BF16, Bf16Math<BM, BN>,
+                                    Fp32Math<BM, BN>>::type Math;
+  extern __shared__ __align__(16) float smem[];
   const long m0 = (long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int nslab = (K + BK - 1) / BK;
+  const int k16 = (K + 15) / 16;  // k16 steps, K zero-padded
+  const int parts = gridDim.z, part = blockIdx.z;
+  const int first = (int)((long)part * nslab / parts);
+  const int count = (int)((long)(part + 1) * nslab / parts) - first;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const long m = m0 + r;
-      const int k = k0 + c;
-      As[c][r] = (m < M && k < K) ? op<BF16>(x[m * K + k]) : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int r = i / BN, c = i % BN;
-      const int k = k0 + r, n = n0 + c;
-      Bs[r][c] = (k < K && n < N) ? op<BF16>(w[(long)k * N + n]) : 0.f;
-    }
-    __syncthreads();
+  float acc[Math::ACC];
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bb[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bb[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  for (int i = 0; i < Math::ACC; ++i) acc[i] = 0.f;
 
+  // the ring: the part's slab j in slot j % STAGES; one commit group per
+  // slab (empty past the last), so waiting for all but STAGES - 2 groups
+  // means slab j has landed
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      float v = acc[i][j] + b[n];
-      if (TANH) v = tanhf(v);
-      y[m * N + n] = v;
+  for (int j = 0; j < T::STAGES - 1; ++j) {
+    if (j < count)
+      load_slab<BM, BN>(smem + j * T::STAGE, x, w, m0, n0, (first + j) * BK,
+                        M, K, N, vx, vw);
+    tma::cp_async_commit();
+  }
+  for (int j = 0; j < count; ++j) {
+    tma::cp_async_wait<T::STAGES - 2>();
+    __syncthreads();  // slab j is in; slab j - 1's slot is free
+    const int nxt = j + T::STAGES - 1;
+    if (nxt < count)
+      load_slab<BM, BN>(smem + (nxt % T::STAGES) * T::STAGE, x, w, m0, n0,
+                        (first + nxt) * BK, M, K, N, vx, vw);
+    tma::cp_async_commit();
+    const int left = k16 - 4 * (first + j);
+    Math::slab(acc, smem + (j % T::STAGES) * T::STAGE, left < 4 ? left : 4);
+  }
+  tma::cp_async_wait<0>();
+  __syncthreads();
+
+  float* cs = smem;
+  Math::store(acc, cs);
+  if (parts == 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
+      const int r = e / BN, c = e % BN;
+      if (m0 + r < M && n0 + c < N)
+        finish<TANH>(cs[r * T::CS + c], b, y, m0 + r, n0 + c, N);
+    }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every part's tile is in its CTA's shared memory
+  for (int e = (int)cluster.block_rank() * THREADS + threadIdx.x;
+       e < BM * BN; e += parts * THREADS) {
+    const int r = e / BN, c = e % BN;
+    if (m0 + r < M && n0 + c < N) {
+      float* at = cs + r * T::CS + c;
+      float v = *cluster.map_shared_rank(at, 0);
+      for (int q = 1; q < parts; ++q) v += *cluster.map_shared_rank(at, q);
+      finish<TANH>(v, b, y, m0 + r, n0 + c, N);
     }
   }
+  cluster.sync();  // no CTA leaves while the others read its shared memory
+}
+
+inline long ctas(int M, int N, int K, bool bf16, int tile) {
+  return (long)((M + TILE_M[tile] - 1) / TILE_M[tile]) *
+         ((N + TILE_N[tile] - 1) / TILE_N[tile]) * splits(K, bf16);
+}
+
+// The kernel's ring above the default 48 KB of shared memory: set once per
+// device (an attribute of the function in each device's context)
+template <bool BF16, bool TANH, int BM, int BN>
+cudaError_t allow_ring() {
+  typedef Tile<BM, BN> T;
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? (uint64_t)1 << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(row_dense_kernel<BF16, TANH, BM, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::STAGES * T::STAGE * 4);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
+}
+
+template <bool BF16, bool TANH, int BM, int BN>
+cudaError_t launch(const float* x, const float* w, const float* b, float* y,
+                   int M, int K, int N, cudaStream_t s) {
+  typedef Tile<BM, BN> T;
+  const cudaError_t attr = allow_ring<BF16, TANH, BM, BN>();
+  if (attr != cudaSuccess) return attr;
+  const int nslab = (K + BK - 1) / BK;
+  const size_t smem =
+      (size_t)(nslab < T::STAGES ? nslab : T::STAGES) * T::STAGE * 4;
+  const bool vx = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vw = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int parts = splits(K, BF16);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + BM - 1) / BM, (N + BN - 1) / BN, parts);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = parts;
+  cfg.attrs = cluster;
+  cfg.numAttrs = parts > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, row_dense_kernel<BF16, TANH, BM, BN>, x, w, b, y, M, K, N, vx,
+      vw);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <bool BF16, bool TANH>
-void launch(const float* x, const float* w, const float* b, float* y, int M,
-            int K, int N, cudaStream_t s) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  row_dense_kernel<BF16, TANH><<<grid, THREADS, 0, s>>>(x, w, b, y, M, K, N);
+cudaError_t launch_tile(int tile, const float* x, const float* w,
+                        const float* b, float* y, int M, int K, int N,
+                        cudaStream_t s) {
+  switch (tile) {
+    case 0: return launch<BF16, TANH, 64, 64>(x, w, b, y, M, K, N, s);
+    case 1: return launch<BF16, TANH, 32, 64>(x, w, b, y, M, K, N, s);
+    case 2: return launch<BF16, TANH, 16, 64>(x, w, b, y, M, K, N, s);
+    default: return launch<BF16, TANH, 16, 32>(x, w, b, y, M, K, N, s);
+  }
 }
 
+}  // namespace rd
 }  // namespace
 
 extern "C" {
 
+// CTAs of a call with output tile `tile` of the menu (the grid the launch
+// uses: the tiles times the parts of K), or -1 for a tile outside the menu.
+long long row_dense_ctas(int M, int N, int K, int bf16, int tile) {
+  if (tile < 0 || tile >= rd::NTILES || M <= 0 || N <= 0 || K <= 0)
+    return -1;
+  return rd::ctas(M, N, K, bf16 != 0, tile);
+}
+
 // y [M, N] = act(x [M, K] W [K, N] + b [N]); every pointer a contiguous fp32
 // device buffer. bf16 = 1 rounds x and W to bf16 before the products; act = 1
-// applies tanh. Launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success).
+// applies tanh; `tile` indexes the menu of output tiles (64x64, 32x64,
+// 16x64, 16x32), the caller's choice from (M, N). Launches on `stream`
+// without synchronising and returns the CUDA error code (0 on success).
 int row_dense(const void* x, const void* w, const void* b, void* y, int M,
-              int K, int N, int bf16, int act, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || (N + BN - 1) / BN > 65535)
+              int K, int N, int bf16, int act, int tile, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || tile < 0 || tile >= rd::NTILES ||
+      (N + rd::TILE_N[tile] - 1) / rd::TILE_N[tile] > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float *fx = (const float*)x, *fw = (const float*)w,
               *fb = (const float*)b;
   float* fy = (float*)y;
-  if (bf16) {
-    if (act) launch<true, true>(fx, fw, fb, fy, M, K, N, s);
-    else launch<true, false>(fx, fw, fb, fy, M, K, N, s);
-  } else {
-    if (act) launch<false, true>(fx, fw, fb, fy, M, K, N, s);
-    else launch<false, false>(fx, fw, fb, fy, M, K, N, s);
-  }
-  return (int)cudaGetLastError();
+  cudaError_t rc;
+  if (bf16)
+    rc = act ? rd::launch_tile<true, true>(tile, fx, fw, fb, fy, M, K, N, s)
+             : rd::launch_tile<true, false>(tile, fx, fw, fb, fy, M, K, N, s);
+  else
+    rc = act ? rd::launch_tile<false, true>(tile, fx, fw, fb, fy, M, K, N, s)
+             : rd::launch_tile<false, false>(tile, fx, fw, fb, fy, M, K, N,
+                                             s);
+  return (int)rc;
 }
 
 }  // extern "C"

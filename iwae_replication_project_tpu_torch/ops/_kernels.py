@@ -67,7 +67,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "fused_ll_bwd_splits": (_i, [_i]),
     },
     "row_dense": {
-        "row_dense": (_i, [_vp] * 4 + [_i] * 5 + [_vp]),
+        "row_dense": (_i, [_vp] * 4 + [_i] * 6 + [_vp]),
+        "row_dense_ctas": (ctypes.c_longlong, [_i] * 5),
     },
     "row_sum": {
         "row_sum": (_i, [_vp, _vp, ctypes.c_longlong, _i, ctypes.c_longlong,
@@ -247,6 +248,13 @@ def plan(name: str, widths: tuple, scratch_args: tuple) -> tuple:
     lib = load_fitting(name, *widths)
     return (getattr(lib, name),
             getattr(lib, f"{name}_scratch_bytes")(*scratch_args))
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str):
+    """The C entry point ``name`` of ``csrc/<name>.cu``'s library, loaded
+    (and built) once: later calls take no lock."""
+    return getattr(load(name), name)
 
 
 def launch(device: torch.device, fn, *args) -> int:

@@ -9,10 +9,13 @@ layers and their sums over samples, latents and pixels through two kernels
 of the port's own, whose per-output arithmetic depends on nothing but that
 output's inputs:
 
-* :func:`dense` -- ``csrc/row_dense.cu``: ``act(x W + b)``, fp32 or
-  bf16-rounded operands, each output one fixed-order chain over K;
+* :func:`dense` -- ``csrc/row_dense.cu``: ``act(x W + b)``, each output
+  one fixed-order chain over K (bf16-rounded operands on the tensor cores,
+  one ``mma.sync`` per k16 step; fp32 one FMA chain on the CUDA cores), on
+  an output tile that :func:`dense_plan` picks from (M, N);
 * :func:`fixed_sum` -- ``csrc/row_sum.cu``: a sum over one axis, each
-  output added in index order by one thread.
+  output added in index order by one thread from inputs its CTA staged with
+  coalesced loads.
 
 They are not ports of TPU kernels (the XLA programs need no such care). The
 choice to use them is the dispatcher's: ``ops/hot_loop.serving_dispatch_
@@ -26,8 +29,9 @@ backward, so a CUDA call that autograd would record raises.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +41,13 @@ from iwae_replication_project_tpu_torch.ops import _kernels
 KERNEL_DENSE = "row_dense"
 KERNEL_SUM = "row_sum"
 KERNELS = (KERNEL_DENSE, KERNEL_SUM)
+
+#: ``csrc/row_dense.cu``'s menu of output tiles (rows, columns), largest
+#: first; the C entry point's ``tile`` is an index into it
+DENSE_TILES: Tuple[Tuple[int, int], ...] = ((64, 64), (32, 64), (16, 64),
+                                            (16, 32))
+#: the H100's SMs: the plan takes the largest tile that gives each a CTA
+SMS = 132
 
 
 def launch_counts() -> dict:
@@ -60,6 +71,47 @@ def dense_plain(x, w, b, compute_dtype=None, tanh: bool = False):
     return torch.tanh(y) if tanh else y
 
 
+@functools.lru_cache(maxsize=1024)
+def dense_tile(m: int, n: int) -> int:
+    """The index in :data:`DENSE_TILES` of ``row_dense``'s output tile for
+    an ``[m, K] x [K, n]`` layer: the largest tile whose grid still has a
+    CTA for each of the :data:`SMS` SMs, else the smallest (a bucket's few
+    rows). A function of (M, N) alone, and the tile changes no output's
+    bits (the kernel's note)."""
+    for i, (bm, bn) in enumerate(DENSE_TILES):
+        if -(-m // bm) * -(-n // bn) >= SMS:
+            return i
+    return len(DENSE_TILES) - 1
+
+
+def dense_plan(m: int, n: int) -> Tuple[int, int]:
+    """``row_dense``'s output tile (rows, columns) at (M, N)."""
+    return DENSE_TILES[dense_tile(m, n)]
+
+
+def dense_splits(k: int, bf16: bool) -> int:
+    """The parts ``row_dense`` cuts K into (one CTA of a cluster each,
+    added in part order): bf16 cuts a K of more than four 64-wide slabs
+    into ``ceil(slabs / 4)`` parts, at most 8; fp32 never cuts. A function
+    of K and the type alone, as the kernel's ``splits``."""
+    slabs = -(-k // 64)
+    return 1 if not bf16 or slabs <= 4 else min(8, -(-slabs // 4))
+
+
+def dense_ctas(m: int, n: int, k: int, bf16: bool) -> int:
+    """The CTAs of ``row_dense``'s grid at (M, K, N), as planned: the
+    tiles of :func:`dense_plan` times :func:`dense_splits`."""
+    bm, bn = dense_plan(m, n)
+    return -(-m // bm) * -(-n // bn) * dense_splits(k, bf16)
+
+
+def kernel_ctas(m: int, n: int, k: int, bf16: bool) -> int:
+    """The CTAs the kernel library launches at (M, K, N) on the planned
+    tile (its ``row_dense_ctas``; builds the library on first use)."""
+    return _kernels.load(KERNEL_DENSE).row_dense_ctas(m, n, k, int(bf16),
+                                                      dense_tile(m, n))
+
+
 def _check_no_grad(*tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("the row-invariant kernels have no backward: they "
@@ -75,14 +127,15 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     rounds both operands to bf16 first, ``tanh`` applies tanh.
 
     On CUDA tensors this launches ``csrc/row_dense.cu`` on the current
-    stream and counts one launch; it raises for anything the kernel does
-    not take. On CPU tensors it computes the plain version."""
-    if compute_dtype not in (None, torch.bfloat16):
+    stream, on the tile :func:`dense_tile` plans, and counts one launch; it
+    raises for anything the kernel does not take. On CPU tensors it
+    computes the plain version."""
+    if compute_dtype is not None and compute_dtype is not torch.bfloat16:
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got "
                          f"{compute_dtype!r}")
-    if x.device.type == "cpu":
-        return dense_plain(x, w, b, compute_dtype, tanh)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dense_plain(x, w, b, compute_dtype, tanh)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x, w, b)
     if x.dim() < 1 or w.dim() != 2:
@@ -93,20 +146,32 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _kernels.check_tensor("x", x, tuple(x.shape[:-1]) + (k,), dev)
     _kernels.check_tensor("w", w, (k, n), dev)
     _kernels.check_tensor("b", b, (n,), dev)
+    y = x.new_empty(tuple(x.shape[:-1]) + (n,))
     m = math.prod(x.shape[:-1])
-    y = torch.empty(tuple(x.shape[:-1]) + (n,), dtype=torch.float32,
-                    device=dev)
     if m == 0:
         return y
-    fn = _kernels.load(KERNEL_DENSE).row_dense
-    rc = _kernels.launch(dev, fn, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                         y.data_ptr(), m, k, n,
-                         int(compute_dtype == torch.bfloat16), int(tanh))
+    tile = dense_tile(m, n)
+    rc = _kernels.launch(dev, _kernels.entry(KERNEL_DENSE), x.data_ptr(),
+                         w.data_ptr(), b.data_ptr(), y.data_ptr(), m, k, n,
+                         compute_dtype is not None, tanh, tile)
     if rc != 0:
         raise RuntimeError(f"row_dense launch failed with CUDA error {rc} "
-                           f"(M={m}, K={k}, N={n})")
+                           f"(M={m}, K={k}, N={n}, tile "
+                           f"{DENSE_TILES[tile]})")
     _kernels.count(KERNEL_DENSE)
     return y
+
+
+def sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` as ``csrc/row_sum.cu`` adds it, written in torch:
+    an fp32 accumulator that starts at 0 and adds ``x.select(dim, r)`` for
+    r = 0, 1, ... in order (elementwise adds, so each output's chain is its
+    own on any device). The card's tests hold the kernel bitwise to it."""
+    d = dim % x.dim()
+    acc = x.new_zeros(x.shape[:d] + x.shape[d + 1:])
+    for r in range(x.shape[d]):
+        acc = acc + x.select(d, r)
+    return acc
 
 
 def sum_over(x: torch.Tensor, dim: int, fixed_order: bool) -> torch.Tensor:
@@ -120,9 +185,9 @@ def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     thread: on CUDA tensors this launches ``csrc/row_sum.cu`` on the current
     stream and counts one launch (it raises for anything the kernel does not
     take); on CPU tensors it is ``torch.sum``."""
-    if x.device.type == "cpu":
-        return torch.sum(x, dim=dim)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return torch.sum(x, dim=dim)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x)
     if x.dim() == 0:
@@ -132,15 +197,13 @@ def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     _kernels.check_tensor("x", x, shape, x.device)
     outer, r, inner = (math.prod(shape[:d]), shape[d],
                        math.prod(shape[d + 1:]))
-    y = torch.empty(shape[:d] + shape[d + 1:], dtype=torch.float32,
-                    device=x.device)
+    y = x.new_empty(shape[:d] + shape[d + 1:])
     if y.numel() == 0:
         return y
     if r == 0:
         return y.zero_()
-    fn = _kernels.load(KERNEL_SUM).row_sum
-    rc = _kernels.launch(x.device, fn, x.data_ptr(), y.data_ptr(), outer, r,
-                         inner)
+    rc = _kernels.launch(x.device, _kernels.entry(KERNEL_SUM), x.data_ptr(),
+                         y.data_ptr(), outer, r, inner)
     if rc != 0:
         raise RuntimeError(f"row_sum launch failed with CUDA error {rc} "
                            f"(outer={outer}, R={r}, inner={inner})")

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Host cost of the hot-loop wrappers (B1 ``fused_forward``, B2
-``fused_backward``) and of the two eager programs that call them, on one
-NVIDIA GPU, bf16, the flagship's widths:
+``fused_backward``), of the row-invariant wrappers (``row_invariant.dense``
+and ``fixed_sum``) and of the programs that call them, on one NVIDIA GPU,
+the flagship's widths:
 
     python3 scripts/torch_wrapper_host_profile.py [--port-root DIR]
+        [--out PATH.json]
 
 For B1 at the serve (k=50, B=64) and train (k=50, B=100) shapes and B2 at
 the train shape: the host time to issue one wrapper call (microseconds,
@@ -18,19 +20,34 @@ preset ``northstar-iwae-2l-k50`` (noise already on the card) and one train
 step (k=50, B=100) on fresh weights, each as the time of one call with 20
 (steps: 10) issued back to back, with its host time.
 
+The row-invariant wrappers at every timed shape of ``chip_smoke.py``'s
+phase 3d (``ROW_DENSE_SHAPES`` in bf16 and fp32, ``ROW_SUM_SHAPES``): host
+us per call, the call back to back and replayed, the library call
+(``torch.addmm`` on the rounded operands; ``torch.sum``) both ways, and the
+bound, and a digest of the output's bytes (fp32 dense layers and sums must
+keep their bits across versions of the kernels). Last, the flagship's 64-row bf16 ``score``, ``encode`` and ``decode``
+programs captured into the executable store as the engine captures them,
+each replayed 20 times inside ``utils.profiling.trace``: the device us of
+every kernel per replay, by name and, for the row-invariant kernels, by
+launch in program order; the replay's time by CUDA events beside it.
+
 ``--port-root`` imports the port from another checkout (for example the
 parent commit, unpacked with ``git archive``), so two versions of the
 wrappers are measured by the same code; its kernels build into that
-checkout. Prints one line per result and, last, one JSON object. Without a
-CUDA device it exits non-zero. It imports nothing of JAX.
+checkout. Prints one line per result and, last, one JSON object (also
+written to ``--out``). Without a CUDA device it exits non-zero. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
+import re
 import sys
+import tempfile
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -71,9 +88,130 @@ def programs(torch, cs, host_us) -> dict:
                            "host_us": host_us(train, torch, 10)}}
 
 
+def _digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def row_wrappers(torch, cs, ri, host_us) -> dict:
+    """The row-invariant wrappers at phase 3d's timed shapes."""
+    out = {}
+    for dtype in ("bf16", "fp32"):
+        cd = torch.bfloat16 if dtype == "bf16" else None
+        for i, (m, k, n, tanh, timed) in enumerate(cs.ROW_DENSE_SHAPES):
+            if not timed:
+                continue
+            x, w, b = cs.row_dense_inputs(torch, m, k, n, 100 + i)
+            t = cs.row_dense_times(torch, ri, x, w, b, cd, tanh)
+            t["host_us"] = host_us(lambda: ri.dense(x, w, b, cd, tanh),
+                                   torch)
+            t["bound_ms"], t["bound_by"] = cs.dense_bound_ms(m, k, n, dtype)
+            t["digest"] = _digest(ri.dense(x, w, b, cd, tanh))
+            if hasattr(ri, "dense_plan"):
+                t["tile"], t["ctas"] = ri.dense_plan(m, n), \
+                    ri.dense_ctas(m, n, k, cd is not None)
+            out[f"row_dense {dtype} {m}x{k}x{n}{' tanh' if tanh else ''}"] \
+                = t
+    for i, (shape, dim) in enumerate(cs.ROW_SUM_SHAPES):
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(
+            200 + i)).cuda()
+        t = cs.row_sum_times(torch, ri, x, dim)
+        t["host_us"] = host_us(lambda: ri.fixed_sum(x, dim), torch)
+        t["bound_ms"], t["bound_by"] = cs.sum_bound_ms(*cs.sum_dims(shape,
+                                                                    dim))
+        t["digest"] = _digest(ri.fixed_sum(x, dim))
+        out[f"row_sum {list(shape)} dim={dim}"] = t
+    for name, t in out.items():
+        print(f"{name}: host_us={t['host_us']:.2f} ms={t['ms']:.4f} "
+              f"graph_ms={t['graph_ms']:.4f} library_ms="
+              f"{t['library_ms']:.4f} library_graph_ms="
+              f"{t['library_graph_ms']:.4f} bound_us="
+              f"{t['bound_ms'] * 1e3:.4f} ({t['bound_by']}) digest="
+              f"{t['digest']}"
+              + (f" tile={t['tile']} ctas={t['ctas']}" if "tile" in t
+                 else ""), flush=True)
+    return out
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its arguments and return type."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return re.sub(r"\(.*", "", name)[:140]
+
+
+def replay_traces(torch, cs, ri, iters: int = 20) -> dict:
+    """The flagship's 64-row bf16 programs replayed from the store under
+    ``utils.profiling.trace``: device us per replay by kernel name and the
+    row-invariant kernels' launches in order."""
+    from iwae_replication_project_tpu_torch import zoo
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+    from iwae_replication_project_tpu_torch.utils import profiling
+
+    eng = zoo.serving_engine(cs.PRESET, seed=0, precision="bf16",
+                             timeout_s=None)
+    rng = __import__("numpy").random.RandomState(14)
+    out = {}
+    with cc.isolated_aot_registry(budget_bytes=None), \
+            tempfile.TemporaryDirectory() as tmp:
+        for op in ("score", "encode", "decode"):
+            k = eng.k if op != "decode" else 0
+            d, bucket = eng.row_dims[op], 64
+            payload = (rng.rand(bucket, d) > 0.5).astype("float32") \
+                if op != "decode" else rng.randn(bucket, d).astype("float32")
+            program = eng._program_for(op, k, bucket)
+            with eng._launch_context():
+                args, kwargs = eng._dispatch_args(op, k, bucket, payload,
+                                                  list(range(bucket)))
+                fn, tensors, _, _, graph = eng._entry(op, k, bucket, program,
+                                                      args, kwargs)
+                exe, _ = cc.aot_warm(
+                    eng._aot_name(op), fn, tensors,
+                    build_key=eng._build_key(op, k, bucket),
+                    model=eng.store_label,
+                    nbytes=eng._program_nbytes(op, k, bucket), graph=graph,
+                    sig=cc.signature(tensors))
+                replay_ms = cs.time_ms(lambda: exe(*tensors), torch)
+                torch.cuda.synchronize()
+                with profiling.trace(tmp) as tr:
+                    for _ in range(iters):
+                        exe(*tensors)
+                    torch.cuda.synchronize()
+            with open(tr.path) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                              and "dur" in e), key=lambda e: e["ts"])
+            by_name, seq = {}, {}
+            for e in kernels:
+                rec = by_name.setdefault(_short(e["name"]), [0.0, 0])
+                rec[0] += e["dur"] / iters
+                rec[1] += 1
+                for kname in ri.KERNELS:
+                    if kname in e["name"]:
+                        seq.setdefault(kname, []).append(e["dur"])
+            order = {kname: [sum(v[j::len(v) // iters]) / iters
+                             for j in range(len(v) // iters)]
+                     for kname, v in seq.items() if len(v) % iters == 0}
+            out[op] = {
+                "replay_ms": replay_ms,
+                "device_us_per_replay": sum(v[0] for v in by_name.values()),
+                "kernels": {n: {"us": v[0], "launches": v[1] / iters}
+                            for n, v in sorted(by_name.items(),
+                                               key=lambda kv: -kv[1][0])},
+                "in_order_us": order}
+            print(f"trace {op}/b64 (bf16, replayed, {iters} replays): "
+                  f"replay_ms={replay_ms:.4f} (CUDA events) device_us="
+                  f"{out[op]['device_us_per_replay']:.2f} per replay; "
+                  + "; ".join(f"{n} {v['us']:.2f} us x{v['launches']:g}"
+                              for n, v in out[op]["kernels"].items())
+                  + "; in order: " + "; ".join(
+                      f"{n} " + ", ".join(f"{u:.2f}" for u in v)
+                      for n, v in order.items()), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--port-root", default=str(HERE))
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs  # the inputs and timers
@@ -88,6 +226,7 @@ def main() -> int:
         return 1
     from iwae_replication_project_tpu_torch.ops import _kernels
     from iwae_replication_project_tpu_torch.ops import hot_loop as thl
+    from iwae_replication_project_tpu_torch.ops import row_invariant as ri
 
     bf = torch.bfloat16
     out = {"device": cs.nvidia_smi(), "port": str(Path(thl.__file__).parent)}
@@ -138,6 +277,11 @@ def main() -> int:
     for name, rec in out["programs"].items():
         print(f"{name}: back_to_back_ms={rec['ms']:.4f} "
               f"host_us={rec['host_us']:.1f}", flush=True)
+    out["row_wrappers"] = row_wrappers(torch, cs, ri, host_us)
+    out["replay_traces"] = replay_traces(torch, cs, ri)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -529,6 +529,69 @@ def test_row_dense_row_does_not_depend_on_its_batch(cuda, cd):
         assert torch.equal(part[lo], alone[0]), m
 
 
+#: (M, K, N) grid of the tile-invariance test: M crosses every tile of the
+#: plan (tests/test_torch_row_invariant.py pins which); K covers the ragged
+#: widths (37, 50: 4-byte loads, a partial k16 step) and a multi-slab one
+INVARIANCE_M = (1, 2, 7, 16, 17, 64, 65, 200, 3200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cd", [None, torch.bfloat16])
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("k", [37, 50, 100, 784, 2000])
+@pytest.mark.parametrize("n", [50, 100, 200, 784])
+def test_row_dense_row_bits_do_not_depend_on_the_tile(cuda, n, k, tanh, cd):
+    """A row's outputs are the same bits at every M of
+    :data:`INVARIANCE_M`, on whatever tile the plan picks for that M, and at
+    another place in its tile (slices starting at row 0 and at row 5)."""
+    g = torch.Generator().manual_seed(n * 1000 + k)
+    x = torch.randn((3205, k), generator=g).cuda()
+    w = (torch.randn((k, n), generator=g) * k ** -0.5).cuda()
+    b = (torch.randn((n,), generator=g) * 0.1).cuda()
+    full = tri.dense(x, w, b, cd, tanh)
+    tiles = set()
+    for m in INVARIANCE_M:
+        tiles.add(tri.dense_plan(m, n))
+        for lo in (0, 5):
+            part = tri.dense(x[lo:lo + m].contiguous(), w, b, cd, tanh)
+            assert torch.equal(part, full[lo:lo + m]), (m, lo)
+    assert len(tiles) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,k,n", [(64, 784, 200), (64, 200, 784),
+                                   (3200, 100, 100), (3200, 100, 50),
+                                   (3200, 784, 784), (1, 784, 200),
+                                   (7, 2000, 3)])
+def test_row_dense_launches_the_planned_ctas(cuda, m, k, n, bf16):
+    """The library's grid is the plan's (tiles times parts of K): 28 tiles
+    at 64 x 200 (the encoder's first layer at a full bucket), its K = 784
+    in 4 parts in bf16."""
+    assert tri.kernel_ctas(m, n, k, bf16) == tri.dense_ctas(m, n, k, bf16)
+    if (m, k, n) == (64, 784, 200):
+        assert tri.dense_ctas(m, n, k, bf16) == (112 if bf16 else 28)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dim", [((3200, 100), -1), ((50, 64, 100), -1),
+                                       ((64, 784), -1), ((1, 1, 784), -1),
+                                       ((33, 257), -1), ((50, 64), 0),
+                                       ((50, 64, 50), 0), ((250, 8), 0),
+                                       ((7, 33, 5), 1), ((3, 300, 70), 1)])
+def test_row_sum_is_bitwise_the_in_order_sum(cuda, shape, dim):
+    """The kernel bitwise equal to ``sum_in_order`` (an fp32 accumulator
+    adding ``x.select(dim, r)`` for r in order), over the last axis (rows
+    staged with 16-byte and 4-byte loads, R over one chunk) and over an
+    outer axis; from a misaligned start too."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).cuda()
+    assert torch.equal(tri.fixed_sum(x, dim), tri.sum_in_order(x, dim))
+    flat = torch.randn((x.numel() + 1,), generator=g).cuda()
+    xs = flat[1:].view(shape)
+    assert torch.equal(tri.fixed_sum(xs, dim), tri.sum_in_order(xs, dim))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dim", [((50, 64, 100), -1), ((50, 64), 0),
                                        ((50, 3, 50), 0), ((1, 1, 784), -1),
