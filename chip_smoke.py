@@ -177,9 +177,38 @@ phases, one line per phase, and exits non-zero on the first failure:
    (e) the driver's ``span/*`` names and p50 from phase 7; (f) C7: after
    phase 12c's burst the resident entries hold at most the budget plus the
    largest entry, every bill at least its pool bytes;
-14. prints the kernels' JSON record (launches of the serving and training
-   runs, and per path of phases 8-13 under ``launches_by_path``) and, last,
-   the contract line ``{"ok": true, "device": {...}}``.
+14. the measured autotuner and the int8 policy (lines ``autotune:`` and
+   ``int8:``), with the weights of phase 7's run directory: (a) B1 in bf16
+   at 1..4 row groups bitwise its own rule's output at the serve, train and
+   eval shapes, each timed beside the rule's pick; (b) ``row_dense``'s int8
+   mode against its plain version at the flagship's int8 layers (k=50 x 64
+   rows) and at one bucket, timed with ``torch.addmm`` on the dequantized
+   fp32 weights as the library call; (c) ``ops/autotune`` over
+   ``serving_row`` and ``serving_int8`` at k=50, buckets 1..64, and
+   ``fwd``/``bwd``/``scan`` at the train shape, into a temporary cache,
+   each winner and its ms beside the hand rule's, then a reload and a
+   second tune with zero timed runs; (d) the flagship with
+   ``precision="int8"`` in auto mode over that cache and forced
+   (``IWAE_SERVING_INT8=force``), beside the fp32 engine: a ragged burst
+   (p50, requests/s), the admission verdict per bucket with its reason,
+   every served row bitwise the program it should have run on the burst's
+   own noise (auto's rejected buckets: the fp32 engine's rows; forced rows
+   and auto's admitted buckets: the int8 tree's eager score, C6), the
+   int8 log-weights behind those rows accepted by
+   ``telemetry.parity.statistical_parity`` at ``INT8_TOLERANCES``,
+   ``row_dense``'s int8 launches equal to three per admitted score
+   dispatch; (e) one forced int8 row served in batches of 1..64 rows,
+   bitwise the same; (f) an int8 engine whose race fails serves fp32
+   bitwise and says so; (g) the default int8 path, auto with no winner
+   file, racing in-line at warmup: alone (its verdicts against the cache's,
+   the warmup seconds the race adds, its probes leaving the launch counts
+   alone, its burst's rows and launches held as in (d)), then while an
+   fp32 engine serves the burst over and over on the card (every request
+   completes, bitwise the fp32 rows, and the verdicts come out the same);
+15. prints the kernels' JSON record (launches of the serving and training
+   runs, of phase 14's int8 burst, and per path of phases 8-14 under
+   ``launches_by_path``) and, last, the contract line ``{"ok": true,
+   "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -187,6 +216,7 @@ non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import math
@@ -194,6 +224,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -594,7 +625,7 @@ def serve(torch, np, zoo, hot_loop):
                  for k in ("aot_hits", "aot_misses", "recompiles")}),
           flush=True)
     ok = True
-    if launches <= 0 or min(row_launches.values()) <= 0:
+    if launches <= 0 or min(row_launches[n] for n in ri.KERNELS) <= 0:
         ok = False
         print("FAIL: a kernel was not launched by the served run")
     if set(paths.values()) != {"kernel"}:
@@ -3644,6 +3675,552 @@ def observability(torch, np, zoo, hot_loop, run_dir, replays, after_burst,
     return launches, ok
 
 
+# --------------------------------------------------------------------------
+# phase 14: the measured autotuner and the int8 serving policy
+# --------------------------------------------------------------------------
+
+#: B1's row groups are timed at (name, k, B): a full serving bucket, the
+#: train step and the eval chunk
+GROUP_SHAPES = [("serve", 50, 64), ("train", TRAIN_K, TRAIN_B),
+                ("eval", 250, 500)]
+#: the flagship's int8 layers (M, K, N, tanh) at k=50 x 64 rows, and its
+#: output layer at one bucket; the JSON line's record is INT8_MAIN's
+INT8_LAYERS = [(3200, 100, 200, True), (3200, 200, 200, True),
+               (3200, 200, 784, False), (50, 200, 784, False)]
+INT8_MAIN = (3200, 200, 784, False)
+#: the serving ladder the autotuner covers, and the int8 burst's score
+#: requests in ragged groups (phase 4's cycle of sizes)
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+INT8_BURST = 300
+INT8_SIZES = [1, 3, 7, 17, 33, 64, 2, 5]
+
+
+def int8_bound_ms(m, k, n) -> tuple:
+    """(bound_ms, bound_by) of one int8 layer: 2 M K N fp32 operations
+    (the products run in fp32 on the CUDA cores) against x and y in fp32,
+    the weights read as bytes, the scales and biases in fp32."""
+    t_ops = 2.0 * m * k * n / PEAK_FLOPS["fp32"]
+    t_bytes = (4.0 * m * k + k * n + 8.0 * n + 4.0 * m * n) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _set_env(name, value):
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Set environment variables for a block (None removes one) and put
+    them back after it."""
+    prev = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            _set_env(k, v)
+        yield
+    finally:
+        for k, v in prev.items():
+            _set_env(k, v)
+
+
+def check_b1_groups(torch, hot_loop):
+    """Phase 14a: B1 in bf16 at 1..4 row groups per CTA against its own
+    rule (``groups=0``) at :data:`GROUP_SHAPES`: bitwise, and each timed
+    back to back and replayed beside the rule's pick. Returns ok."""
+    ok = True
+    bf16 = torch.bfloat16
+    for i, (name, k, b) in enumerate(GROUP_SHAPES):
+        args = hot_loop_inputs(torch, k, b, seed=400 + i, **FLAGSHIP)
+        ref = hot_loop.fused_forward(*args, compute_dtype=bf16)
+        same, ms, graph = True, {}, {}
+        for g in (1, 2, 3, 4):
+            def call(g=g):
+                return hot_loop.fused_forward(*args, compute_dtype=bf16,
+                                              groups=g)
+            same &= torch.equal(call(), ref)
+            ms[g], graph[g] = time_ms(call, torch), device_ms(call, torch)
+        torch.cuda.synchronize()
+        rule = hot_loop.fwd_groups(k * b)
+        best = min(ms, key=ms.get)
+        ok &= same
+        print(f"autotune: B1 bf16 {name} k={k} B={b}: groups 1..4 bitwise "
+              f"the rule's output={same}; ms (back to back) "
+              + ", ".join(f"{g}: {ms[g]:.4f}" for g in ms) + "; graph_ms "
+              + ", ".join(f"{g}: {graph[g]:.4f}" for g in graph)
+              + f"; the rule picks {rule} ({ms[rule]:.4f} ms), the fastest "
+              f"is {best} ({ms[best]:.4f} ms) {'ok' if same else 'FAIL'}",
+              flush=True)
+    return ok
+
+
+def check_int8_kernel(torch, hot_loop, ri):
+    """Phase 14b: ``row_dense``'s int8 mode against its plain version at
+    :data:`INT8_LAYERS`, timed with its plain version and the library call
+    on the dequantized fp32 weights (``torch.addmm``). Returns (the record
+    for the JSON line, ok)."""
+    ok, worst, main = True, 0.0, None
+    for i, (m, k, n, tanh) in enumerate(INT8_LAYERS):
+        g = torch.Generator().manual_seed(300 + i)
+        x = torch.randn((m, k), generator=g)
+        w = torch.randn((k, n), generator=g) * k ** -0.5
+        b = torch.randn((n,), generator=g) * 0.1
+        q = hot_loop.quantize_out_block(
+            {nm: {"w": w, "b": b} for nm in ("l1", "l2", "out")})["out"]
+        x, w_q, scale, b = (x.cuda(), q["w_q"].cuda(), q["scale"].cuda(),
+                            q["b"].cuda())
+        got = ri.dense_int8(x, w_q, scale, b, tanh)
+        want = ri.dense_int8_plain(x, w_q, scale, b, tanh)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # the same exact products (an int8 weight is exact in fp32) summed
+        # in another order, then the same rounded scale and bias: as fp32
+        # row_dense's 2e-4 (K terms whose absolute sum is ~20)
+        within = err <= 2e-4 and bool(torch.isfinite(got).all())
+        ok &= within
+        worst = max(worst, err)
+        w_deq = (w_q.float() * scale).contiguous()
+        t = timings(lambda: ri.dense_int8(x, w_q, scale, b, tanh),
+                    lambda: ri.dense_int8_plain(x, w_q, scale, b, tanh),
+                    torch)
+        t["library_ms"] = time_ms(lambda: torch.addmm(b, x, w_deq), torch)
+        t["library_graph_ms"] = device_ms(lambda: torch.addmm(b, x, w_deq),
+                                          torch)
+        bound, by = int8_bound_ms(m, k, n)
+        tile = ri.dense_plan(m, n)
+        print(f"kernel row_dense_int8 M={m} K={k} N={n} tanh={tanh}: "
+              f"max_abs_err={err:.3e} tol=2e-4 tile={tile[0]}x{tile[1]} "
+              f"{'ok' if within else 'OUT OF TOLERANCE'}"
+              + timing_text(t, bound, by, 2.0 * m * k * n)
+              + f" library_ms(torch.addmm, dequantized fp32 W)="
+              f"{t['library_ms']:.4f} library_graph_ms="
+              f"{t['library_graph_ms']:.4f}", flush=True)
+        if (m, k, n, tanh) == INT8_MAIN:
+            main = dict(t, bound_ms=bound, bound_by=by)
+    record = {
+        "name": ri.KERNEL_DENSE_INT8, "route": "cuda",
+        "source": "iwae_replication_project_tpu_torch/csrc/row_dense.cu",
+        "replaces": ("no TPU kernel: the int8 decoder's _dense_wq, plain XLA "
+                     "at iwae_replication_project_tpu/ops/hot_loop.py:540, "
+                     "row-invariant as iwae_replication_project_tpu/"
+                     "serving/programs.py:1"),
+        "launches": None, "max_abs_err": worst, **main,
+        "bound_share": main["bound_ms"] / main["ms"],
+        "shape": "M=3200 K=200 N=784, int8 W"}
+    return record, ok
+
+
+def _winner(r) -> str:
+    if r["path"] == "kernel":
+        return "kernel" if not r.get("groups") \
+            else f"kernel(groups={r['groups']})"
+    if r["path"] == "blocked_scan":
+        return f"blocked_scan(bk={r['block_k']})"
+    return r["path"]
+
+
+def tune_kinds(torch, cache):
+    """Phase 14c: the autotuner's five kinds at the flagship's widths into
+    the cache file `cache`, each winner beside the hand rule's time, then a
+    reload and the same tune again, which must time nothing. Returns ok."""
+    from iwae_replication_project_tpu_torch import zoo
+    from iwae_replication_project_tpu_torch.ops import autotune as at
+    from iwae_replication_project_tpu_torch.telemetry.registry import (
+        get_registry)
+
+    reg = get_registry()
+
+    def counter(name):
+        return reg.counter(f"autotune/{name}").value
+
+    cfg = zoo.get(PRESET).model_config("cuda")
+
+    def ladder():
+        return (at.tune_ladder(cfg, [50], SERVE_BUCKETS,
+                               kinds=("serving_row", "serving_int8"),
+                               compute_dtype=cfg.compute_dtype,
+                               device="cuda", path=cache)
+                + at.tune_ladder(cfg, [TRAIN_K], (), train_batch=TRAIN_B,
+                                 kinds=("fwd", "bwd", "scan"),
+                                 compute_dtype=cfg.compute_dtype,
+                                 device="cuda", path=cache))
+
+    t0 = time.perf_counter()
+    fails0, timed0 = counter("probe_failures"), counter("timed_runs")
+    rows = ladder()
+    for r in rows:
+        hand = r["hand_rule_ms"]
+        print(f"autotune: {r['kind']} k={r['k']} b={r['b']} "
+              f"dt={'f32' if r['kind'] == 'serving_int8' else cfg.compute_dtype}"
+              f": winner {_winner(r)} {r['measured_ms']:.4f} ms; hand rule "
+              f"{r['hand_rule']} "
+              + (f"{hand:.4f} ms" if hand is not None else "not measured")
+              + f"; runner-up {r['runner_up_ms']} ms; "
+              f"{r['measured_candidates']}/{r['candidates']} measured "
+              f"({r['wall_seconds']:.2f}s)", flush=True)
+    fails = counter("probe_failures") - fails0
+    timed = counter("timed_runs") - timed0
+    tuned = all(r["cache"] == "tuned" for r in rows)
+    at.reload_store()
+    timed1 = counter("timed_runs")
+    again = ladder()
+    warm = all(r["cache"] == "hit" for r in again) and \
+        counter("timed_runs") == timed1 and \
+        [_winner(r) for r in again] == [_winner(r) for r in rows]
+    ok = tuned and warm and fails == 0 and os.path.exists(cache)
+    print(f"autotune: {len(rows)} shapes tuned on {at.device_identity('cuda')}"
+          f" kernel sources {at.kernel_digest()}, {timed:.0f} timed runs, "
+          f"{fails:.0f} candidates failed, {time.perf_counter() - t0:.1f}s; "
+          f"reloaded and tuned again: {sum(r['cache'] == 'hit' for r in again)}"
+          f"/{len(again)} cache hits, {counter('timed_runs') - timed1:.0f} "
+          f"timed runs {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def _int8_burst(torch, np, ri, eng, groups):
+    """The ragged score burst through the pipelined engine `eng` (warmed
+    first): latency p50/p99, requests/s, the rows, the launches of
+    ``row_dense``'s int8 mode and the int8 score dispatches, and each
+    request seed's bucket, and the seconds of the warmup."""
+    warm_s = eng.warmup(ops=("score",))["seconds"]
+    rec = _Recorder(eng)
+    ri.reset_launch_counts()
+    done_at, submit_at, futures = {}, [], []
+    eng.start()
+    t0 = time.perf_counter()
+    seed = 0
+    for batch in groups:
+        for row in batch:
+            submit_at.append(time.perf_counter())
+            f = eng.submit("score", row, seed=seed)
+            f.add_done_callback(
+                lambda _f, i=len(futures): done_at.__setitem__(
+                    i, time.perf_counter()))
+            futures.append(f)
+            seed += 1
+        time.sleep(0.0005)
+    rows = np.array([f.result(timeout=300) for f in futures])
+    wall = time.perf_counter() - t0
+    eng.stop()
+    torch.cuda.synchronize()
+    lat = np.array([done_at[i] - submit_at[i] for i in range(len(futures))])
+    int8 = [inf for inf in rec.log if inf.op == "score"
+            and eng._kernel_for("score", inf.k, inf.bucket)[1] == "int8"]
+    bucket = {r.seed: inf.bucket for inf in rec.log for r in inf.batch}
+    return {"p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "rps": len(futures) / wall, "rows": rows,
+            "launches": ri.launch_counts()[ri.KERNEL_DENSE_INT8],
+            "int8_dispatches": len(int8), "dispatches": len(rec.log),
+            "bucket": bucket, "warmup_s": warm_s}
+
+
+def _admitted(eng) -> set:
+    """The buckets of the engine's ladder where its score op serves int8."""
+    return {b for b in eng.ladder.buckets
+            if eng._kernel_for("score", eng.k, b)[1] == "int8"}
+
+
+def _serve_until(np, eng, rows, stop, passes, errors):
+    """Serve `rows` (seeds 0..) through the pipelined engine `eng` again
+    and again until `stop` is set, at least once: each pass's rows go to
+    `passes`, a failed request to `errors`."""
+    eng.start()
+    try:
+        while True:
+            fs = [eng.submit("score", r, seed=i) for i, r in enumerate(rows)]
+            try:
+                passes.append(np.array([f.result(timeout=300) for f in fs]))
+            except Exception as e:   # noqa: BLE001 - reported and failed
+                errors.append(f"{type(e).__name__}: {e}")
+            if stop.is_set():
+                return
+    finally:
+        eng.stop()
+
+
+def int8_engines(torch, np, ri, run_dir, cache):
+    """Phases 14d-g: the int8 policy on the flagship (phase 7's weights).
+    Returns ({path: row_dense int8 launches}, ok)."""
+    from iwae_replication_project_tpu_torch.models import iwae as model
+    from iwae_replication_project_tpu_torch.ops import autotune as at
+    from iwae_replication_project_tpu_torch.ops.logsumexp import logmeanexp
+    from iwae_replication_project_tpu_torch.serving.buckets import (
+        BucketLadder)
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+    from iwae_replication_project_tpu_torch.serving.programs import (
+        draw_noise)
+    from iwae_replication_project_tpu_torch.telemetry.parity import (
+        INT8_TOLERANCES, statistical_parity)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(14)
+    groups, n = [], 0
+    while n < INT8_BURST:
+        size = INT8_SIZES[len(groups) % len(INT8_SIZES)]
+        groups.append((rng.rand(size, 784) > 0.5).astype(np.float32))
+        n += size
+    burst = np.concatenate(groups)
+    ok = True
+    launches = {}
+    with cc.isolated_aot_registry(budget_bytes=None), \
+            _env(IWAE_AUTOTUNE_CACHE=cache, IWAE_SERVING_INT8=None):
+        e32 = ServingEngine(run_dir, precision="fp32", timeout_s=None)
+        r32 = _int8_burst(torch, np, ri, e32, groups)
+        auto = ServingEngine(run_dir, precision="int8", timeout_s=None)
+        ra = _int8_burst(torch, np, ri, auto, groups)
+        with _env(IWAE_SERVING_INT8="force"):
+            forced = ServingEngine(run_dir, precision="int8",
+                                   timeout_s=None)
+            rf = _int8_burst(torch, np, ri, forced, groups)
+        for name, eng, r in (("fp32", e32, r32), ("int8 auto", auto, ra),
+                             ("int8 forced", forced, rf)):
+            print(f"int8: {name} engine burst of {len(r['rows'])} score "
+                  f"requests: p50_ms={r['p50_ms']:.3f} "
+                  f"p99_ms={r['p99_ms']:.3f} requests_per_s={r['rps']:.1f} "
+                  f"dispatches={r['dispatches']} int8 dispatches="
+                  f"{r['int8_dispatches']} warmup_s={r['warmup_s']:.3f}",
+                  flush=True)
+        dims = at.dims_for_model(auto.cfg)
+        tuned = {b: at.winner_for("serving_int8", auto.k, b, *dims, None,
+                                  device=auto.device)
+                 for b in auto.ladder.buckets}
+        verdicts = {b: auto.int8_admission[("score", auto.k, b)]
+                    for b in auto.ladder.buckets}
+        admitted = _admitted(auto)
+        for b, why in verdicts.items():
+            print(f"int8: auto admission score k={auto.k} bucket {b}: "
+                  f"{'admitted' if b in admitted else 'rejected'} ({why})",
+                  flush=True)
+
+        # every served row against the program it should have run, on the
+        # burst's own noise (seeds 0..): the int8 tree's score where int8
+        # was admitted, the fp32 engine's row elsewhere, bitwise (a row's
+        # bits do not depend on its batch, C6)
+        x = torch.from_numpy(burst).cuda()
+        seeds = list(range(len(burst)))
+        cfg8, _ = forced._kernel_for("score", forced.k, 64)
+        cfg32, _ = e32._kernel_for("score", e32.k, 64)
+        noise = [t.cuda() for t in draw_noise(cfg32, "score",
+                                              forced._base_seed, seeds,
+                                              e32.k)]
+        with torch.inference_mode():
+            lw8 = model.log_weights(forced._params_q, cfg8, x, forced.k,
+                                    eps=noise)
+            lw32 = model.log_weights(e32._params, cfg32, x, e32.k, eps=noise)
+            want8 = logmeanexp(lw8, dim=0, fixed_order=cfg8.row_invariant)
+        want8 = want8.cpu().numpy()
+
+        def served_ok(r, int8_buckets):
+            want = np.array([want8[i] if r["bucket"][i] in int8_buckets
+                             else r32["rows"][i] for i in seeds])
+            return np.array_equal(r["rows"], want)
+
+        auto_ok = served_ok(ra, admitted)
+        dev_a = float(np.abs(ra["rows"] - r32["rows"]).max())
+        dev_f = float(np.abs(rf["rows"] - r32["rows"]).max())
+        forced_ok = served_ok(rf, set(forced.ladder.buckets)) and \
+            rf["int8_dispatches"] == rf["dispatches"] and all(
+                "forced" in w for w in forced.int8_admission.values())
+        counts_ok = all(r["launches"] == 3 * r["int8_dispatches"]
+                        for r in (ra, rf)) and r32["launches"] == 0
+        ok &= auto_ok and forced_ok and counts_ok
+        print(f"int8: served rows bitwise the program each should have run "
+              f"(the int8 tree's eager score on the burst's noise where "
+              f"int8 was admitted, the fp32 engine's row elsewhere): auto "
+              f"{'ok' if auto_ok else 'FAIL'} ({len(admitted)} of "
+              f"{len(verdicts)} buckets int8; worst |int8 - fp32| "
+              f"{dev_a:.5f} nats), forced {'ok' if forced_ok else 'FAIL'} "
+              f"(worst |int8 - fp32| {dev_f:.5f} nats); row_dense int8 "
+              f"launches auto {ra['launches']} forced {rf['launches']} fp32 "
+              f"{r32['launches']} (3 per int8 score dispatch: "
+              f"{3 * ra['int8_dispatches']}, {3 * rf['int8_dispatches']}, "
+              f"0) {'ok' if counts_ok else 'FAIL'}", flush=True)
+        launches["int8_auto_burst"] = ra["launches"]
+        launches["int8_forced_burst"] = rf["launches"]
+
+        # the log-weights behind the forced rows (served bitwise above)
+        # against the fp32 program's on the same noise: the statistical gate
+        verdict = statistical_parity(lw32.cpu().numpy(), lw8.cpu().numpy(),
+                                     INT8_TOLERANCES)
+        ok &= verdict["accepted"]
+        print(f"int8: statistical_parity of the served int8 log-weights "
+              f"[{forced.k}, {len(burst)}] against fp32's on the same noise "
+              f"at INT8_TOLERANCES: accepted={verdict['accepted']} deltas "
+              + json.dumps({k: round(v, 6) for k, v in
+                            verdict["deltas"].items()})
+              + f" failures={verdict['failures']}", flush=True)
+
+        # C6 for int8: one row in batches of 1..64 rows
+        with _env(IWAE_SERVING_INT8="force"):
+            wide = ServingEngine(run_dir, precision="int8", timeout_s=None,
+                                 ladder=BucketLadder(tuple(range(1, 65))))
+            ri.reset_launch_counts()
+            target = groups[0][0]
+            vals = []
+            for b in range(1, 65):
+                rows = (rng.rand(b, 784) > 0.5).astype(np.float32)
+                j = int(rng.randint(b))
+                rows[j] = target
+                seeds = [10_000 + 100 * b + i for i in range(b)]
+                seeds[j] = 42
+                vals.append(_serve_rows(wide, "score", rows, seeds)[j])
+            torch.cuda.synchronize()
+            c6 = all(np.array_equal(v, vals[0]) for v in vals)
+            launches["int8_bucket_invariance"] = \
+                ri.launch_counts()[ri.KERNEL_DENSE_INT8]
+        ok &= c6
+        print(f"int8: one forced int8 row in batches of 1..64 rows (64 "
+              f"buckets): {float(vals[0]):.6f}, bitwise the same in every "
+              f"bucket={c6} {'ok' if c6 else 'FAIL'}", flush=True)
+
+        # a race that fails serves the exact fp32 program and says so
+        measure = at._measure_candidate
+        at._measure_candidate = lambda *a, **kw: None
+        try:
+            with _env(IWAE_AUTOTUNE_CACHE="off"):
+                at.reload_store()
+                failing = ServingEngine(run_dir, precision="int8",
+                                        timeout_s=None,
+                                        ladder=BucketLadder((1,)))
+                rows = groups[1]
+                got = np.array(_serve_rows(failing, "score", rows[:1], [1]))
+                why = failing.int8_admission[("score", failing.k, 1)]
+        finally:
+            at._measure_candidate = measure
+            at.reload_store()
+        soft = why.startswith("autotune measurement failed") and \
+            np.array_equal(got, r32["rows"][1:2]) and \
+            failing._kernel_for("score", failing.k, 1)[1] != "int8"
+        ok &= soft
+        print(f"int8: an engine whose race fails: admission '{why}', its "
+              f"row bitwise the fp32 engine's={soft} "
+              f"{'ok' if soft else 'FAIL'}", flush=True)
+
+        inline, i_ok = inline_race(torch, np, ri, run_dir, groups, burst,
+                                   r32, rf, want8, tuned, admitted)
+        ok &= i_ok
+        launches["int8_inline_burst"] = inline
+    print(f"int8: phase 14d-g {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return launches, ok
+
+
+#: a tuned bucket whose two programs' times differ by at least this share
+#: must get the same verdict from an in-line race; a closer race may flip
+#: with the card's load and is printed, not held
+RACE_MARGIN = 0.2
+
+
+def inline_race(torch, np, ri, run_dir, groups, burst, r32, rf, want8,
+                tuned, admitted):
+    """Phase 14g: the default int8 path, auto with no winner file, whose
+    engine races each bucket in-line at warmup: alone, then while an fp32
+    engine serves the burst on the card. The race's cost is its warmup
+    beside the forced engine's (`rf`), which captures the same int8
+    programs and races nothing. Returns (the row_dense int8 launches of its
+    burst, ok)."""
+    from iwae_replication_project_tpu_torch.ops import autotune as at
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+
+    ok = True
+    with _env(IWAE_AUTOTUNE_CACHE="off"):
+        at.reload_store()
+        ri.reset_launch_counts()
+        alone = ServingEngine(run_dir, precision="int8", timeout_s=None)
+        warm_s = alone.warmup(ops=("score",))["seconds"]
+        warm_launches = ri.launch_counts()[ri.KERNEL_DENSE_INT8]
+        v_alone = _admitted(alone)
+        # its captured int8 programs' warm runs, 3 launches each: the
+        # race's probes left the counts as they were
+        probes_ok = warm_launches == 3 * len(v_alone)
+        rl = _int8_burst(torch, np, ri, alone, groups)
+        want = np.array([want8[i] if rl["bucket"][i] in v_alone
+                         else r32["rows"][i] for i in range(len(burst))])
+        rows_ok = np.array_equal(rl["rows"], want) and \
+            rl["launches"] == 3 * rl["int8_dispatches"]
+
+        # again, while an fp32 engine serves on the card
+        at.reload_store()
+        e32 = ServingEngine(run_dir, precision="fp32", timeout_s=None)
+        e32.warmup(ops=("score",))
+        stop, passes, errors = threading.Event(), [], []
+        server = threading.Thread(target=_serve_until, args=(
+            np, e32, burst, stop, passes, errors), daemon=True)
+        server.start()
+        try:
+            busy = ServingEngine(run_dir, precision="int8", timeout_s=None)
+            busy_s = busy.warmup(ops=("score",))["seconds"]
+        finally:
+            stop.set()
+            server.join(timeout=600)
+        v_busy = _admitted(busy)
+        served_ok = not server.is_alive() and not errors and \
+            bool(passes) and all(np.array_equal(p, r32["rows"])
+                                 for p in passes)
+    at.reload_store()
+
+    held, same = [], True
+    for b in alone.ladder.buckets:
+        w = tuned[b] or {}
+        margin = 0.0 if w.get("runner_up_ms") is None else abs(
+            w["runner_up_ms"] - w["measured_ms"]) / max(
+                w["runner_up_ms"], w["measured_ms"])
+        if margin >= RACE_MARGIN:
+            held.append(b)
+            same &= (b in admitted) == (b in v_alone) == (b in v_busy)
+        print(f"int8: in-line race bucket {b}: cache "
+              f"{'admitted' if b in admitted else 'rejected'} (margin "
+              f"{margin:.1%}{'' if margin >= RACE_MARGIN else ', not held'})"
+              f"; alone {'admitted' if b in v_alone else 'rejected'} ("
+              f"{alone.int8_admission[('score', alone.k, b)]}); beside a "
+              f"serving fp32 engine "
+              f"{'admitted' if b in v_busy else 'rejected'} ("
+              f"{busy.int8_admission[('score', busy.k, b)]})", flush=True)
+    ok = probes_ok and rows_ok and served_ok and same
+    print(f"int8: in-line race (IWAE_AUTOTUNE_CACHE=off): warmup_s alone "
+          f"{warm_s:.3f} against {rf['warmup_s']:.3f} for the forced engine "
+          f"(the race adds {warm_s - rf['warmup_s']:.3f}s), beside a "
+          f"serving fp32 engine {busy_s:.3f}; row_dense int8 launches at "
+          f"warmup {warm_launches} (3 per admitted bucket: "
+          f"{3 * len(v_alone)}) {'ok' if probes_ok else 'FAIL'}; burst rows "
+          f"bitwise the program each should have run, launches "
+          f"{rl['launches']} (3 per int8 dispatch: "
+          f"{3 * rl['int8_dispatches']}) {'ok' if rows_ok else 'FAIL'}; the "
+          f"fp32 engine served {len(passes)} passes of {len(burst)} "
+          f"requests meanwhile, {len(errors)} failed, bitwise its rows "
+          f"alone {'ok' if served_ok else 'FAIL'}; verdicts the same in "
+          f"the {len(held)} buckets held {'ok' if same else 'FAIL'}",
+          flush=True)
+    return rl["launches"], ok
+
+
+def autotune_and_int8(torch, np, hot_loop, ri, run_dir, tmp):
+    """Phase 14 (module docstring). Returns (the int8 record for the JSON
+    line, ok)."""
+    t0 = time.perf_counter()
+    ok = check_b1_groups(torch, hot_loop)
+    record, k_ok = check_int8_kernel(torch, hot_loop, ri)
+    ok &= k_ok
+    cache = os.path.join(tmp, "autotune.json")
+    ok &= tune_kinds(torch, cache)
+    launches, e_ok = int8_engines(torch, np, ri, run_dir, cache)
+    ok &= e_ok
+    record["launches"] = launches["int8_auto_burst"] + \
+        launches["int8_forced_burst"] + launches["int8_inline_burst"]
+    record["launches_by_path"] = launches
+    ok &= record["launches"] > 0
+    print(f"int8: phase 14 {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return record, ok
+
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3786,6 +4363,10 @@ def main() -> int:
                                    replays, after_burst, smi, tmp)
         if not ok:
             return fail("the observability phase failed")
+        int8_record, ok = autotune_and_int8(torch, np, hot_loop, ri,
+                                            run_dir, tmp)
+        if not ok:
+            return fail("the autotuner and int8 phase failed")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -3805,7 +4386,7 @@ def main() -> int:
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records
-                      + row_records}), flush=True)
+                      + row_records + [int8_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -29,7 +29,9 @@
 //   counts the pair as one launch.
 // - A 16-row group is 4 warps; each owns 16 columns of every 64-column tile
 //   (WPG). A CTA holds 1 group (two CTAs per SM, while one wave covers the
-//   call) or 4. h1 is rounded to bf16 into shared memory; y1 and y2 are
+//   call) or 4 by the rule fwd_groups, or 1..MAX_GROUPS as the caller pins
+//   (`groups`, the tile ops/autotune.py measures: the port's counterpart of
+//   the Pallas kernel's (tk, tb)). h1 is rounded to bf16 into shared memory; y1 and y2 are
 //   produced by the tensor cores with their tanh in registers and stored as
 //   bf16 operands in the group's rows; the logits of each tile stay in the
 //   accumulators, where x l - softplus(l) (pixels d >= D masked, x from
@@ -66,13 +68,15 @@ namespace {
 // ---------------------------------------------------------------------------
 
 // The 4 warps of a 16-row group split every 64-column tile, 16 columns
-// each; a CTA holds 1 or 4 groups (fwd_groups).
+// each; a CTA holds 1..MAX_GROUPS groups (fwd_groups, or the caller's pin).
 constexpr int WPG = 4;
 constexpr int MAX_GROUPS = 4;
 
 // Row groups per CTA for R rows: 1 (two CTAs fit an SM) while the grid
 // still fits the card in one wave, else MAX_GROUPS (fewer CTAs streaming the
-// weights). A row's arithmetic is the same either way.
+// weights). A row's arithmetic is the same at any number of groups: a group
+// computes its 16 rows alone, and the CTA size only sets how many groups
+// share one stream of the weights. ops/hot_loop.fwd_groups mirrors it.
 inline int fwd_groups(int R) {
   return (R + 15) / 16 <= 2 * 132 ? 1 : MAX_GROUPS;
 }
@@ -255,14 +259,17 @@ size_t hot_loop_fwd_scratch_bytes(int H1, int HID, int D, int bf16) {
 // out[r] for r < R = k * B; every pointer but `scratch` is a contiguous fp32
 // device buffer: h1 [R, H1], w1 [H1, HID], b1 [HID], w2 [HID, HID], b2 [HID],
 // w3 [HID, D], b3 [D], x [B, D], out [R]; scratch holds
-// hot_loop_fwd_scratch_bytes bytes (256-byte aligned). Launches on `stream`
+// hot_loop_fwd_scratch_bytes bytes (256-byte aligned). `groups` is the bf16
+// kernel's 16-row groups per CTA: 0 = fwd_groups(R), 1..MAX_GROUPS pinned
+// (the fp32 kernel has no such tile and takes only 0). Launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 int hot_loop_fwd(const void* h1, const void* w1, const void* b1,
                  const void* w2, const void* b2, const void* w3,
                  const void* b3, const void* x, void* out, void* scratch,
-                 int R, int B, int H1, int HID, int D, int bf16,
+                 int R, int B, int H1, int HID, int D, int bf16, int groups,
                  void* stream) {
-  if (R <= 0 || B <= 0 || H1 <= 0 || HID <= 0 || D <= 0 || R % B != 0)
+  if (R <= 0 || B <= 0 || H1 <= 0 || HID <= 0 || D <= 0 || R % B != 0 ||
+      groups < 0 || groups > MAX_GROUPS || (!bf16 && groups != 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float *fh1 = (const float*)h1, *fb1 = (const float*)b1,
@@ -284,7 +291,7 @@ int hot_loop_fwd(const void* h1, const void* w1, const void* b1,
   cudaError_t e = tc::launch_prep((const float*)w1, (const float*)w2,
                                   (const float*)w3, wp, d, s);
   if (e != cudaSuccess) return (int)e;
-  const int rows = 16 * fwd_groups(R);
+  const int rows = 16 * (groups ? groups : fwd_groups(R));
   e = allow_smem(hot_loop_fwd_tc, fwd_smem_bytes(d, 16 * MAX_GROUPS));
   if (e != cudaSuccess) return (int)e;
   hot_loop_fwd_tc<<<(R + rows - 1) / rows, rows * 2 * WPG,

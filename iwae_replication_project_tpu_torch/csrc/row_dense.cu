@@ -10,6 +10,11 @@
 // (models/mlp.py dense_apply under ModelConfig.row_invariant, chosen by
 // ops/hot_loop.serving_dispatch_config on CUDA).
 //
+// It also serves the int8 weight-only policy (row_dense_int8 below): the
+// JAX package's quantized decoder layer _dense_wq (ops/hot_loop.py:540-546,
+// plain XLA there) went through torch.matmul here, which breaks C6 the same
+// way, so it has a mode of this kernel.
+//
 // What it computes, for x [M, K], W [K, N], b [N] (contiguous fp32):
 //   y[m, n] = act(b[n] + sum_k op(x[m, k]) op(W[k, n]))
 // where op rounds to bf16 (round to nearest even, as .to(bfloat16)) when
@@ -41,6 +46,17 @@
 // kernel back is latency, and on the card (PERF.md §6) the bytes one
 // CTA pulls through its SM, at a rate far under the SM's: the 64-row,
 // K = 784 layer needs more CTAs than its output tiles give.
+//
+// int8 mode: for x [M, K] fp32, W_q [K, N] int8, scale [N] and b [N] fp32,
+//   y[m, n] = act(fl(fl(sum_k x[m, k] float(W_q[k, n])) * scale[n]) + b[n])
+// with the sum fp32's one FMA chain (k in order, never cut) and the
+// epilogue a rounded multiply, then a rounded add, as (x @ w_q) * scale + b
+// rounds it. W_q is staged as bytes (4-byte cp.async where N % 4 == 0) and
+// converted to fp32 as each value is read from shared memory; the tile menu,
+// the plan and the ring are fp32's, so a row's bits are as invariant. Bound:
+// 2 M K N operations against 4 M K + K N + 8 N + 4 M N bytes; the weights
+// move a quarter of fp32's bytes, which is the policy's point where a
+// layer is bound by its weights (a bucket's few rows).
 //
 // Design:
 //  - the grid: output tiles from a fixed menu (64x64, 32x64, 16x64, 16x32),
@@ -108,17 +124,12 @@ struct Tile {
   static_assert(BM * CS <= STAGE, "the epilogue reuses slot 0");
 };
 
-// x rows [m0, m0 + BM) and W columns [n0, n0 + BN), k in [k0, k0 + BK),
-// into one slot of the ring; zeros outside [0, M) x [0, K) x [0, N)
-template <int BM, int BN>
-__device__ __forceinline__ void load_slab(float* slot,
-                                          const float* __restrict__ x,
-                                          const float* __restrict__ w,
-                                          long m0, int n0, int k0, int M,
-                                          int K, int N, bool vx, bool vw) {
-  typedef Tile<BM, BN> T;
-  float* xs = slot;
-  float* ws = slot + BM * XS;
+// x rows [m0, m0 + BM), k in [k0, k0 + BK), into a slot's x slab [BM][XS];
+// zeros outside [0, M) x [0, K)
+template <int BM>
+__device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
+                                       long m0, int k0, int M, int K,
+                                       bool vx) {
   if (vx) {
     for (int c = threadIdx.x; c < BM * (BK / 4); c += THREADS) {
       const int r = c / (BK / 4), q = (c % (BK / 4)) * 4;
@@ -138,6 +149,19 @@ __device__ __forceinline__ void load_slab(float* slot,
                            in ? 4u : 0u);
     }
   }
+}
+
+// x rows [m0, m0 + BM) and W columns [n0, n0 + BN), k in [k0, k0 + BK),
+// into one slot of the ring; zeros outside [0, M) x [0, K) x [0, N)
+template <int BM, int BN>
+__device__ __forceinline__ void load_slab(float* slot,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ w,
+                                          long m0, int n0, int k0, int M,
+                                          int K, int N, bool vx, bool vw) {
+  typedef Tile<BM, BN> T;
+  float* ws = slot + BM * XS;
+  load_x<BM>(slot, x, m0, k0, M, K, vx);
   if (vw) {
     for (int c = threadIdx.x; c < BK * (BN / 4); c += THREADS) {
       const int r = c / (BN / 4), q = (c % (BN / 4)) * 4;
@@ -352,6 +376,188 @@ __global__ void __launch_bounds__(THREADS)
   cluster.sync();  // no CTA leaves while the others read its shared memory
 }
 
+// ---------------------------------------------------------------------------
+// int8-weight mode: fp32 x, int8 W_q staged as bytes, fp32's FMA chain
+// ---------------------------------------------------------------------------
+
+template <int BM, int BN>
+struct QTile {
+  static constexpr int WQS = BN + 16;  // row stride of a staged W_q slab (B)
+  static constexpr int XBYTES = BM * XS * 4;
+  static constexpr int STAGE = XBYTES + BK * WQS;  // bytes in a slot
+  static constexpr int STAGES =
+      RING_BYTES / STAGE < MAX_STAGES ? RING_BYTES / STAGE : MAX_STAGES;
+  static_assert(STAGES >= 2, "a ring needs two slots");
+  static_assert(STAGE % 16 == 0, "slots stay 16-byte aligned");
+  static_assert(BM * Tile<BM, BN>::CS * 4 <= STAGE,
+                "the epilogue reuses slot 0");
+};
+
+// W_q columns [n0, n0 + BN), k in [k0, k0 + BK), into a slot's byte slab
+// [BK][WQS]; zeros outside [0, K) x [0, N). vw: N % 4 == 0 and W_q 4-byte
+// aligned, four weights a copy; else plain byte loads and stores, which the
+// ring's barrier orders like the copies.
+template <int BN>
+__device__ __forceinline__ void load_wq(int8_t* ws,
+                                        const int8_t* __restrict__ w, int n0,
+                                        int k0, int K, int N, bool vw) {
+  constexpr int WQS = BN + 16;
+  if (vw) {
+    for (int c = threadIdx.x; c < BK * (BN / 4); c += THREADS) {
+      const int r = c / (BN / 4), q = (c % (BN / 4)) * 4;
+      const int k = k0 + r, n = n0 + q;
+      const bool in = k < K && n < N;  // N % 4 == 0: all four or none
+      tma::cp_async4_zfill(ws + r * WQS + q, in ? w + (long)k * N + n : w,
+                           in ? 4u : 0u);
+    }
+  } else {
+    for (int c = threadIdx.x; c < BK * BN; c += THREADS) {
+      const int r = c / BN, q = c % BN;
+      const int k = k0 + r, n = n0 + q;
+      ws[r * WQS + q] = (k < K && n < N) ? w[(long)k * N + n] : (int8_t)0;
+    }
+  }
+}
+
+// the products of one staged slab, as Fp32Math's, each weight converted
+// from its byte as it is read (an int8 value is exact in fp32)
+template <int BM, int BN>
+__device__ __forceinline__ void q_slab(float (&acc)[(BM / 16) * (BN / 8)],
+                                       const unsigned char* slot,
+                                       int steps) {
+  typedef QTile<BM, BN> T;
+  constexpr int TM = BM / 16, TN = BN / 8;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  const float* xa = reinterpret_cast<const float*>(slot) + ty * XS;
+  const int8_t* wb = reinterpret_cast<const int8_t*>(slot + T::XBYTES) + tx;
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int kk = 16 * s; kk < 16 * s + 16; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xa[16 * i * XS + kk];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = (float)wb[kk * T::WQS + 8 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i * TN + j] = fmaf(a[i], b[j], acc[i * TN + j]);
+    }
+  }
+}
+
+// One CTA: the tile (blockIdx.x, blockIdx.y) over the whole of K, the ring
+// and the loop of row_dense_kernel with one part
+template <bool TANH, int BM, int BN>
+__global__ void __launch_bounds__(THREADS)
+    row_dense_int8_kernel(const float* __restrict__ x,
+                          const int8_t* __restrict__ w,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ b,
+                          float* __restrict__ y, int M, int K, int N,
+                          bool vx, bool vw) {
+  typedef QTile<BM, BN> T;
+  extern __shared__ __align__(16) unsigned char qsmem[];
+  const long m0 = (long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int nslab = (K + BK - 1) / BK;
+  const int k16 = (K + 15) / 16;
+
+  float acc[Fp32Math<BM, BN>::ACC];
+#pragma unroll
+  for (int i = 0; i < Fp32Math<BM, BN>::ACC; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int j = 0; j < T::STAGES - 1; ++j) {
+    if (j < nslab) {
+      unsigned char* slot = qsmem + j * T::STAGE;
+      load_x<BM>(reinterpret_cast<float*>(slot), x, m0, j * BK, M, K, vx);
+      load_wq<BN>(reinterpret_cast<int8_t*>(slot + T::XBYTES), w, n0, j * BK,
+                  K, N, vw);
+    }
+    tma::cp_async_commit();
+  }
+  for (int j = 0; j < nslab; ++j) {
+    tma::cp_async_wait<T::STAGES - 2>();
+    __syncthreads();  // slab j is in; slab j - 1's slot is free
+    const int nxt = j + T::STAGES - 1;
+    if (nxt < nslab) {
+      unsigned char* slot = qsmem + (nxt % T::STAGES) * T::STAGE;
+      load_x<BM>(reinterpret_cast<float*>(slot), x, m0, nxt * BK, M, K, vx);
+      load_wq<BN>(reinterpret_cast<int8_t*>(slot + T::XBYTES), w, n0,
+                  nxt * BK, K, N, vw);
+    }
+    tma::cp_async_commit();
+    const int left = k16 - 4 * j;
+    q_slab<BM, BN>(acc, qsmem + (j % T::STAGES) * T::STAGE,
+                   left < 4 ? left : 4);
+  }
+  tma::cp_async_wait<0>();
+  __syncthreads();
+
+  typedef Tile<BM, BN> F;
+  float* cs = reinterpret_cast<float*>(qsmem);
+  Fp32Math<BM, BN>::store(acc, cs);
+  __syncthreads();
+  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
+    const int r = e / BN, c = e % BN;
+    const long m = m0 + r;
+    const int n = n0 + c;
+    if (m < M && n < N) {
+      float v = __fadd_rn(__fmul_rn(cs[r * F::CS + c], scale[n]), b[n]);
+      if (TANH) v = tanhf(v);
+      y[m * N + n] = v;
+    }
+  }
+}
+
+template <bool TANH, int BM, int BN>
+cudaError_t allow_ring_q() {
+  typedef QTile<BM, BN> T;
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? (uint64_t)1 << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(row_dense_int8_kernel<TANH, BM, BN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::STAGES * T::STAGE);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
+}
+
+template <bool TANH, int BM, int BN>
+cudaError_t launch_q(const float* x, const int8_t* w, const float* scale,
+                     const float* b, float* y, int M, int K, int N,
+                     cudaStream_t s) {
+  typedef QTile<BM, BN> T;
+  const cudaError_t attr = allow_ring_q<TANH, BM, BN>();
+  if (attr != cudaSuccess) return attr;
+  const int nslab = (K + BK - 1) / BK;
+  const size_t smem = (size_t)(nslab < T::STAGES ? nslab : T::STAGES) *
+                      T::STAGE;
+  const bool vx = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vw = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  row_dense_int8_kernel<TANH, BM, BN><<<grid, THREADS, smem, s>>>(
+      x, w, scale, b, y, M, K, N, vx, vw);
+  return cudaGetLastError();
+}
+
+template <bool TANH>
+cudaError_t launch_q_tile(int tile, const float* x, const int8_t* w,
+                          const float* scale, const float* b, float* y,
+                          int M, int K, int N, cudaStream_t s) {
+  switch (tile) {
+    case 0: return launch_q<TANH, 64, 64>(x, w, scale, b, y, M, K, N, s);
+    case 1: return launch_q<TANH, 32, 64>(x, w, scale, b, y, M, K, N, s);
+    case 2: return launch_q<TANH, 16, 64>(x, w, scale, b, y, M, K, N, s);
+    default: return launch_q<TANH, 16, 32>(x, w, scale, b, y, M, K, N, s);
+  }
+}
+
 inline long ctas(int M, int N, int K, bool bf16, int tile) {
   return (long)((M + TILE_M[tile] - 1) / TILE_M[tile]) *
          ((N + TILE_N[tile] - 1) / TILE_N[tile]) * splits(K, bf16);
@@ -452,6 +658,29 @@ int row_dense(const void* x, const void* w, const void* b, void* y, int M,
     rc = act ? rd::launch_tile<false, true>(tile, fx, fw, fb, fy, M, K, N, s)
              : rd::launch_tile<false, false>(tile, fx, fw, fb, fy, M, K, N,
                                              s);
+  return (int)rc;
+}
+
+// y [M, N] = act((x [M, K] W_q [K, N]) * scale [N] + b [N]): x, scale, b
+// and y contiguous fp32 device buffers, W_q a contiguous int8 one; act = 1
+// applies tanh; `tile` indexes the menu as row_dense's. Each output is one
+// fp32 FMA chain over K in order (K never cut), then the rounded multiply
+// by scale and the rounded add of b. Launches on `stream` without
+// synchronising and returns the CUDA error code (0 on success).
+int row_dense_int8(const void* x, const void* w_q, const void* scale,
+                   const void* b, void* y, int M, int K, int N, int act,
+                   int tile, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || tile < 0 || tile >= rd::NTILES ||
+      (N + rd::TILE_N[tile] - 1) / rd::TILE_N[tile] > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float *fx = (const float*)x, *fs = (const float*)scale,
+              *fb = (const float*)b;
+  const int8_t* fw = (const int8_t*)w_q;
+  float* fy = (float*)y;
+  const cudaError_t rc =
+      act ? rd::launch_q_tile<true>(tile, fx, fw, fs, fb, fy, M, K, N, s)
+          : rd::launch_q_tile<false>(tile, fx, fw, fs, fb, fy, M, K, N, s);
   return (int)rc;
 }
 

@@ -151,13 +151,16 @@ def dataset_scalars(params, cfg: model.ModelConfig, batches: torch.Tensor,
     return tot / batches.shape[0]
 
 
-def _kernel_path_code(cfg: model.ModelConfig, device) -> float:
+def _kernel_path_code(cfg: model.ModelConfig, device, k: int,
+                      batch: int) -> float:
     """The ``PATH_CODES`` code of the hot-loop path ``log_px_given_h``
-    takes for `cfg` on `device`."""
+    takes for `cfg` on `device` at a (k, batch) call (JAX
+    ``path_code_for_model``: the NLL chunk's)."""
     if not cfg.fused_likelihood:
         return float(hot_loop.PATH_CODES["reference"])
     return float(hot_loop.PATH_CODES[hot_loop.select_path(
-        device, cfg.hot_loop_path, widths=hot_loop.block_widths(cfg))])
+        device, cfg.hot_loop_path, widths=hot_loop.block_widths(cfg),
+        shape=(k, batch, cfg.x_dim))])
 
 
 @torch.no_grad()
@@ -203,7 +206,8 @@ def training_statistics(params, cfg: model.ModelConfig, x_test: torch.Tensor,
     res = dict(zip(SCALAR_NAMES, fetched))
     res["nll_chunk"] = float(nll_chunk)
     res["eval_batch"] = float(batch_size)
-    res["kernel_path"] = _kernel_path_code(cfg, x_test.device)
+    res["kernel_path"] = _kernel_path_code(cfg, x_test.device, nll_chunk,
+                                           batch_size)
     res["LL_pruned"] = fetched[-1]
     rest = fetched[len(SCALAR_NAMES):]
     res2 = {"active_units": masks,

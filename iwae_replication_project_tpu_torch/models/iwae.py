@@ -21,7 +21,7 @@ from iwae_replication_project_tpu_torch.ops import row_invariant as ri_ops
 Params = Dict[str, Any]
 
 #: hot-loop implementations a config may pin (ops/hot_loop.PATH_CODES)
-HOT_LOOP_PATHS = ("kernel", "reference")
+HOT_LOOP_PATHS = ("kernel", "blocked_scan", "reference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +36,11 @@ class ModelConfig:
     ``fused_likelihood`` routes ``log p(x|h)`` through
     :func:`..ops.hot_loop.decoder_score` and needs ``likelihood="logits"``;
     ``hot_loop_path`` pins its implementation (``"kernel"`` |
-    ``"reference"``; None = the dispatcher's choice by device). The JAX
-    config's ``hot_loop_tile`` has no counterpart: the CUDA kernel's tile is
-    fixed inside the kernel. ``row_invariant`` runs every dense layer and
+    ``"blocked_scan"`` | ``"reference"``; None = the dispatcher's choice).
+    ``hot_loop_tile`` pins the kernel's tile: the port's counterpart of the
+    JAX config's ``(tk, tb)`` is B1's 16-row groups per CTA (1-4; None =
+    the kernel's rule or a measured winner), which changes no output bit,
+    and it needs ``hot_loop_path="kernel"``. ``row_invariant`` runs every dense layer and
     every sum over samples, latents or pixels through
     ``ops/row_invariant`` (on CUDA: kernels whose per-row arithmetic does
     not depend on the batch); the serving dispatcher sets it on CUDA,
@@ -56,6 +58,7 @@ class ModelConfig:
     fused_likelihood: bool = False
     hot_loop_path: Optional[str] = None
     row_invariant: bool = False
+    hot_loop_tile: Optional[int] = None
 
     def __post_init__(self):
         L = self.n_stochastic
@@ -82,6 +85,17 @@ class ModelConfig:
                 raise ValueError("hot_loop_path is a pin on the fused "
                                  "dispatcher; it requires "
                                  "fused_likelihood=True")
+        if self.hot_loop_tile is not None:
+            if self.hot_loop_path != "kernel":
+                raise ValueError("hot_loop_tile pins the kernel's row "
+                                 "groups; it requires hot_loop_path="
+                                 "'kernel'")
+            if isinstance(self.hot_loop_tile, bool) or \
+                    not isinstance(self.hot_loop_tile, int) or \
+                    not 1 <= self.hot_loop_tile <= 4:
+                raise ValueError(f"hot_loop_tile must be B1's row groups "
+                                 f"per CTA, an int in 1..4, got "
+                                 f"{self.hot_loop_tile!r}")
 
     @property
     def n_stochastic(self) -> int:
@@ -209,13 +223,23 @@ def decode_probs(params: Params, cfg: ModelConfig,
 def log_px_given_h(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    h1: torch.Tensor) -> torch.Tensor:
     """``log p(x|h)`` summed over pixels -> ``[k, B]``."""
+    if "out_q" in params:
+        # the int8 serving policy (JAX :210-217): the engine swapped the
+        # fp32 output block for its int8 twin (hot_loop.quantize_out_block)
+        # in the tree of the dispatches it admitted; train and eval trees
+        # always carry "out"
+        from iwae_replication_project_tpu_torch.ops import hot_loop
+        return hot_loop.decoder_score_int8(params["out_q"], x, h1,
+                                           row_invariant=cfg.row_invariant)
     if cfg.fused_likelihood:
         # the hot-loop dispatcher: the CUDA kernel for CUDA tensors, the
-        # plain composition for CPU tensors or a "reference" pin
+        # blocked scan or the plain composition otherwise (or as pinned)
         from iwae_replication_project_tpu_torch.ops import hot_loop
         return hot_loop.decoder_score(params["out"], x, h1,
                                       compute_dtype=cfg.matmul_dtype,
-                                      force_path=cfg.hot_loop_path)
+                                      force_path=cfg.hot_loop_path,
+                                      force_tile=cfg.hot_loop_tile,
+                                      row_invariant=cfg.row_invariant)
     logits = decode_logits(params, cfg, h1)
     if cfg.likelihood == "clamp":
         probs = dist.clamp_probs(torch.sigmoid(logits))

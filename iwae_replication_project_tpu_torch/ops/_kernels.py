@@ -42,7 +42,7 @@ _i = ctypes.c_int
 #: C signatures of every kernel library: name -> {function: (restype, argtypes)}
 SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     "hot_loop_fwd": {
-        "hot_loop_fwd": (_i, [_vp] * 10 + [_i] * 6 + [_vp]),
+        "hot_loop_fwd": (_i, [_vp] * 10 + [_i] * 7 + [_vp]),
         "hot_loop_fwd_smem_bytes": (ctypes.c_size_t, [_i] * 3),
         "hot_loop_fwd_fits": (_i, [_i] * 3),
         "hot_loop_fwd_scratch_bytes": (ctypes.c_size_t, [_i] * 4),
@@ -68,6 +68,7 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
     },
     "row_dense": {
         "row_dense": (_i, [_vp] * 4 + [_i] * 6 + [_vp]),
+        "row_dense_int8": (_i, [_vp] * 5 + [_i] * 5 + [_vp]),
         "row_dense_ctas": (ctypes.c_longlong, [_i] * 5),
     },
     "row_sum": {
@@ -81,8 +82,12 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: name -> (seconds the build took, nvcc's output) for builds in this process
 build_log: Dict[str, Tuple[float, str]] = {}
 
+#: the launch counters: one per library, plus the modes a library's wrapper
+#: counts under their own names (``row_dense``'s int8-weight mode)
+COUNTERS = tuple(SIGNATURES) + ("row_dense_int8",)
+
 _count_lock = threading.Lock()
-_launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
+_launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 
 _tls = threading.local()
@@ -251,10 +256,10 @@ def plan(name: str, widths: tuple, scratch_args: tuple) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def entry(name: str):
-    """The C entry point ``name`` of ``csrc/<name>.cu``'s library, loaded
-    (and built) once: later calls take no lock."""
-    return getattr(load(name), name)
+def entry(name: str, fn: Optional[str] = None):
+    """The C entry point `fn` (default: ``name``) of ``csrc/<name>.cu``'s
+    library, loaded (and built) once: later calls take no lock."""
+    return getattr(load(name), fn or name)
 
 
 def launch(device: torch.device, fn, *args) -> int:

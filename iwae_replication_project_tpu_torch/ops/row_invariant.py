@@ -13,6 +13,10 @@ output's inputs:
   one fixed-order chain over K (bf16-rounded operands on the tensor cores,
   one ``mma.sync`` per k16 step; fp32 one FMA chain on the CUDA cores), on
   an output tile that :func:`dense_plan` picks from (M, N);
+* :func:`dense_int8` -- ``csrc/row_dense.cu``'s int8-weight mode, the
+  int8 serving policy's layer: ``act((x W_q) * scale + b)`` with ``W_q``
+  read as int8 and converted in registers, each output fp32's one FMA
+  chain over K, on the same tile menu and plan as fp32;
 * :func:`fixed_sum` -- ``csrc/row_sum.cu``: a sum over one axis, each
   output added in index order by one thread from inputs its CTA staged with
   coalesced loads.
@@ -37,10 +41,14 @@ import torch
 
 from iwae_replication_project_tpu_torch.ops import _kernels
 
-#: the kernels this module launches
+#: the kernels every serving program on the card launches
 KERNEL_DENSE = "row_dense"
 KERNEL_SUM = "row_sum"
 KERNELS = (KERNEL_DENSE, KERNEL_SUM)
+#: ``csrc/row_dense.cu``'s int8-weight mode, counted under its own name
+#: (the int8 serving policy's dispatches alone launch it)
+KERNEL_DENSE_INT8 = "row_dense_int8"
+COUNTED = KERNELS + (KERNEL_DENSE_INT8,)
 
 #: ``csrc/row_dense.cu``'s menu of output tiles (rows, columns), largest
 #: first; the C entry point's ``tile`` is an index into it
@@ -51,12 +59,13 @@ SMS = 132
 
 
 def launch_counts() -> dict:
-    """``{kernel name: launches}`` since the last :func:`reset_launch_counts`."""
-    return _kernels.launch_counts(KERNELS)
+    """``{kernel name: launches}`` of :data:`COUNTED` since the last
+    :func:`reset_launch_counts`."""
+    return _kernels.launch_counts(COUNTED)
 
 
 def reset_launch_counts() -> None:
-    _kernels.reset_launch_counts(KERNELS)
+    _kernels.reset_launch_counts(COUNTED)
 
 
 def dense_plain(x, w, b, compute_dtype=None, tanh: bool = False):
@@ -159,6 +168,59 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            f"(M={m}, K={k}, N={n}, tile "
                            f"{DENSE_TILES[tile]})")
     _kernels.count(KERNEL_DENSE)
+    return y
+
+
+def dense_int8_plain(x, w_q, scale, b, tanh: bool = False):
+    """The int8 layer's plain composition (the JAX ``_dense_wq``, :540-546):
+    ``(x @ w_q.float()) * scale + b``, then tanh. The CPU runs it; the card
+    compares the kernel with it."""
+    y = torch.matmul(x, w_q.float()) * scale + b
+    return torch.tanh(y) if tanh else y
+
+
+def dense_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+               b: torch.Tensor, tanh: bool = False) -> torch.Tensor:
+    """``act((x @ w_q) * scale + b)`` over the last axis of `x` (``[..., K]``
+    fp32), `w_q` ``[K, N]`` int8, `scale` and `b` ``[N]`` fp32.
+
+    On CUDA tensors this launches ``csrc/row_dense.cu``'s int8-weight mode
+    on the current stream, on the tile :func:`dense_tile` plans, and counts
+    one launch of ``row_dense_int8``: the weights are read as int8 and
+    converted in registers, each output one fp32 FMA chain over K in index
+    order, then ``acc * scale[n] + b[n]`` rounded as two operations. It
+    raises for anything the kernel does not take (never the plain
+    version). On CPU tensors it computes :func:`dense_int8_plain`."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return dense_int8_plain(x, w_q, scale, b, tanh)
+        raise ValueError(f"unsupported device {x.device}")
+    _check_no_grad(x, scale, b)
+    if x.dim() < 1 or w_q.dim() != 2:
+        raise ValueError(f"dense_int8 needs x [..., K] and w_q [K, N], got "
+                         f"{tuple(x.shape)} and {tuple(w_q.shape)}")
+    k, n = w_q.shape
+    dev = x.device
+    _kernels.check_tensor("x", x, tuple(x.shape[:-1]) + (k,), dev)
+    if w_q.device != dev or w_q.dtype != torch.int8 \
+            or not w_q.is_contiguous():
+        raise ValueError(f"w_q must be a contiguous int8 tensor on {dev}, "
+                         f"got {w_q.dtype} on {w_q.device}")
+    _kernels.check_tensor("scale", scale, (n,), dev)
+    _kernels.check_tensor("b", b, (n,), dev)
+    y = x.new_empty(tuple(x.shape[:-1]) + (n,))
+    m = math.prod(x.shape[:-1])
+    if m == 0:
+        return y
+    tile = dense_tile(m, n)
+    rc = _kernels.launch(dev, _kernels.entry(KERNEL_DENSE, KERNEL_DENSE_INT8),
+                         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                         b.data_ptr(), y.data_ptr(), m, k, n, tanh, tile)
+    if rc != 0:
+        raise RuntimeError(f"row_dense_int8 launch failed with CUDA error "
+                           f"{rc} (M={m}, K={k}, N={n}, tile "
+                           f"{DENSE_TILES[tile]})")
+    _kernels.count(KERNEL_DENSE_INT8)
     return y
 
 

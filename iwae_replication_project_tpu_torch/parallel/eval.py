@@ -481,7 +481,8 @@ def parallel_training_statistics(params, cfg: model.ModelConfig, mesh: Mesh,
     res = dict(zip(ev.SCALAR_NAMES, fetched))
     res["nll_chunk"] = float(chunk)
     res["eval_batch"] = float(batch_size)
-    res["kernel_path"] = ev._kernel_path_code(cfg, mesh.device)
+    res["kernel_path"] = ev._kernel_path_code(cfg, mesh.device, chunk,
+                                              b_local)
     res["LL_pruned"] = fetched[-1]
     rest = fetched[len(ev.SCALAR_NAMES):]
     res2 = {"active_units": masks,

@@ -52,9 +52,13 @@ recorder, ``/prof`` one document per replica engine, ``/healthz`` 503 once
 no replica is healthy. In engine mode it holds the process registry and the
 engine's (``serve/*`` spans, ``prof/*``), ``/prof`` the engine's profiler.
 
-The JAX CLI's ``--pin-core`` and the int8 precision policy (ROADMAP A8b)
-are refused with the reason; its per-model ``--precision model=policy``
-pairs are not ported (one policy serves every model).
+``--precision`` takes one policy (``fp32``, ``bf16`` or ``int8``) for
+every model, or ``model=policy`` pairs (JAX ``_parse_precision``); pairs
+outside ``--models`` may only name the preset served. ``int8`` serves a
+(k, bucket) quantized only where ``ops/hot_loop.serving_int8_admit`` admits
+it (``IWAE_SERVING_INT8``; on the card a measured race, ``ops/autotune``);
+the sharded replicas take no int8. The JAX CLI's ``--pin-core`` is refused
+with the reason.
 """
 
 from __future__ import annotations
@@ -74,6 +78,9 @@ from iwae_replication_project_tpu_torch.serving.batcher import (
 )
 from iwae_replication_project_tpu_torch.serving.buckets import BucketLadder
 from iwae_replication_project_tpu_torch.utils.config import _refused
+from iwae_replication_project_tpu_torch.utils.dtypes import (
+    validate_precision,
+)
 
 #: the JAX CLI's flags of parts the port lacks -> (reason, takes a value)
 REFUSED = {
@@ -82,15 +89,40 @@ REFUSED = {
 }
 
 
-def _precision(spec: str) -> str:
-    if spec == "int8":
-        raise argparse.ArgumentTypeError(
-            "int8 is not ported yet: it waits for the serving_int8 autotune "
-            "gate (ROADMAP A9 with A8)")
-    if spec not in ("fp32", "bf16"):
-        raise argparse.ArgumentTypeError(f"unknown precision {spec!r}; "
-                                         f"expected fp32 or bf16")
-    return spec
+def _precision(spec: str):
+    """``--precision``: one policy for every model (a str), or
+    comma-separated ``model=policy`` pairs (a ``{model: policy}`` dict). A
+    typo'd policy or a malformed pair is an argparse error here, never a
+    silent fp32 engine (JAX ``_parse_precision``)."""
+    try:
+        if "=" not in spec:
+            return validate_precision(spec)
+        out = {}
+        for part in (p for p in spec.split(",") if p):
+            model, eq, prec = part.partition("=")
+            if not model or not eq:
+                raise ValueError(f"bad --precision entry {part!r}; "
+                                 f"expected model=precision")
+            out[model] = validate_precision(prec)
+        return out
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from None
+
+
+def _single_engine_precision(args):
+    """The one policy a single-weight-source mode serves (JAX
+    ``_single_engine_precision``): pairs may name only the preset served,
+    another name is a typo and exits."""
+    prec = args.precision
+    if isinstance(prec, dict):
+        extra = sorted(set(prec) - ({args.preset} if args.preset else set()))
+        if extra:
+            raise SystemExit(f"--precision names models {extra} but this "
+                             f"mode serves only "
+                             f"{args.preset or 'the flagship default'} "
+                             f"(per-model pairs need --models)")
+        prec = prec.get(args.preset)
+    return prec
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -146,9 +178,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--timeout-s", dest="timeout_s", type=float, default=2.0,
                     help="per-request queue deadline; <= 0 disables")
     ap.add_argument("--kernel-path", dest="kernel_path", default=None,
-                    choices=["kernel", "reference"])
+                    choices=["kernel", "blocked_scan", "reference"])
     ap.add_argument("--precision", default=None, type=_precision,
-                    help="fp32 | bf16 (int8 is not ported yet)")
+                    help="fp32 | bf16 | int8, or model=policy pairs "
+                         "(m1=int8,m2=fp32) with --models")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-dir", dest="log_dir", default=None,
                     help="also stamp the final metrics as JSONL under this "
@@ -303,7 +336,8 @@ def _engine_knobs(args) -> dict:
 
 def build_engine(args):
     """The engine the arguments describe."""
-    knobs = dict(_engine_knobs(args), k=args.k, precision=args.precision)
+    knobs = dict(_engine_knobs(args), k=args.k,
+                 precision=_single_engine_precision(args))
     if args.checkpoint:
         return zoo.serving_engine(checkpoint_dir=args.checkpoint, **knobs)
     return zoo.serving_engine(args.preset or "northstar-iwae-2l-k50",
@@ -355,6 +389,12 @@ def _sharded_engines(args, sources):
     from iwae_replication_project_tpu_torch.serving.sharded import (
         ShardedScoreEngine)
 
+    int8 = sorted(str(label) for label, first in sources
+                  if first.precision == "int8")
+    if int8:
+        raise SystemExit(f"--precision int8 ({', '.join(int8)}) with "
+                         f"--sharded-replicas: the sharded large-k replicas "
+                         f"serve fp32 or bf16")
     knobs = _engine_knobs(args)
     knobs.pop("ladder")  # the sharded ladder is the engine's own
     knobs.pop("device")  # the mesh's

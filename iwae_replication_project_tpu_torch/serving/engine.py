@@ -88,7 +88,15 @@ Profiling never touches seeds, payloads or programs. The spans
 ``serve/complete/<op>`` (the fetch) and ``serve/warmup`` wrap host calls
 only, never a capture.
 
-Not ported yet: the int8 policy (ROADMAP A8b).
+**The int8 policy** (``precision="int8"``, JAX :207-210, :284-300,
+:621-634, :675-679). The engine serves the exact fp32 program as its base
+and builds the quantized output block once at load (``_params_q``: the
+tree with ``out`` swapped for ``out_q``, ``hot_loop.quantize_out_block``).
+The gate asks ``hot_loop.serving_int8_admit`` per (op, k, bucket) and keeps
+the reason in :attr:`int8_admission`; an admitted dispatch serves
+``_params_q`` through ``hot_loop.decoder_score_int8`` (path ``int8``, on
+the card ``row_dense``'s int8 mode under the row-invariant ops), every
+other one the exact fp32 program.
 """
 
 from __future__ import annotations
@@ -195,8 +203,9 @@ class ServingEngine:
     mixes in), ``kernel_path`` (None = the CUDA kernel on the card, the
     plain version on the CPU; ``"kernel"`` or ``"reference"`` pins one for
     every score dispatch), ``model`` (tenant label; a submit naming another
-    model is a bad request), ``precision`` (None, ``"fp32"`` or ``"bf16"``:
-    bf16 matmul operands with fp32 accumulation), ``device`` (None =
+    model is a bad request), ``precision`` (None, ``"fp32"``, ``"bf16"``:
+    bf16 matmul operands with fp32 accumulation, or ``"int8"``: the module
+    docstring), ``device`` (None =
     ``cuda``, which must exist; pass ``"cpu"`` to serve on the CPU) and
     ``profiling`` (module docstring).
     """
@@ -243,11 +252,13 @@ class ServingEngine:
                                        hot_loop_path=None)
         if self.precision == "bf16":
             self.cfg = dataclasses.replace(self.cfg, compute_dtype="bfloat16")
-        elif self.precision == "fp32":
+        elif self.precision in ("fp32", "int8"):
+            # the exact program: an explicit fp32 policy pins it, and every
+            # dispatch the int8 gate does not admit serves it
             self.cfg = dataclasses.replace(self.cfg, compute_dtype=None)
-        if kernel_path not in (None, "kernel", "reference"):
+        if kernel_path not in (None, "kernel", "blocked_scan", "reference"):
             raise ValueError(f"kernel_path={kernel_path!r}: expected None | "
-                             f"kernel | reference")
+                             f"kernel | blocked_scan | reference")
         if kernel_path == "kernel" and self.device.type != "cuda":
             raise ValueError("kernel_path='kernel' needs a CUDA device")
         self.kernel_path = kernel_path
@@ -296,6 +307,21 @@ class ServingEngine:
         #: reads the tensors at these addresses
         self._weights_key = tuple(t.data_ptr()
                                   for t in tree_leaves(self._params))
+        #: the int8 policy's tree (None otherwise): the encoder and decoder
+        #: chain shared with ``_params``, the output block swapped for its
+        #: int8 twin, quantized once here
+        self._params_q = None
+        self._weights_key_q = None
+        #: (op, k, bucket) -> why the int8 gate admitted or rejected it
+        self.int8_admission: Dict[tuple, str] = {}
+        if self.precision == "int8":
+            from iwae_replication_project_tpu_torch.ops.hot_loop import (
+                quantize_out_block)
+            self._params_q = {key: val for key, val in self._params.items()
+                              if key != "out"}
+            self._params_q["out_q"] = quantize_out_block(self._params["out"])
+            self._weights_key_q = tuple(
+                t.data_ptr() for t in tree_leaves(self._params_q))
         #: whether this engine's store entries are captured CUDA graphs
         self._graphs = self.device.type == "cuda"
         self._stream = None
@@ -544,12 +570,36 @@ class ServingEngine:
 
     def _resolve_kernel(self, op: str, k: int, bucket: int) -> tuple:
         """The serving gate's choice: gated ops run the CUDA kernel on the
-        card for logits models (the plain composition otherwise; the port's
-        gate needs no shape); the others never touch the decoder block.
-        Every program on the card takes the row-invariant ops."""
-        return serving_dispatch_config(self.cfg, device=self.device,
-                                       force=self.kernel_path,
-                                       gated=op in self._GATED_OPS)
+        card for logits models (or a measured ``serving_row`` winner's
+        path; the plain composition otherwise); the others never touch the
+        decoder block. Every program on the card takes the row-invariant
+        ops. Under the int8 policy a gated op first asks
+        ``serving_int8_admit``: admitted, it runs the unfused program over
+        ``_params_q`` (path ``int8``); rejected, the exact fp32 program
+        below, and :attr:`int8_admission` keeps the reason."""
+        gated = op in self._GATED_OPS
+        if self.precision == "int8" and gated:
+            from iwae_replication_project_tpu_torch.ops.autotune import (
+                dims_for_model)
+            from iwae_replication_project_tpu_torch.ops.hot_loop import (
+                serving_int8_admit)
+            admitted, reason = serving_int8_admit(
+                k, bucket, *dims_for_model(self.cfg), device=self.device)
+            self.int8_admission[(op, k, bucket)] = reason
+            if admitted:
+                cfg, _ = serving_dispatch_config(
+                    self.cfg, device=self.device, force="reference")
+                return cfg, "int8"
+        return serving_dispatch_config(self.cfg, k, bucket,
+                                       device=self.device,
+                                       force=self.kernel_path, gated=gated)
+
+    def _params_for(self, path: str):
+        """``(parameter tree, its identity key)`` a dispatch on `path`
+        reads: the int8 tree on an admitted dispatch, else the fp32 one."""
+        if path == "int8":
+            return self._params_q, self._weights_key_q
+        return self._params, self._weights_key
 
     def _stamp_k(self, op: str, k: int):
         """The k of the metrics kernel stamp and the gate's memo: the
@@ -569,12 +619,12 @@ class ServingEngine:
         stream: the batch's noise drawn on the host, payload and noise
         copied to the device. ``targets`` and ``n_real`` serve adaptive
         ops (none here)."""
-        cfg, _ = self._kernel_for(op, k, bucket)
+        cfg, path = self._kernel_for(op, k, bucket)
         _, takes_k = self._programs[op]
         noise = draw_noise(cfg, op, self._base_seed, seeds, k)
         x = torch.from_numpy(payload).to(self.device, non_blocking=True)
         noise = [t.to(self.device, non_blocking=True) for t in noise]
-        args = (self._params, cfg, self._base_seed, seeds, x)
+        args = (self._params_for(path)[0], cfg, self._base_seed, seeds, x)
         return (args + (k,) if takes_k else args), {"noise": noise}
 
     @property
@@ -593,13 +643,15 @@ class ServingEngine:
 
     def _build_key(self, op: str, k: int, bucket: int) -> tuple:
         """Everything a program bakes in: the stamp k, the bucket, the
-        dispatch config and the weights' identity."""
-        cfg, _ = self._kernel_for(op, k, bucket)
-        return (self._stamp_k(op, k), bucket, cfg, self._weights_key)
+        dispatch config, the weights' identity and, under a precision
+        policy, the policy (JAX :684-687)."""
+        cfg, path = self._kernel_for(op, k, bucket)
+        key = (self._stamp_k(op, k), bucket, cfg, self._params_for(path)[1])
+        return key if self.precision is None else key + (self.precision,)
 
     def _program_nbytes(self, op: str, k: int, bucket: int) -> int:
-        cfg, _ = self._kernel_for(op, k, bucket)
-        return program_bytes(cfg, op, k, bucket)
+        cfg, path = self._kernel_for(op, k, bucket)
+        return program_bytes(cfg, op, k, bucket, int8=path == "int8")
 
     def _entry(self, op: str, k: int, bucket: int, program, args: tuple,
                kwargs: dict) -> tuple:
@@ -607,8 +659,8 @@ class ServingEngine:
         store entry: the program over its payload and noise alone (the
         weights, config, k and bucket are in the key), captured on the
         card."""
-        cfg, _ = self._kernel_for(op, k, bucket)
-        params, base = self._params, self._base_seed
+        cfg, path = self._kernel_for(op, k, bucket)
+        params, base = self._params_for(path)[0], self._base_seed
         extra = (k,) if self._programs[op][1] else ()
         pad_seeds = [0] * bucket     # unused: the noise is given
 

@@ -147,17 +147,34 @@ PROGRAMS = {
     "decode": (decode_rows, False),
 }
 
-def program_bytes(cfg: model.ModelConfig, op: str, k: int,
-                  bucket: int) -> int:
+def out_block_bytes(cfg: model.ModelConfig, int8: bool = False) -> int:
+    """Bytes of the decoder output block's weights and biases as a score
+    program reads them: fp32, or with ``int8`` the int8 policy's weights
+    (one byte each) with their fp32 per-channel scales."""
+    from iwae_replication_project_tpu_torch.utils.flops import (
+        output_block_macs)
+
+    i = (list(cfg.n_latent_enc[-1:]) + list(cfg.n_latent_dec))[-2]
+    h, o = cfg.n_hidden_dec[-1], cfg.x_dim
+    channels = 2 * h + o
+    weights = output_block_macs(i, h, o)
+    return weights + 8 * channels if int8 else 4 * (weights + channels)
+
+
+def program_bytes(cfg: model.ModelConfig, op: str, k: int, bucket: int,
+                  int8: bool = False) -> int:
     """The executable store's bill of one program at (k, bucket): fp32
     bytes of its static buffers (payload, per-layer noise, output) plus its
     largest live activations, the counterpart of the JAX entries'
-    ``peak_bytes``. Live at the peak: every latent sample drawn so far and
-    the ``[rows]`` log-density carries, plus the input and output of the
-    widest dense layer at the program's rows (``k * bucket`` for score and
-    encode; ``bucket`` for decode and the first encoder block). A fused
-    decoder block (the hot-loop kernel) keeps its activations on chip and
-    adds its ``[rows]`` output."""
+    ``peak_bytes``, and for score the output block's weights at the width
+    the program reads them (:func:`out_block_bytes`; ``int8``: the int8
+    policy's program), as the JAX entries bill their arguments. Live at the
+    peak: every latent sample drawn so far and the ``[rows]`` log-density
+    carries, plus the input and output of the widest dense layer at the
+    program's rows (``k * bucket`` for score and encode; ``bucket`` for
+    decode and the first encoder block). A fused decoder block (the
+    hot-loop kernel) keeps its activations on chip and adds its ``[rows]``
+    output."""
     f = 4
     enc = list(zip([cfg.x_dim] + list(cfg.n_latent_enc[:-1]),
                    cfg.n_hidden_enc, cfg.n_latent_enc))
@@ -190,7 +207,8 @@ def program_bytes(cfg: model.ModelConfig, op: str, k: int,
         peak = max(peak, widest(dec, rows), rows if cfg.fused_likelihood
                    else rows * max(i + h, 2 * h, h + 2 * o))
     kept = rows * (sum(cfg.n_latent_enc) + 2)
-    return f * (static + peak + kept)
+    weights = out_block_bytes(cfg, int8) if op == "score" else 0
+    return f * (static + peak + kept) + weights
 
 
 def static_cost(cfg: model.ModelConfig, op: str, k: int,

@@ -56,6 +56,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from iwae_replication_project_tpu_torch.ops.hot_loop import (
+    serving_dispatch_config,
+)
 from iwae_replication_project_tpu_torch.parallel.mesh import make_mesh
 from iwae_replication_project_tpu_torch.serving.buckets import (
     BucketLadder,
@@ -119,6 +122,10 @@ class ShardedScoreEngine(ServingEngine):
             world = dist.get_world_size() if dist.is_available() and \
                 dist.is_initialized() else 1
             mesh = make_mesh(dp=1, sp=world, device=device)
+        if kw.get("precision") == "int8":
+            raise ValueError("the sharded large-k engine serves the fp32 "
+                             "and bf16 policies; int8 is served by the "
+                             "fast engines only (as in the JAX package)")
         dp = mesh.dp
         if ladder is None:
             ladder = default_sharded_ladder(dp, max_batch)
@@ -243,6 +250,14 @@ class ShardedScoreEngine(ServingEngine):
             return ((self._params, self._base_seed, seeds, x, k, tse, floor),
                     {"n_real": n_real})
         return (self._params, self._base_seed, seeds, x, k), {}
+
+    def _resolve_kernel(self, op: str, k: int, bucket: int) -> tuple:
+        """The gate at the model's widths alone: one program serves every
+        k in ``k_chunk`` blocks, so no ``serving_row`` winner of one
+        (k, bucket) applies to it."""
+        return serving_dispatch_config(self.cfg, device=self.device,
+                                       force=self.kernel_path,
+                                       gated=op in self._GATED_OPS)
 
     def _build_key(self, op: str, k: int, bucket: int) -> tuple:
         """The base key (the stamp k is ``"dyn"``) with the mesh and the

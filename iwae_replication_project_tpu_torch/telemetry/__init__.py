@@ -12,15 +12,22 @@
 * :mod:`.profiling` -- :class:`DispatchProfiler`, per-dispatch device-time
   attribution, measured MFU and bandwidth, EWMA drift findings;
 * :mod:`.trace_cli` -- the flight-recorder dump over the wire;
+* :mod:`.parity` -- :func:`statistical_parity`, the acceptance gate of the
+  bf16 and int8 serving policies;
 * :mod:`.diagnostics` -- the estimator diagnostics (imported by its call
   sites).
-
-Not ported yet: ``parity.py`` (ROADMAP A8b).
 """
 
 from iwae_replication_project_tpu_torch.telemetry.exporters import (
     prometheus_text,
     start_metrics_server,
+)
+from iwae_replication_project_tpu_torch.telemetry.parity import (
+    BF16_TOLERANCES,
+    DEFAULT_TOLERANCES,
+    INT8_TOLERANCES,
+    ParityTolerances,
+    statistical_parity,
 )
 from iwae_replication_project_tpu_torch.telemetry.profiling import (
     DispatchProfiler,
@@ -59,4 +66,6 @@ __all__ = [
     "SLOMonitor", "SLOObjective",
     "DispatchProfiler", "DriftFinding", "ProfilingConfig",
     "detect_chip_peaks",
+    "ParityTolerances", "BF16_TOLERANCES", "INT8_TOLERANCES",
+    "DEFAULT_TOLERANCES", "statistical_parity",
 ]

@@ -37,8 +37,11 @@ What differs from the JAX store:
   cost record. The port bills the larger of two numbers: the bytes the
   caller reckons from the program's shapes
   (``serving.programs.program_bytes``: the static buffers plus the largest
-  live activations at its bucket and k; without one, the bytes of its
-  tensor arguments) and, for a :class:`GraphProgram`, the device bytes the
+  live activations at its bucket and k, and for score the output block's
+  weights at the width the program reads them, so where the two run the
+  same composition (the CPU) an int8-policy entry bills less than its fp32
+  twin; on the card the fused fp32 program keeps the activations the int8
+  one writes; without one, the bytes of its tensor arguments) and, for a :class:`GraphProgram`, the device bytes the
   capture holds (``pool_bytes``: the segments of the graph's private pool,
   read from the caching allocator's snapshot by the pool's id, plus the
   static input buffers). The allocator reserves whole segments, so on the
@@ -149,37 +152,19 @@ class GraphProgram:
     def __init__(self, fn: Callable, tensors, warm: bool = True):
         dev = tensors[0].device
         self.device = dev
-        cur = torch.cuda.current_stream(dev)
-        # captured on a stream of the high-priority pool: the engines
-        # launch on the default-priority pool, and a capture on a stream
-        # another engine's thread enqueues onto would record that work (or
-        # fail); captures themselves take turns under _capture_lock
-        side = torch.cuda.Stream(device=dev, priority=-1)
-        side.wait_stream(cur)
-        from iwae_replication_project_tpu_torch.ops import _kernels
-
-        with _capture_lock, torch.inference_mode(), torch.cuda.device(dev), \
-                torch.cuda.stream(side):
+        with torch.inference_mode():
             self._static = [t.clone() for t in tensors]
-            if warm:
-                fn(*self._static)
-                _bump("aot_warmups")
-            graph = torch.cuda.CUDAGraph()
-            with _kernels.recording() as tally:
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    out = fn(*self._static)
-                finally:
-                    graph.capture_end()
-            #: the device bytes this entry holds: the segments of the
-            #: graph's private pool (the capture's intermediates and its
-            #: output) plus the static input buffers, which live outside it
-            self.pool_bytes = _pool_segment_bytes(dev, graph.pool()) + sum(
-                t.numel() * t.element_size() for t in self._static)
-        cur.wait_stream(side)
+        graph, out, launches = capture_graph(fn, self._static, dev,
+                                             warm=warm)
+        if warm:
+            _bump("aot_warmups")
+        #: the device bytes this entry holds: the segments of the graph's
+        #: private pool (the capture's intermediates and its output) plus
+        #: the static input buffers, which live outside it
+        self.pool_bytes = _pool_segment_bytes(dev, graph.pool()) + sum(
+            t.numel() * t.element_size() for t in self._static)
         #: the kernel launches of one replay
-        self.launches = dict(tally)
-        _kernels.add_launches(self.launches, -1)   # the capture ran nothing
+        self.launches = launches
         _bump("aot_captures")
         self._graph = graph
         self._out = out
@@ -217,6 +202,45 @@ class GraphProgram:
             self._out = None
             self._static = []
             self._done = None
+
+
+def capture_graph(fn: Callable, args, device, *, warm: bool = True,
+                  inference: bool = True):
+    """Capture ``fn(*args)`` on `device` as a CUDA graph, the one way this
+    process captures: under :data:`_capture_lock` (one capture at a time),
+    on a fresh stream of the high-priority pool and in ``thread_local``
+    error mode, so the engines' threads, which launch on the
+    default-priority pool, go on launching, allocating and syncing
+    meanwhile (a capture on a stream another thread enqueues onto would
+    record that work, or fail). ``warm`` runs `fn` once eagerly first;
+    ``inference`` runs both under ``torch.inference_mode``. The caller's
+    current stream waits for the capture; nothing syncs the device.
+
+    Returns ``(graph, output, launches)``: the kernels' launch counts keep
+    the warm run's launches, and ``launches`` is what one replay launches
+    (the capture itself ran nothing). Drop the graph under
+    :data:`_capture_lock`, as :func:`_release` does."""
+    from iwae_replication_project_tpu_torch.ops import _kernels
+
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device=device, priority=-1)
+    side.wait_stream(cur)
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with _capture_lock, mode, torch.cuda.device(device), \
+            torch.cuda.stream(side):
+        if warm:
+            fn(*args)
+        graph = torch.cuda.CUDAGraph()
+        with _kernels.recording() as tally:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = fn(*args)
+            finally:
+                graph.capture_end()
+    cur.wait_stream(side)
+    launches = dict(tally)
+    _kernels.add_launches(launches, -1)
+    return graph, out, launches
 
 
 def _pool_segment_bytes(device, pool) -> int:

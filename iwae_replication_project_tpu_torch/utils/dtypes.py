@@ -1,10 +1,11 @@
 """Serving precision policies of the port.
 
 Counterpart of ``utils/dtypes.py`` in the JAX package, reduced to the policy
-vocabulary: ``fp32`` (the exact program) and ``bf16`` (bf16 matmul operands,
-fp32 accumulation). The JAX package's ``int8`` weight-only policy is not
-ported yet, so it is rejected here like any unknown string rather than being
-served as something else.
+vocabulary: ``fp32`` (the exact program), ``bf16`` (bf16 matmul operands,
+fp32 accumulation) and ``int8`` (the decoder output block's weights stored
+as int8 with one fp32 scale per output channel, served where
+``ops/hot_loop.serving_int8_admit`` admits it; every other dispatch of such
+an engine serves the exact fp32 program).
 """
 
 from __future__ import annotations
@@ -12,13 +13,13 @@ from __future__ import annotations
 from typing import Any
 
 #: the serving precision policies the port serves; ``fp32`` is the default
-PRECISIONS = ("fp32", "bf16")
+PRECISIONS = ("fp32", "bf16", "int8")
 
 
 def validate_precision(precision: Any) -> str:
     """One of :data:`PRECISIONS`, or ValueError (the typed bad request).
 
-    A typo'd or unported policy dies at the first boundary it crosses and
+    A typo'd policy dies at the first boundary it crosses and
     never becomes a silent fp32 engine.
     """
     if not isinstance(precision, str) or not precision:

@@ -118,8 +118,8 @@ def serving_engines(names, *, replicas_per_model: int = 1, k: int = None,
     their store entries. ``checkpoint_dirs`` maps preset names to driver run
     directories (trained weights); unmapped names serve fresh weights.
     ``precisions`` is one policy for every model or a ``{name: policy}``
-    dict (unmapped names serve fp32 or the preset's own); int8 is not
-    ported (ROADMAP A8). Unknown presets, unknown policies and dict keys
+    dict (unmapped names serve fp32 or the preset's own): ``fp32``,
+    ``bf16`` or ``int8``. Unknown presets, unknown policies and dict keys
     naming no requested preset raise here."""
     from iwae_replication_project_tpu_torch.serving.engine import (
         ServingEngine)

@@ -238,9 +238,9 @@ def test_decoder_score_records_the_reference_path(monkeypatch):
     seen = []
     real = thl.select_path
 
-    def spy(device, force=None, widths=None):
+    def spy(device, force=None, widths=None, shape=None):
         seen.append(widths)
-        return real(device, force, widths)
+        return real(device, force, widths, shape)
 
     monkeypatch.setattr(thl, "select_path", spy)
     g = torch.Generator().manual_seed(0)

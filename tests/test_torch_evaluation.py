@@ -346,7 +346,8 @@ def test_eval_never_differentiates_and_counts_its_forwards(monkeypatch):
     calls = []
     real = thl.fused_forward
     monkeypatch.setattr(thl, "select_path",
-                        lambda dev, force=None, widths=None: "kernel")
+                        lambda dev, force=None, widths=None, shape=None:
+                        "kernel")
     monkeypatch.setattr(thl, "fused_forward",
                         lambda *a: calls.append(1) or real(*a))
 

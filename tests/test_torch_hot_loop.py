@@ -99,13 +99,18 @@ def test_path_selection_and_counters():
     assert thl.select_path(torch.device("cuda"), "reference") == "reference"
     with pytest.raises(ValueError, match="needs CUDA"):
         thl.select_path(torch.device("cpu"), "kernel")
+    # "pallas" is the JAX package's name of the fused path
+    assert thl.select_path(torch.device("cuda"), "pallas") == "kernel"
     with pytest.raises(ValueError, match="expected"):
-        thl.select_path(torch.device("cuda"), "pallas")
+        thl.select_path(torch.device("cuda"), "fused")
     before = thl.path_counters().get("reference", 0)
     _port(_inputs(2, 3, 12), None)
     assert thl.path_counters()["reference"] == before + 1
-    assert thl.PATH_CODES == {"reference": 0, "kernel": 2}
+    assert thl.PATH_CODES == {"reference": 0, "blocked_scan": 1,
+                              "kernel": 2, "int8": 3}
     assert thl.PATH_CODES["kernel"] == jhl.PATH_CODES["pallas"]
+    for name in ("reference", "blocked_scan", "int8"):
+        assert thl.PATH_CODES[name] == jhl.PATH_CODES[name]
 
 
 @pytest.mark.parametrize("likelihood,device,force,path", [

@@ -110,7 +110,8 @@ def test_decoder_score_kernel_path_is_the_function(monkeypatch):
     calls = []
     real = thl.fused_backward
     monkeypatch.setattr(thl, "select_path",
-                        lambda dev, force=None, widths=None: "kernel")
+                        lambda dev, force=None, widths=None, shape=None:
+                        "kernel")
     monkeypatch.setattr(thl, "fused_backward",
                         lambda *a: calls.append(1) or real(*a))
     out_params = {"l1": {"w": leaves[1], "b": leaves[2]},

@@ -638,3 +638,99 @@ def test_row_invariant_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tri.fixed_sum(x.t(), 0)
     with pytest.raises(RuntimeError, match="no backward"):
         tri.dense(x, w.requires_grad_(), b)
+
+
+# --------------------------------------------------------------------------
+# the int8 serving policy's layer (csrc/row_dense.cu, int8-weight mode) and
+# B1's row groups (csrc/hot_loop_fwd.cu, the tile ops/autotune.py tunes)
+# --------------------------------------------------------------------------
+
+#: (M, K, N, tanh): the flagship's int8 output block at M = k x bucket
+#: (k = 50, buckets 64 and 1) and ragged shapes (4-byte and byte loads of
+#: the weights, a partial k16 step, one element)
+INT8_SHAPES = [(3200, 100, 200, True), (3200, 200, 200, True),
+               (3200, 200, 784, False), (50, 100, 200, True),
+               (50, 200, 784, False), (7, 37, 130, True),
+               (129, 16, 65, False), (1, 1, 1, True)]
+
+
+def _int8_layer(m, k, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g)
+    w = torch.randn((k, n), generator=g) * k ** -0.5
+    b = torch.randn((n,), generator=g) * 0.1
+    q = thl.quantize_out_block({name: {"w": w, "b": b}
+                                for name in ("l1", "l2", "out")})["out"]
+    return x.cuda(), q["w_q"].cuda(), q["scale"].cuda(), q["b"].cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,tanh", INT8_SHAPES)
+def test_row_dense_int8_matches_plain_version(cuda, m, k, n, tanh):
+    """The int8 mode against ``dense_int8_plain`` on the card: the same
+    products (an int8 weight is exact in fp32) summed in another order,
+    then the same rounded scale and bias. With the scale the layer is the
+    fp32 test's layer to within the quantization, so the same 2e-4
+    absolute bound holds (~sqrt(K) 2^-24 times a sum of ~20)."""
+    x, w_q, scale, b = _int8_layer(m, k, n, seed=m * 7 + k)
+    tri.reset_launch_counts()
+    got = tri.dense_int8(x, w_q, scale, b, tanh)
+    want = tri.dense_int8_plain(x, w_q, scale, b, tanh)
+    torch.cuda.synchronize()
+    counts = tri.launch_counts()
+    assert counts[tri.KERNEL_DENSE_INT8] == 1 and counts[tri.KERNEL_DENSE] == 0
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,tanh", [(100, 200, True), (200, 200, True),
+                                      (200, 784, False), (37, 50, True)])
+def test_row_dense_int8_row_bits_do_not_depend_on_m_or_tile(cuda, k, n,
+                                                            tanh):
+    """C6 for int8: a row's outputs are the same bits at every M of
+    :data:`INVARIANCE_M` (1..3200, every tile of the plan) and at another
+    place in its tile."""
+    x, w_q, scale, b = _int8_layer(3205, k, n, seed=n * 1000 + k)
+    full = tri.dense_int8(x, w_q, scale, b, tanh)
+    tiles = set()
+    for m in INVARIANCE_M:
+        tiles.add(tri.dense_plan(m, n))
+        for lo in (0, 5):
+            part = tri.dense_int8(x[lo:lo + m].contiguous(), w_q, scale, b,
+                                  tanh)
+            assert torch.equal(part, full[lo:lo + m]), (m, lo)
+    assert len(tiles) >= 2
+
+
+@pytest.mark.cuda
+def test_row_dense_int8_rejects_what_the_kernel_does_not_take(cuda):
+    x, w_q, scale, b = _int8_layer(4, 8, 3, seed=0)
+    with pytest.raises(ValueError, match="int8"):
+        tri.dense_int8(x, w_q.float(), scale, b)
+    with pytest.raises(ValueError, match="shape"):
+        tri.dense_int8(x, w_q, scale[:2], b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tri.dense_int8(x.requires_grad_(), w_q, scale, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,b", [(50, 1), (50, 64), (50, 100), (250, 500)])
+def test_hot_loop_fwd_groups_are_bitwise_the_rule(cuda, k, b):
+    """B1 in bf16 at 1..4 row groups per CTA gives the bits of ``groups=0``
+    (the kernel's own rule) at the serve, train and eval shapes: a group
+    computes its rows alone, so the tile the autotuner picks changes
+    speed, never a result."""
+    args = _inputs(k, b, 100, 200, 784, seed=k + b)
+    thl.reset_launch_counts()
+    ref = thl.fused_forward(*args, compute_dtype=torch.bfloat16)
+    for groups in (1, 2, 3, 4):
+        got = thl.fused_forward(*args, compute_dtype=torch.bfloat16,
+                                groups=groups)
+        assert torch.equal(got, ref), groups
+    torch.cuda.synchronize()
+    assert thl.launch_counts()[thl.KERNEL] == 5
+    with pytest.raises(ValueError, match="groups"):
+        thl.fused_forward(*args, compute_dtype=torch.bfloat16, groups=5)
+    with pytest.raises(ValueError, match="no row groups"):
+        thl.fused_forward(*args, groups=2)

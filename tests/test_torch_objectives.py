@@ -89,7 +89,8 @@ def test_fused_wiring_gives_the_reference_gradients(name, monkeypatch):
     calls = []
     real = thl.fused_backward
     monkeypatch.setattr(thl, "select_path",
-                        lambda dev, force=None, widths=None: "kernel")
+                        lambda dev, force=None, widths=None, shape=None:
+                        "kernel")
     monkeypatch.setattr(thl, "fused_backward",
                         lambda *a: calls.append(1) or real(*a))
     _, got = tgrad.objective_value_and_grad(spec, tp, tcfg, x, eps=eps)

@@ -262,7 +262,7 @@ def test_model_label_is_enforced(tiny):
 
 
 @pytest.mark.parametrize("bad,err,match", [
-    (dict(precision="int8"), ValueError, "precision"),
+    (dict(precision="int4"), ValueError, "precision"),
     (dict(precision="fp16"), ValueError, "precision"),
     (dict(kernel_path="pallas"), ValueError, "kernel_path"),
     (dict(kernel_path="kernel"), ValueError, "CUDA"),

@@ -839,7 +839,8 @@ def test_cli_checkpoint_load_with_log_dir(run_dir, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--precision", "int8"], "A8"),
+    # A8b: the per-model pairs parse, and a typo'd policy is refused
+    pytest.param(["--precision", "m1=int4"], "int4", id="argv0-A8"),
     (["--precision", "fp16"], "unknown precision"),
     (["--replicas", "2", "--autoscale"], None),
     (["--autoscale-dry-run"], None),

@@ -562,7 +562,7 @@ def test_zoo_serving_engines_label_share_and_refuse():
     with pytest.raises(KeyError, match="unknown preset"):
         zoo.serving_engines(["nope"], device="cpu")
     with pytest.raises(ValueError, match="precision"):
-        zoo.serving_engines(PRESETS, precisions="int8", device="cpu")
+        zoo.serving_engines(PRESETS, precisions="int4", device="cpu")
     with pytest.raises(ValueError, match="not in this manifest"):
         zoo.serving_engines(PRESETS, precisions={"x": "bf16"}, device="cpu")
 
