@@ -205,8 +205,20 @@ phases, one line per phase, and exits non-zero on the first failure:
    alone, its burst's rows and launches held as in (d)), then while an
    fp32 engine serves the burst over and over on the card (every request
    completes, bitwise the fp32 rows, and the verdicts come out the same);
-15. prints the kernels' JSON record (launches of the serving and training
-   runs, of phase 14's int8 burst, and per path of phases 8-14 under
+15. the driver on real data (lines ``driver_digits:``): the flagship
+   preset on ``digits`` (the package's copy of UCI optdigits) for 2 stages
+   through ``python -m iwae_replication_project_tpu_torch``, in two
+   processes one after the other with one fresh ``--compile-cache-dir``:
+   each stage row's six compile fields, the second process with no
+   ``nvcc`` build in any stage and its libraries found on disk, the
+   samples, reconstructions and latent scatter of each stage decoded with
+   zlib to 302x302, 122x302 and 600x600 RGB, NLL finite and falling, B1
+   and B2's launches in each process equal to the steps and the stage
+   evaluations' count; the cold build's seconds, the figures' seconds per
+   stage, and the step's ms on the digits between CUDA events and on the
+   host;
+16. prints the kernels' JSON record (launches of the serving and training
+   runs, of phase 14's int8 burst, and per path of phases 8-15 under
    ``launches_by_path``) and, last, the contract line ``{"ok": true,
    "device": {...}}``.
 
@@ -4221,6 +4233,207 @@ def autotune_and_int8(torch, np, hot_loop, ri, run_dir, tmp):
 
 
 
+# --------------------------------------------------------------------------
+# phase 15: the driver on real data
+# --------------------------------------------------------------------------
+
+#: phase 15's figures: name -> (height, width, PNG colour type): the samples
+#: grid is 10x10 tiles of 28x28 with 2 px padding, the reconstructions 4x10,
+#: the latent scatter a 600x600 RGB raster
+DIGITS_FIGURES = {"samples": (302, 302, 0), "recons": (122, 302, 0),
+                  "latent": (600, 600, 2)}
+#: the six compile fields of a stage row (the JAX driver's)
+COMPILE_FIELDS = ("aot_hits", "aot_misses", "aot_compile_seconds",
+                  "compile_cache_hits", "compile_cache_misses",
+                  "compile_seconds")
+#: the driver's command line wrapped so that its process prints its kernel
+#: launches when the driver returns: ``runpy`` runs the package's
+#: ``__main__`` as ``python -m`` does
+_CLI_WITH_LAUNCHES = (
+    "import json, runpy, sys\n"
+    "from iwae_replication_project_tpu_torch.ops import _kernels\n"
+    "sys.argv = ['iwae_replication_project_tpu_torch'] + sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module('iwae_replication_project_tpu_torch',\n"
+    "                     run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    print('launches ' + json.dumps(_kernels.all_launch_counts()),\n"
+    "          flush=True)\n")
+
+
+def png_decode(data: bytes) -> tuple:
+    """``(height, width, colour type)`` of a PNG that ``utils/viz.save_png``
+    wrote, decoded with zlib alone: the signature, every chunk's CRC, the
+    IHDR, one filter byte 0 per row and the pixel bytes' count."""
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG signature")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if int.from_bytes(data[pos + 8 + n:pos + 12 + n], "big") != \
+                zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise ValueError(f"bad CRC in chunk {kind!r}")
+        if kind == b"IHDR":
+            ihdr = body
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = int.from_bytes(ihdr[:4], "big"), int.from_bytes(ihdr[4:8], "big")
+    depth, colour = ihdr[8], ihdr[9]
+    raw = zlib.decompress(idat)
+    stride = 1 + w * (1 if colour == 0 else 3)
+    if depth != 8 or len(raw) != h * stride or any(
+            raw[r * stride] != 0 for r in range(h)):
+        raise ValueError("unexpected pixel data")
+    return h, w, colour
+
+
+def digits_step_ms(torch, zoo):
+    """The flagship's train step on the digits' 1500 rows (15 steps a
+    pass), one pass captured, then 5 passes replayed: (ms per step between
+    CUDA events, host ms per step with one fetch)."""
+    import dataclasses
+
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.training import epoch as te
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+
+    cfg = dataclasses.replace(zoo.get(PRESET), dataset="digits")
+    ds = load_dataset("digits", allow_synthetic=False)
+    model_cfg = cfg.model_config("cuda")
+    n = len(ds.x_train)
+    x = torch.as_tensor(ds.x_train, dtype=torch.float32).cuda()
+    state = ts.create_train_state(cfg.seed, model_cfg,
+                                  output_bias=ds.output_bias)
+    fn = te.make_epoch_fn(cfg.objective_spec(1), model_cfg, n,
+                          cfg.batch_size, diagnostics=cfg.diagnostics_config())
+    state, _ = fn(state, x)  # the warm-up steps and the captures
+    torch.cuda.synchronize()
+    passes, steps = 5, 5 * (n // cfg.batch_size)
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(passes):
+        state, (losses, _) = fn(state, x)
+    end.record()
+    losses.cpu()
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, host
+
+
+def driver_digits(torch, np, zoo, hot_loop, tmp):
+    """Phase 15: the flagship preset on the real ``digits`` data for 2
+    stages through the command line, in two processes one after the other
+    with the same fresh ``--compile-cache-dir``: every stage row's six
+    compile fields; the first process's ``nvcc`` builds, the second's
+    libraries all found on disk (no miss in any stage, hits above 0); the
+    three figures per stage decoded to their sizes; NLL finite and falling;
+    B1/B2's launches in each process equal to the steps and the evaluations'
+    count. Prints the cold build's seconds, the figures' seconds per stage
+    and the step's ms. Returns ({kernel: launches of the first process},
+    ok)."""
+    from iwae_replication_project_tpu_torch.data import load_dataset
+
+    t_phase = time.perf_counter()
+    cache = os.path.join(tmp, "digits", "kernel_cache")
+    base = zoo.get(PRESET)
+    ds = load_dataset("digits", allow_synthetic=False)
+    steps = sum(3 ** (s - 1) for s in (1, 2)) * (len(ds.x_train)
+                                                // base.batch_size)
+    per_eval = eval_b1_launches(base, len(ds.x_test), diagnostics=True)
+    want = {hot_loop.KERNEL: steps + 2 * per_eval,
+            hot_loop.KERNEL_BWD: steps}
+    ok, first = True, None
+    for proc_i in (1, 2):
+        sub = os.path.join(tmp, "digits", f"p{proc_i}")
+        cmd = [sys.executable, "-c", _CLI_WITH_LAUNCHES, "--preset", PRESET,
+               "--dataset", "digits", "--n-stages", "2",
+               "--compile-cache-dir", cache, "--log-dir", f"{sub}/runs",
+               "--checkpoint-dir", f"{sub}/ckpt"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300,
+                              cwd=str(Path(__file__).resolve().parent))
+        wall = time.perf_counter() - t0
+        launch_lines = [ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("launches ")]
+        run_dirs = list(Path(sub, "runs").glob("*"))
+        rows = [json.loads(ln) for d in run_dirs for ln in
+                (d / "metrics.jsonl").read_text().splitlines()] \
+            if len(run_dirs) == 1 else []
+        if proc.returncode != 0 or not launch_lines or len(rows) != 2:
+            print(f"driver_digits: process {proc_i} exit {proc.returncode}, "
+                  f"{len(rows)} rows FAIL", flush=True)
+            print(proc.stdout[-3000:], proc.stderr[-4000:], flush=True)
+            return {}, False
+        counts = json.loads(launch_lines[-1].split(" ", 1)[1])
+        launches = {k: counts[k] for k in want}
+        fields_ok = all(k in r for r in rows for k in COMPILE_FIELDS)
+        nll = [r["NLL"] for r in rows]
+        nll_ok = bool(np.isfinite(nll).all()) and nll[1] < nll[0] and \
+            not any(r["synthetic_data"] for r in rows)
+        figs_ok, sizes = True, []
+        for st in (1, 2):
+            for name, shape in DIGITS_FIGURES.items():
+                f = run_dirs[0] / "figures" / f"stage_0{st}_{name}.png"
+                try:
+                    got = png_decode(f.read_bytes())
+                except (OSError, ValueError) as e:
+                    got = str(e)
+                sizes.append(f"{f.name} {got}")
+                figs_ok &= got == shape
+        launch_ok = launches == want
+        misses = [r["compile_cache_misses"] for r in rows]
+        hits = [r["compile_cache_hits"] for r in rows]
+        if proc_i == 1:  # a fresh directory: every library is nvcc's
+            first = launches
+            cache_ok = sum(misses) > 0 and sum(hits) == 0
+        else:
+            cache_ok = all(m == 0 for m in misses) and sum(hits) > 0
+        p_ok = fields_ok and nll_ok and figs_ok and launch_ok and cache_ok
+        ok &= p_ok
+        for r in rows:
+            st = int(r["stage"])
+            n_steps = r["steps"] - (0 if st == 1 else rows[0]["steps"])
+            print(f"driver_digits: process {proc_i} stage {st} NLL "
+                  f"{r['NLL']:.4f} IWAE {r['IWAE']:.4f} host ms per step "
+                  f"{r['stage_train_seconds'] / n_steps * 1e3:.4f} eval "
+                  f"{r['stage_eval_seconds']:.3f}s figures "
+                  f"{r['stage_figure_seconds']:.4f}s; "
+                  + " ".join(f"{k}={r[k]:g}" for k in COMPILE_FIELDS),
+                  flush=True)
+        print(f"driver_digits: process {proc_i} exit {proc.returncode} in "
+              f"{wall:.1f}s; figures {'; '.join(sizes)}; launches "
+              f"{launches} (expected {want}: {steps} steps, 2 stage "
+              f"evaluations of {per_eval}); compile_cache misses {misses} "
+              f"hits {hits}"
+              + (" (a fresh --compile-cache-dir: every library nvcc's, none "
+                 "a hit from the package's _build/)" if proc_i == 1 else
+                 " (all found on disk)")
+              + f" {'ok' if p_ok else 'FAIL'}", flush=True)
+        if not p_ok:
+            print(proc.stdout[-3000:], proc.stderr[-2000:], flush=True)
+    cold = [json.loads(ln)["compile_seconds"] for ln in
+            next(Path(tmp, "digits", "p1", "runs").glob("*"))
+            .joinpath("metrics.jsonl").read_text().splitlines()]
+    print(f"driver_digits: cold build of the driver's kernels into the "
+          f"fresh directory {cold[0]:.2f}s (nvcc, in process 1's stage 1); "
+          f"warm: 0 builds in process 2", flush=True)
+    graph_ms, host_ms = digits_step_ms(torch, zoo)
+    print(f"driver_digits: the flagship's step on digits (k=50, B=100, "
+          f"bf16), a pass of 15 replayed steps: {graph_ms:.4f} ms per step "
+          f"between CUDA events, host {host_ms:.4f} ms per step with one "
+          f"fetch per 5 passes", flush=True)
+    print(f"driver_digits: phase 15 {time.perf_counter() - t_phase:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return first, ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4367,6 +4580,9 @@ def main() -> int:
                                             run_dir, tmp)
         if not ok:
             return fail("the autotuner and int8 phase failed")
+        digits_launches, ok = driver_digits(torch, np, zoo, hot_loop, tmp)
+        if not ok:
+            return fail("the driver on the digits failed")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -4379,7 +4595,8 @@ def main() -> int:
             "serving_tier": tier_b1 if rec is record else 0,
             "multi_model_tier": mm_b1 if rec is record else 0,
             "autoscaler": as_b1 if rec is record else 0,
-            "observability": obs_b1 if rec is record else 0}
+            "observability": obs_b1 if rec is record else 0,
+            "driver_digits": digits_launches.get(rec["name"], 0)}
     for rec in row_records:
         rec["launches_by_path"] = {"serving_tier": tier_rows[rec["name"]],
                                    "multi_model_tier": mm_rows[rec["name"]]}

@@ -41,7 +41,11 @@ What is ported so far:
   (``serving.frontend``: the JAX package's JSON-lines wire, router, server,
   client, remote replicas, quotas, retry and bulk jobs, with
   ``telemetry.tracing`` and ``telemetry.slo``), which the serving CLI runs
-  in its tier and client modes.
+  in its tier and client modes;
+* the driver's stage figures (``utils.viz``, PNG written with ``zlib``),
+  its compile-cache directory and fields (``--compile-cache-dir``,
+  ``ops._kernels.use_build_dir``), and the ``digits`` data carried in the
+  package (``data/digits.csv.gz``).
 
 The package imports ``torch`` and ``numpy`` only: never ``jax`` and nothing
 of the JAX package. Entry points run on ``cuda`` unless the caller passes

@@ -4,6 +4,7 @@ not needed, since the epoch shuffles and binarizes on the device)."""
 from iwae_replication_project_tpu_torch.data.loaders import (
     DATASETS,
     Dataset,
+    digits_labels,
     load_dataset,
     output_bias_from_pixel_means,
 )
@@ -11,6 +12,7 @@ from iwae_replication_project_tpu_torch.data.loaders import (
 __all__ = [
     "DATASETS",
     "Dataset",
+    "digits_labels",
     "load_dataset",
     "output_bias_from_pixel_means",
 ]

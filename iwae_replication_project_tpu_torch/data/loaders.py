@@ -4,8 +4,17 @@ MNIST / fixed-binarization MNIST / Fashion-MNIST / Omniglot / digits.
 Every dataset resolves from a local ``data_dir`` (idx-ubyte / .npz / .amat /
 chardata.mat), and a deterministic synthetic fallback, announced loudly,
 stands in when the files are absent. The output-layer bias is computed here
-from training pixel means and handed to the model as a value. The digits
-datasets import scikit-learn, and Omniglot scipy, only when asked for.
+from training pixel means and handed to the model as a value. Omniglot
+imports scipy only when asked for.
+
+The digits datasets need no file and no scikit-learn: the package carries
+``digits.csv.gz`` beside this module, a byte-for-byte copy of the file
+scikit-learn 1.9.0 ships as ``sklearn/datasets/data/digits.csv.gz`` and
+reads in ``load_digits`` (57,523 bytes, SHA-256 ``09f66e6d...51e23aa22``).
+It is the test set of the UCI Machine Learning Repository's "Optical
+Recognition of Handwritten Digits" (E. Alpaydin and C. Kaynak, 1998;
+doi:10.24432/C50P49), which the UCI repository licenses under CC BY 4.0:
+1797 rows of 64 pixel counts in 0..16 (an 8x8 image) and the class label.
 """
 
 from __future__ import annotations
@@ -178,27 +187,47 @@ DATASETS = ("binarized_mnist", "mnist", "fashion_mnist", "omniglot", "digits",
             "digits_gray")
 
 
-#: train/test split point of the 1797 sklearn digits
+#: train/test split point of the 1797 digits, shared by the image arrays
+#: and digits_labels so the two cannot drift apart
 _DIGITS_N_TRAIN = 1500
+
+#: the UCI optdigits copy the package carries (module docstring)
+DIGITS_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digits.csv.gz")
+
+
+def digits_table() -> Tuple[np.ndarray, np.ndarray]:
+    """``(pixels [1797, 64] float64 in 0..16, labels [1797] int64)`` of the
+    packaged ``digits.csv.gz``, parsed as scikit-learn's ``load_digits``
+    parses it (its ``data`` and ``target``)."""
+    with gzip.open(DIGITS_CSV, "rt") as f:
+        table = np.loadtxt(f, delimiter=",", dtype=np.float64)
+    return table[:, :-1], table[:, -1].astype(np.int64)
+
+
+def digits_labels() -> Tuple[np.ndarray, np.ndarray]:
+    """Class labels aligned with the `digits`/`digits_gray` train/test split
+    (the first 1500 rows, then the rest), for the latent-space figures
+    (``utils/viz.latent_scatter``)."""
+    y = digits_table()[1]
+    return y[:_DIGITS_N_TRAIN], y[_DIGITS_N_TRAIN:]
 
 
 def _digits_gray_arrays() -> Tuple[np.ndarray, np.ndarray]:
-    """sklearn's bundled UCI optdigits as 28x28 grayscale intensities in
-    [0, 1]: nearest-neighbor upsample 8x8 -> 32x32, center-crop to 28x28
-    (the same geometry prep `digits` uses before its fixed draw)."""
-    from sklearn.datasets import load_digits as _sk_load_digits
-
-    d = _sk_load_digits()
-    gray = d.images.astype(np.float32) / 16.0  # [1797, 8, 8] in [0, 1]
+    """The packaged UCI optdigits as 28x28 grayscale intensities in [0, 1]:
+    nearest-neighbor upsample 8x8 -> 32x32, center-crop to 28x28 (the same
+    geometry prep `digits` uses before its fixed draw)."""
+    pixels = digits_table()[0]
+    gray = pixels.reshape(-1, 8, 8).astype(np.float32) / 16.0  # in [0, 1]
     up = np.repeat(np.repeat(gray, 4, axis=1), 4, axis=2)  # [N, 32, 32]
     up = up[:, 2:30, 2:30].reshape(-1, X_DIM)  # center-crop -> [N, 784]
     return up[:_DIGITS_N_TRAIN], up[_DIGITS_N_TRAIN:]
 
 
-def _load_sklearn_digits(seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """REAL handwritten-digit data that ships inside scikit-learn (UCI
-    optdigits, 1797 8x8 grayscale images) — the only real image dataset
-    available in this zero-egress environment.
+def _load_digits(seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """REAL handwritten-digit data that ships inside this package (UCI
+    optdigits, 1797 8x8 grayscale images; module docstring): the one real
+    image set that needs no download.
 
     Prepared to mirror the fixed-binarization MNIST protocol (PDF §3.1):
     grayscale prep (:func:`_digits_gray_arrays`), then ONE deterministic
@@ -259,8 +288,8 @@ def load_dataset(name: str, data_dir: str = "data", allow_synthetic: bool = True
     elif name == "omniglot":
         pair = _load_omniglot_mat(data_dir) or _load_npz(data_dir, ["omniglot.npz"])
         binarization = "stochastic"
-    elif name == "digits":  # bundled with scikit-learn, needs no data_dir
-        xtr, xte, raw_means = _load_sklearn_digits()
+    elif name == "digits":  # carried by the package, needs no data_dir
+        xtr, xte, raw_means = _load_digits()
         pair = (xtr, xte)
         bias_means = raw_means
         binarization = "none"

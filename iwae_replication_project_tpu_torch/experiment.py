@@ -43,7 +43,32 @@ generators and rank 0 writes them (``utils/checkpoint.py``). The ranks
 agree on a preemption at every dispatch boundary (one MAX ``all_reduce``),
 so a signal that reaches one rank stops them all at the same pass. The
 estimator diagnostics are skipped under ``multihost``, as in JAX (:382).
-Stage figures and the compile cache are not ported (ROADMAP A5, A10).
+
+**Stage figures** (``save_figures``, ``--no-figures`` off; JAX :464-478):
+after a stage's evaluation, rank 0 writes ``figures/stage_XX_samples.png``
+and ``stage_XX_recons.png`` under the run's log directory
+(``utils/viz.save_stage_figures``, draws from ``eval_generator(seed,
+10_000 + stage)``), and on ``digits``/``digits_gray``
+``stage_XX_latent.png`` (``utils/viz.latent_scatter`` of the test set by
+label, ``eval_generator(seed, 20_000 + stage)``). They run outside the
+captured step and outside ``stage_eval_seconds``; the row's
+``stage_figure_seconds`` holds their host seconds: a generation of 100
+samples, 20 reconstructions, the test set's 64-sample encode for the
+scatter and the PNG encodes (``chip_smoke.py``'s ``driver_digits`` phase
+prints them for the flagship on the card). A resumed run that is already
+complete writes none.
+
+**The compile cache** (``compile_cache_dir``, ``--compile-cache-dir``,
+``IWAE_COMPILE_CACHE``): the directory the kernels' libraries are built
+into and loaded from (``ops/_kernels.use_build_dir``). Each stage row
+carries the JAX driver's six fields (JAX :432-441), the change of
+``utils/compile_cache.cache_stats`` since the previous row (the first:
+since the run began): ``aot_hits`` (dispatches that replayed captured
+train steps only), ``aot_misses`` and ``aot_compile_seconds`` (train-step
+captures and their seconds), ``compile_cache_hits`` (libraries found
+built on disk), ``compile_cache_misses`` and ``compile_seconds`` (``nvcc``
+builds and their seconds). On the CPU nothing is captured or built, and
+all six are 0.
 """
 
 from __future__ import annotations
@@ -56,11 +81,12 @@ from typing import Optional
 
 import torch
 
-from iwae_replication_project_tpu_torch.data import load_dataset
+from iwae_replication_project_tpu_torch.data import digits_labels, load_dataset
 from iwae_replication_project_tpu_torch.evaluation.metrics import (
     eval_generator,
     training_statistics,
 )
+from iwae_replication_project_tpu_torch.ops import _kernels
 from iwae_replication_project_tpu_torch.parallel import (
     make_mesh,
     make_parallel_epoch_fn,
@@ -84,6 +110,10 @@ from iwae_replication_project_tpu_torch.training.epoch import make_epoch_fn
 from iwae_replication_project_tpu_torch.utils.checkpoint import (
     restore_latest,
     save_checkpoint,
+)
+from iwae_replication_project_tpu_torch.utils.compile_cache import (
+    cache_stats,
+    stats_delta,
 )
 from iwae_replication_project_tpu_torch.utils.config import ExperimentConfig
 from iwae_replication_project_tpu_torch.utils.device import resolve_device
@@ -175,10 +205,15 @@ def run_experiment(cfg: ExperimentConfig,
     ``nll_chunk``, ``eval_batch``, ``kernel_path``),
     ``number_of_active_units`` and ``number_of_PCA_active_units``,
     ``stage_eval_seconds``, with diagnostics on the ``diag/*`` scalars (the
-    estimator diagnostics and the grad SNR of the stage's last pass), and
-    ``synthetic_data``, ``raw_means_bias`` and ``bfloat16``.
+    estimator diagnostics and the grad SNR of the stage's last pass),
+    ``synthetic_data``, ``raw_means_bias`` and ``bfloat16``,
+    ``stage_figure_seconds``, and the six compile-cache fields (module
+    docstring).
     """
+    stats0 = cache_stats()
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        _kernels.use_build_dir(cfg.compile_cache_dir)
     mesh = make_mesh(cfg.mesh_dp, cfg.mesh_sp, device=dev) \
         if cfg.uses_mesh() else None
     if mesh is not None:
@@ -203,6 +238,8 @@ def run_experiment(cfg: ExperimentConfig,
     x_test = torch.as_tensor(ds.x_test.reshape(n_test, -1),
                              dtype=torch.float32).to(dev)
     eval_batch = min(cfg.eval_batch_size, n_test)
+    y_test = digits_labels()[1][:n_test] if cfg.save_figures and \
+        cfg.dataset in ("digits", "digits_gray") else None
     stoch_bin = ds.binarization == "stochastic"
     diag_cfg = cfg.diagnostics_config()
     epoch_fns = {}  # (objective, passes per call) -> epoch function
@@ -339,6 +376,21 @@ def run_experiment(cfg: ExperimentConfig,
                     row[key] = v
                     reg.gauge(key).set(v)
             row["stage_eval_seconds"] = time.perf_counter() - t_eval
+            t_fig = time.perf_counter()
+            if logger is not None and cfg.save_figures:
+                _stage_figures(state.params, model_cfg, cfg, x_test, y_test,
+                               logger.dir, stage, dev)
+            row["stage_figure_seconds"] = time.perf_counter() - t_fig
+            now = cache_stats()
+            d_stats = stats_delta(stats0, now)
+            stats0 = now
+            row.update(
+                aot_hits=float(d_stats["aot_hits"]),
+                aot_misses=float(d_stats["aot_misses"]),
+                aot_compile_seconds=d_stats["aot_capture_seconds"],
+                compile_cache_hits=float(d_stats["kernel_disk_hits"]),
+                compile_cache_misses=float(d_stats["kernel_builds"]),
+                compile_seconds=d_stats["kernel_build_seconds"])
             history.append(row)
             say(f"stage {stage}: lr={lr:.2e} objective {spec.name} "
                 f"k={spec.k} passes={passes} steps={state.step} "
@@ -373,6 +425,23 @@ def run_experiment(cfg: ExperimentConfig,
             if lg is not None:
                 lg.close()
     return state, history
+
+
+def _stage_figures(params, model_cfg, cfg: ExperimentConfig, x_test,
+                   y_test, out_dir: str, stage: int, dev) -> None:
+    """The stage's figures (module docstring), on the generators of the JAX
+    driver's ``fold_in`` offsets."""
+    from iwae_replication_project_tpu_torch.utils import viz
+
+    viz.save_stage_figures(params, model_cfg, x_test, out_dir, stage,
+                           generator=eval_generator(cfg.seed, 10_000 + stage,
+                                                    dev))
+    if y_test is not None:
+        viz.latent_scatter(
+            params, model_cfg, x_test,
+            os.path.join(out_dir, "figures", f"stage_{stage:02d}_latent.png"),
+            labels=y_test,
+            generator=eval_generator(cfg.seed, 20_000 + stage, dev))
 
 
 def _run_or_exit(cfg: ExperimentConfig, device) -> None:
@@ -441,7 +510,8 @@ def main(argv=None):
     if resolve_device(ns.device).type == "cuda" and \
             cfg.model_config("cuda").fused_likelihood:
         # build the kernels once here, not in every rank at once
-        from iwae_replication_project_tpu_torch.ops import _kernels, hot_loop
+        from iwae_replication_project_tpu_torch.ops import hot_loop
+        _kernels.use_build_dir(cfg.compile_cache_dir)
         _kernels.build([hot_loop.KERNEL, hot_loop.KERNEL_BWD])
     with tempfile.TemporaryDirectory() as d:
         codes = multihost.spawn(

@@ -3,14 +3,27 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds, not minutes). Libraries are built at first
-use into ``_build/`` inside the package (listed in ``.gitignore``), keyed on a
-hash of the source, the local headers it includes (``csrc/*.cuh``, and
-theirs) and the flags: an edited source rebuilds, an unchanged one loads the
-existing library. Nothing here runs at import time.
+use, keyed on a hash of the source, the local headers it includes
+(``csrc/*.cuh``, and theirs) and the flags: an edited source rebuilds, an
+unchanged one loads the existing library. Nothing here runs at import time.
+
+**The build directory** is the port's compile cache (the JAX package's
+persistent XLA cache, ``utils/compile_cache.py:167-207`` there, carried
+over where its rules apply). :func:`use_build_dir` points it at the
+driver's ``compile_cache_dir`` (``--compile-cache-dir``); the field wins,
+``IWAE_COMPILE_CACHE`` fills in when it is None, ``off``/``none``/``0``
+builds into a fresh private temporary directory (removed at exit, so
+nothing is reused), and with neither set the libraries live in
+:data:`BUILD_DIR`, ``_build/`` inside the package (listed in
+``.gitignore``). First wins: once a library is loaded in this process the
+directory stays, and a call naming another one says so. :func:`cache_counts`
+counts the libraries found built on disk (hits), the ``nvcc`` builds
+(misses) and their seconds.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import functools
@@ -19,6 +32,7 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -28,7 +42,15 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
+#: the default build directory (module docstring)
 BUILD_DIR = _PKG / "_build"
+
+#: the environment variable that names the build directory when the
+#: caller's ``compile_cache_dir`` is None (the JAX package's name for its
+#: compile cache)
+CACHE_ENV = "IWAE_COMPILE_CACHE"
+#: spellings of "no reusable cache"
+_CACHE_OFF = ("off", "none", "0")
 
 #: largest dynamic shared memory a Hopper CTA may use (bytes)
 MAX_SMEM_BYTES = 232448
@@ -81,6 +103,11 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: name -> (seconds the build took, nvcc's output) for builds in this process
 build_log: Dict[str, Tuple[float, str]] = {}
+#: the build directory in effect (None: not resolved yet, see build_dir)
+_dir: Optional[Path] = None
+#: libraries found built (hits), nvcc builds (misses) and the builds'
+#: wall seconds, in this process
+_cache_counts = {"hits": 0, "builds": 0, "build_seconds": 0.0}
 
 #: the launch counters: one per library, plus the modes a library's wrapper
 #: counts under their own names (``row_dense``'s int8-weight mode)
@@ -168,14 +195,72 @@ def _local_headers(src: bytes, seen: List[str]) -> List[str]:
     return seen
 
 
+def resolve_build_dir(cache_dir: Optional[str] = None) -> Optional[Path]:
+    """The directory `cache_dir` names under the module docstring's rules:
+    `cache_dir`, else ``$IWAE_COMPILE_CACHE``, else :data:`BUILD_DIR`;
+    None for ``off``/``none``/``0`` (a fresh private directory)."""
+    value = cache_dir if cache_dir is not None else os.environ.get(CACHE_ENV)
+    if not value:
+        return BUILD_DIR
+    if value.strip().lower() in _CACHE_OFF:
+        return None
+    return Path(os.path.abspath(os.path.expanduser(value)))
+
+
+def _made(want: Optional[Path]) -> Path:
+    """`want`, or for None a fresh private directory removed at exit."""
+    if want is not None:
+        return want
+    d = Path(tempfile.mkdtemp(prefix="iwae_kernels_"))
+    atexit.register(shutil.rmtree, d, True)
+    return d
+
+
+def use_build_dir(cache_dir: Optional[str] = None, say=print) -> Path:
+    """Build into and load from the directory `cache_dir` resolves to
+    (:func:`resolve_build_dir`; off: a fresh private one) and return it.
+    Once a library is loaded the directory in effect stays, and a call that
+    names another one says so and returns the one in effect."""
+    global _dir
+    want = resolve_build_dir(cache_dir)
+    with _lock:
+        if _libs:
+            if want != _dir:
+                say(f"note: kernel libraries are already loaded from {_dir}; "
+                    f"they stay loaded from there, and "
+                    f"{'a private directory' if want is None else want} is "
+                    f"not used in this process")
+            return _dir
+        _dir = _made(want)
+        return _dir
+
+
+def build_dir() -> Path:
+    """The build directory in effect (resolved from ``$IWAE_COMPILE_CACHE``
+    or the default on first use when :func:`use_build_dir` was not
+    called)."""
+    global _dir
+    if _dir is None:
+        _dir = _made(resolve_build_dir(None))
+    return _dir
+
+
+def cache_counts() -> Dict[str, float]:
+    """``hits`` (libraries found built on disk), ``builds`` (``nvcc``
+    runs) and ``build_seconds`` (their wall seconds) in this process."""
+    with _count_lock:
+        return dict(_cache_counts)
+
+
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for the current source."""
+    """Where the library of ``csrc/<name>.cu`` lives for the current source,
+    in the build directory in effect."""
     src = (SRC_DIR / f"{name}.cu").read_bytes()
     headers = _local_headers(src, [])
     digest = hashlib.sha256(
         src + b"".join((SRC_DIR / h).read_bytes() for h in headers)
         + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
 def _start_build(name: str) -> Optional[Tuple[subprocess.Popen, Path]]:
@@ -183,7 +268,7 @@ def _start_build(name: str) -> Optional[Tuple[subprocess.Popen, Path]]:
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.Popen(
         [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
@@ -211,6 +296,12 @@ def build(names) -> Dict[str, float]:
         os.replace(tmp, library_path(name))  # a loader sees all or nothing
         secs[name] = time.perf_counter() - t0
         build_log[name] = (secs[name], log)
+    built = sum(job is not None for job in started.values())
+    with _count_lock:
+        _cache_counts["hits"] += len(started) - built
+        _cache_counts["builds"] += built
+        if built:
+            _cache_counts["build_seconds"] += time.perf_counter() - t0
     return secs
 
 

@@ -30,7 +30,11 @@ work whatever step it is, and on CUDA it is captured once as a CUDA graph
 * the kernel wrappers count launches in Python, which a replay skips, so
   the launches counted while the step was captured are taken back and
   added once per replay (``ops/_kernels.add_launches``);
-* a failed capture raises: there is no quiet eager fall back.
+* a failed capture raises: there is no quiet eager fall back;
+* each capture (with its warm-up step) counts as a missed resolution of
+  the process's compile-cache counters, and each call that replays only
+  steps captured before as a hit (``utils/compile_cache.note_capture``,
+  ``note_replay``): the driver's stage rows report them as ``aot_*``.
 
 A rank of a ``(dp, sp)`` mesh runs this same machinery
 (``parallel/dp.make_parallel_epoch_fn``) through two arguments: its
@@ -52,6 +56,7 @@ the diagnostics.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -69,6 +74,7 @@ from iwae_replication_project_tpu_torch.telemetry.spans import spanned
 from iwae_replication_project_tpu_torch.training.train_step import (
     make_train_step,
 )
+from iwae_replication_project_tpu_torch.utils import compile_cache
 from iwae_replication_project_tpu_torch.utils.tree import tree_leaves
 
 
@@ -202,7 +208,9 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
                 entry: Optional[_StepGraphs]) -> _StepGraphs:
         """Run one real step of this kind eagerly on a side stream (the
         warm-up), then capture the next such step's work without running
-        it."""
+        it; the pair counts as one missed resolution of the process's
+        compile-cache counters (``utils/compile_cache.note_capture``)."""
+        t0 = time.perf_counter()
         dev = b.x.device
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -225,6 +233,7 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
                     if after[n] != before[n]}
         _kernels.add_launches(launches, -1)
         entry.steps[accumulate] = _Captured(graph, launches)
+        compile_cache.note_capture(time.perf_counter() - t0)
         return entry
 
     def epoch(state, x_train: torch.Tensor, *,
@@ -245,6 +254,7 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
         b = entry.bufs if entry is not None else _Buffers(
             state, x_train, n_batches, hi - lo, n_losses, diag_on)
         b.pos.zero_()
+        captured = False
         for _ in range(epochs_per_call):
             if perm is None:
                 perm_e = (torch.randperm(n_train, generator=gen, device=dev)
@@ -263,10 +273,13 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
                 elif use_graph:
                     entry = state.graphs[epoch] = capture(state, b, acc,
                                                           entry)
+                    captured = True
                 else:
                     run_step(state, b, acc,
                              eps=None if noise is None else noise[j],
                              u=None if uniforms is None else uniforms[j])
+        if use_graph and not captured:
+            compile_cache.note_replay()  # a dispatch of captured steps only
         losses = b.losses.clone() if use_graph else b.losses
         if not diag_on:
             return state, losses

@@ -56,10 +56,15 @@ What differs from the JAX store:
   no warm-up and no ``nvcc`` build (the kernels' libraries stay loaded).
   The JAX store's "0 fresh compiles" is the port's "0 kernel builds"
   (``kernel_builds`` in :func:`cache_stats`, from ``ops/_kernels``).
-* **Left out:** the persistent XLA cache, the donation gate and
-  ``setup_persistent_cache`` have no counterpart (the CLI refuses
-  ``--compile-cache-dir`` and ``--no-donate-buffers``), and no trace-time
-  cost record is stamped.
+* **The persistent cache** is the directory of the ``nvcc`` libraries
+  (``ops/_kernels.use_build_dir``, the driver's ``--compile-cache-dir``):
+  :func:`cache_stats` counts the libraries found built there
+  (``kernel_disk_hits``) beside the builds (``kernel_builds``) and their
+  seconds. The driver's captured train steps count as resolutions here
+  too (:func:`note_capture`, :func:`note_replay`), so a stage row's
+  ``aot_*`` fields say what it captured and what it replayed.
+* **Left out:** the donation gate has no counterpart (the CLI refuses
+  ``--no-donate-buffers``), and no trace-time cost record is stamped.
 
 **The shared key.** A graph bakes in the addresses of the weights it
 captured, so the caller puts the weights' identity in ``build_key`` (the
@@ -769,19 +774,40 @@ def isolated_aot_registry(budget_bytes=_UNSET):
         _release([e.exe for e in inner[0].values()])
 
 
+def note_capture(seconds: float) -> None:
+    """Count a program captured outside the store (the driver's train
+    step, ``training/epoch.py``) as a resolution that missed, with the
+    seconds its warm-up and capture took."""
+    with _lock:
+        _counters["aot_misses"] += 1
+        _counters["aot_captures"] += 1
+        _counters["aot_capture_seconds"] += seconds
+
+
+def note_replay() -> None:
+    """Count a dispatch that replayed only programs captured before as a
+    resolution that hit."""
+    _bump("aot_hits")
+
+
 def kernel_builds() -> int:
-    """The ``nvcc`` builds this process ran (``ops/_kernels.build_log``)."""
+    """The ``nvcc`` builds this process ran (``ops/_kernels``)."""
     from iwae_replication_project_tpu_torch.ops import _kernels
 
-    return len(_kernels.build_log)
+    return int(_kernels.cache_counts()["builds"])
 
 
 def cache_stats() -> dict:
     """Snapshot of the process-wide counters: ``aot_*`` (hits, misses,
     captures, warm-ups, seconds of the misses), the store's counters as
-    ``store_<name>`` with its residency, and ``kernel_builds``, the ``nvcc``
-    builds this process ran (``ops/_kernels.build_log``): a readmit and a
-    warm join must leave it unchanged."""
+    ``store_<name>`` with its residency, and the kernel libraries'
+    (``ops/_kernels.cache_counts``): ``kernel_builds``, the ``nvcc`` builds
+    this process ran (a readmit and a warm join must leave it unchanged),
+    ``kernel_disk_hits``, the libraries found built, and
+    ``kernel_build_seconds``, with ``kernel_cache_dir`` the build
+    directory in effect (None before one is resolved)."""
+    from iwae_replication_project_tpu_torch.ops import _kernels
+
     with _lock:
         snap = dict(_counters)
     st = _store.scalar_stats()
@@ -790,7 +816,12 @@ def cache_stats() -> dict:
         snap[f"store_{name}"] = st[name]
     snap["store_resident_bytes"] = st["resident_bytes"]
     snap["store_budget_bytes"] = st["budget_bytes"]
-    snap["kernel_builds"] = kernel_builds()
+    kc = _kernels.cache_counts()
+    snap["kernel_builds"] = int(kc["builds"])
+    snap["kernel_disk_hits"] = int(kc["hits"])
+    snap["kernel_build_seconds"] = kc["build_seconds"]
+    snap["kernel_cache_dir"] = None if _kernels._dir is None \
+        else str(_kernels._dir)
     return snap
 
 
@@ -810,5 +841,5 @@ def stats_delta(before: dict, after: Optional[dict] = None) -> dict:
 __all__ = ["DEFAULT_MODEL", "EagerProgram", "ExecutableStore",
            "GraphProgram", "aot_call", "aot_call_async", "aot_warm",
            "cache_stats", "executable_store", "isolated_aot_registry",
-           "kernel_builds",
+           "kernel_builds", "note_capture", "note_replay",
            "set_store_budget", "signature", "stats_delta", "store_stats"]

@@ -1,12 +1,13 @@
 """Experiment configuration and its command line (port of
 ``utils/config.py``).
 
-The fields are the JAX config's, less the execution knobs the port has no
-counterpart for: ``backend``, ``compile_cache_dir`` and ``donate_buffers``
-(ROADMAP A10) and ``save_figures`` (the stage figures, A5). The JAX
-``backend`` switch picks the eager oracles ``backends/torch_ref.py`` and
-``tf2_ref.py``, the JAX package's cross-check backends; the port runs
-itself, on the card or (``--device cpu``) the CPU.
+The fields are the JAX config's, less the two execution knobs the port has
+no counterpart for (:data:`JAX_ONLY_FIELDS`): ``backend``, whose JAX switch
+picks the eager oracles ``backends/torch_ref.py`` and ``tf2_ref.py``, the
+JAX package's cross-check backends (the port runs itself, on the card or,
+with ``--device cpu``, the CPU), and ``donate_buffers``. ``save_figures``
+makes the stage figures (``utils/viz.py``) and ``compile_cache_dir`` names
+the directory of the kernels' libraries (``ops/_kernels.use_build_dir``).
 :meth:`ExperimentConfig.run_name` gives the JAX name for the same science
 fields, so the two packages name a run's checkpoint and log directories
 alike, and :func:`build_argparser` takes the JAX flags of every field the
@@ -49,12 +50,9 @@ BACKEND_REFUSAL = (
 #: JAX-written config does); any other value is refused.
 JAX_ONLY_FIELDS = {
     "backend": ("jax", BACKEND_REFUSAL),
-    "compile_cache_dir": (None, "not supported by the PyTorch port yet "
-                                "(ROADMAP A10)"),
-    "donate_buffers": (True, "not supported by the PyTorch port yet "
-                             "(ROADMAP A10)"),
-    "save_figures": (True, "not supported by the PyTorch port yet "
-                           "(ROADMAP A5)"),
+    "donate_buffers": (True, "the port has no buffer donation to turn off: "
+                             "its train step writes the new state into the "
+                             "old state's tensors in place"),
 }
 
 _TUPLE_FIELDS = ("n_hidden_encoder", "n_hidden_decoder", "n_latent_encoder",
@@ -131,6 +129,13 @@ class ExperimentConfig:
     # and the estimator diagnostics of each stage's evaluation
     diagnostics: bool = True
     snr_window: int = 50
+    # per-stage sample/reconstruction PNG grids (and the latent scatter on
+    # the digits) under <log_dir>/<run_name>/figures
+    save_figures: bool = True
+    # the kernels' library directory (ops/_kernels.use_build_dir): None =
+    # $IWAE_COMPILE_CACHE, else the package's _build/; "off" = a fresh
+    # private directory. Execution knob, not a science field
+    compile_cache_dir: Optional[str] = None
 
     # persistence: logs and checkpoints go under <dir>/<run_name()>
     log_dir: str = "runs"
@@ -230,7 +235,7 @@ class ExperimentConfig:
         for key, (default, why) in JAX_ONLY_FIELDS.items():
             if key in d:
                 v = d.pop(key)
-                if v != default and key != "save_figures":
+                if v != default:
                     raise ValueError(f"{key}={v!r}: {why}")
         for key in _TUPLE_FIELDS:
             d[key] = tuple(d[key])
@@ -286,11 +291,16 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", default=None, type=int)
     for flag, field, takes_value in (
             ("--backend", "backend", True),
-            ("--compile-cache-dir", "compile_cache_dir", True),
             ("--no-donate-buffers", "donate_buffers", False)):
         why = JAX_ONLY_FIELDS[field][1]
         ap.add_argument(flag, action=_refused(why, takes_value),
                         default=None, help=f"refused: {why}")
+    ap.add_argument("--compile-cache-dir", dest="compile_cache_dir",
+                    default=None, type=str,
+                    help="directory the CUDA kernels' libraries are built "
+                         "into and loaded from (default: "
+                         "$IWAE_COMPILE_CACHE, else the package's _build/; "
+                         "'off' builds into a fresh private directory)")
     ap.add_argument("--mesh-dp", dest="mesh_dp", default=None, type=int,
                     help="data-parallel ranks (default: the ranks --mesh-sp "
                          "leaves)")
@@ -341,10 +351,9 @@ def build_argparser() -> argparse.ArgumentParser:
                          "checkpoint and exiting 75")
     ap.add_argument("--no-resume", dest="resume", action="store_false",
                     default=None)
-    ap.add_argument("--no-figures", dest="no_figures", action="store_true",
-                    default=None,
-                    help="accepted for the JAX runner's command lines: the "
-                         "port makes no stage figures yet (ROADMAP A5)")
+    ap.add_argument("--no-figures", dest="save_figures",
+                    action="store_false", default=None,
+                    help="write no per-stage figures")
     ap.add_argument("--hidden-encoder", dest="n_hidden_encoder", default=None,
                     type=_int_list)
     ap.add_argument("--hidden-decoder", dest="n_hidden_decoder", default=None,

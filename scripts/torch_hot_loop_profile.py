@@ -45,7 +45,7 @@ def b1_without_fixups(torch):
     path = _kernels.library_path(thl.KERNEL)
     path = path.with_name(path.stem + "-inexact.so")
     if not path.exists():
-        _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run([_kernels.nvcc_path(), *_kernels.NVCC_FLAGS,
                         "-DHOT_LOOP_FWD_EXACT=false", "-o", str(path),
                         str(_kernels.SRC_DIR / f"{thl.KERNEL}.cu")],

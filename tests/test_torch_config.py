@@ -33,6 +33,8 @@ SHARED_ARGV = [
      "--serving-precision", "bf16", "--k2", "5", "--p", "2.0",
      "--alpha", "0.5"],
     ["--preset", "table10-iwae-to-vae-k1", "--fused-likelihood"],
+    ["--no-figures", "--compile-cache-dir", "kcache", "--dataset", "digits"],
+    ["--compile-cache-dir", "off"],
 ]
 
 
@@ -86,7 +88,7 @@ def test_run_name_and_json_match_jax(over):
 def test_json_refuses_what_the_port_cannot_run():
     d = json.loads(jconfig.ExperimentConfig().to_json())
     for key, value, why in (("backend", "torch", "cross-check backends"),
-                            ("donate_buffers", False, "ROADMAP A10")):
+                            ("donate_buffers", False, "no buffer donation")):
         bad = dict(d, **{key: value})
         with pytest.raises(ValueError, match=why):
             ExperimentConfig.from_json(json.dumps(bad))
@@ -99,19 +101,26 @@ def test_json_refuses_what_the_port_cannot_run():
                 "num_processes", "process_id"):
         assert getattr(got, key) == getattr(want, key) == mesh[key], key
     assert got.uses_mesh() and got.run_name() == want.run_name()
-    # figures are not made either way
-    ExperimentConfig.from_json(json.dumps(dict(d, save_figures=False)))
+    # the figures' switch and the compile cache's directory load as the
+    # JAX config holds them
+    over = dict(d, save_figures=False, compile_cache_dir="kcache")
+    got = ExperimentConfig.from_json(json.dumps(over))
+    want = jconfig.ExperimentConfig.from_json(json.dumps(over))
+    assert got.save_figures is want.save_figures is False
+    assert got.compile_cache_dir == want.compile_cache_dir == "kcache"
+    assert got.run_name() == want.run_name() == \
+        ExperimentConfig.from_json(json.dumps(d)).run_name()
 
 
 @pytest.mark.parametrize("argv,why", [
     (["--backend", "torch"], "cross-check backends"),
-    (["--compile-cache-dir", "off"], "ROADMAP A10"),
-    (["--no-donate-buffers"], "ROADMAP A10"),
+    (["--backend", "tf2"], "cross-check backends"),
+    (["--no-donate-buffers"], "no buffer donation"),
 ])
 def test_refused_flags_name_their_roadmap_item(argv, why, capsys):
     """The JAX flags of fields the port lacks are refused with the reason:
     ``--backend`` picks the JAX package's eager cross-check oracles, and
-    the compile cache's flags wait for ROADMAP A10."""
+    the port's step has no buffer donation to turn off."""
     with pytest.raises(SystemExit) as e:
         tconfig.config_from_args(argv)
     assert e.value.code == 2
@@ -140,7 +149,10 @@ def test_mesh_flags_parse_into_the_config(argv, field, value):
 
 def test_device_flag_and_validation():
     ns, cfg = tconfig.parse_args(["--device", "cpu", "--no-figures"])
-    assert ns.device == "cpu" and cfg == ExperimentConfig()
+    assert ns.device == "cpu" and cfg == ExperimentConfig(save_figures=False)
+    assert ExperimentConfig().save_figures is True
+    assert tconfig.config_from_args(
+        ["--compile-cache-dir", "d"]).compile_cache_dir == "d"
     assert tconfig.parse_args([])[0].device is None
     with pytest.raises(SystemExit):
         tconfig.parse_args(["--device", "tpu"])

@@ -258,8 +258,22 @@ def test_artifacts_schema_and_resume_of_a_finished_run(tmp_path):
                 "stage_train_seconds", "stage_checkpoint_seconds",
                 "checkpoint_every_passes", "stage_passes_timed",
                 "stage_eval_seconds", "kernel_path", "diag/ess",
-                "diag/grad_snr"):
+                "diag/grad_snr", "aot_hits", "aot_misses",
+                "aot_compile_seconds", "compile_cache_hits",
+                "compile_cache_misses", "compile_seconds",
+                "stage_figure_seconds"):
         assert key in rec, key
+    # and every key of the JAX driver's row of the same config
+    from iwae_replication_project_tpu.experiment import (
+        run_experiment as jrun)
+    from iwae_replication_project_tpu.utils.config import (
+        ExperimentConfig as JConfig)
+    jcfg = JConfig(**vars(tiny_config(tmp_path, "jax", n_stages=1)))
+    with contextlib.redirect_stdout(io.StringIO()):
+        jrun(jcfg, max_batches_per_pass=1)
+    jrec = json.loads((Path(jcfg.log_dir) / jcfg.run_name() / "metrics.jsonl")
+                      .read_text().strip().splitlines()[-1])
+    assert set(jrec) <= set(rec), sorted(set(jrec) - set(rec))
     assert rec["nll_chunk"] == cfg.nll_chunk
     assert rec["eval_batch"] == cfg.eval_batch_size
     assert rec["bfloat16"] == 1.0 and rec["synthetic_data"] == 1.0
@@ -424,10 +438,10 @@ def test_staged_nll_curve_matches_jax(tmp_path):
         ExperimentConfig as JConfig)
     got, want = [], []
     for seed in SEEDS:
-        over = dict(n_stages=3, resume=False, diagnostics=False, seed=seed)
+        over = dict(n_stages=3, resume=False, diagnostics=False, seed=seed,
+                    save_figures=False)
         cfg = tiny_config(tmp_path, f"port{seed}", **over)
-        jcfg = JConfig(**vars(tiny_config(tmp_path, f"jax{seed}", **over)),
-                       save_figures=False)
+        jcfg = JConfig(**vars(tiny_config(tmp_path, f"jax{seed}", **over)))
         got.append([h["NLL"] for h in exp.run_experiment(cfg,
                                                          device="cpu")[1]])
         want.append([r["NLL"] for r, _ in jrun(jcfg)[1]])
