@@ -217,10 +217,33 @@ phases, one line per phase, and exits non-zero on the first failure:
    evaluations' count; the cold build's seconds, the figures' seconds per
    stage, and the step's ms on the digits between CUDA events and on the
    host;
-16. prints the kernels' JSON record (launches of the serving and training
-   runs, of phase 14's int8 burst, and per path of phases 8-15 under
-   ``launches_by_path``) and, last, the contract line ``{"ok": true,
-   "device": {...}}``.
+16. a fuzzed race sweep of the serving tier (lines ``race:``;
+   ``analysis/race/tier_sweep.py``, the counterpart of the JAX package's
+   ``scripts/race_smoke.py``): the flagship at full width, two replicas
+   behind ``ServingTier`` over TCP, the first killed mid-burst, under the
+   race detector and a ``PerturbFuzzer`` per seed installed on the engine,
+   batcher, router, server, quotas, client and store modules, for 20-50
+   schedules (more while the sweep stays under a minute): no race, no open
+   span, pinned store entry or outstanding router future after each drain,
+   rows bitwise one uninstrumented direct engine's, every patched global
+   and class hook the original after the sweep, and B1's launches over the
+   rounds' traffic equal to the engines' score dispatches; the count of
+   schedules and the seconds per schedule;
+17. the eager oracle on the card (lines ``oracle:``): the flagship's fresh
+   weights in the core's facade (likelihood="logits", fp32, so B1 and B2
+   run their fp32 path) and in ``backend="torch"``, the IWAE bound and the
+   per-leaf IWAE and DReG gradients on the same injected draws at the
+   train shape, within the stated tolerance, the worst difference per
+   leaf printed; the oracle's calls launch no kernel, the core's launch
+   B1 and B2 the derived number of times; then ``python -m
+   iwae_replication_project_tpu_torch --backend torch`` on the digits
+   flagship for 2 stages (NLL finite and falling, ms per eager step, no
+   kernel launched in the process), and ``--backend tf2``, refused with the
+   guidance message where TensorFlow is not installed;
+18. prints the kernels' JSON record (launches of the serving and training
+   runs, of phase 14's int8 burst, and per path of phases 8-17 under
+   ``launches_by_path``, ``eager_oracle`` 0 for every kernel) and, last,
+   the contract line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or run outside a checkout of the repository, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -4434,6 +4457,295 @@ def driver_digits(torch, np, zoo, hot_loop, tmp):
     return first, ok
 
 
+# --------------------------------------------------------------------------
+# phase 16: a fuzzed race sweep of the serving tier
+# --------------------------------------------------------------------------
+
+#: phase 16's schedules: at least RACE_MIN, more (up to RACE_MAX) while the
+#: sweep stays under RACE_BUDGET_S seconds
+RACE_MIN, RACE_MAX, RACE_BUDGET_S = 20, 50, 60.0
+
+
+def race_tier(torch, np, zoo, hot_loop):
+    """Phase 16: the port's counterpart of the JAX package's
+    ``scripts/race_smoke.py`` on the card (``analysis/race/tier_sweep.py``):
+    the flagship at full width (bf16, k=50, fresh weights from the preset's
+    seed), two replicas behind ``ServingTier`` over TCP, the first killed
+    mid-burst in every round, under ``Instrumentation(RaceDetector,
+    PerturbFuzzer(seed))`` on the engine, batcher, router, server, quotas,
+    client and store modules. Per schedule: no race, no open span, pinned
+    store entry or outstanding router future after the drain, rows bitwise
+    one uninstrumented direct engine's (C6); after the sweep every patched
+    global and hook the original. B1's launches over the rounds' traffic
+    equal the engines' score dispatches. Returns ({kernel: launches over
+    the phase}, ok)."""
+    from iwae_replication_project_tpu_torch.analysis.race import (
+        tier_sweep as sw)
+    from iwae_replication_project_tpu_torch.models import iwae as model
+    from iwae_replication_project_tpu_torch.ops import _kernels
+    from iwae_replication_project_tpu_torch.serving.engine import (
+        ServingEngine)
+
+    t_phase = time.perf_counter()
+    cfg = zoo.get(PRESET)
+    model_cfg = cfg.model_config("cuda")
+    params = model.init_params(torch.Generator().manual_seed(cfg.seed),
+                               model_cfg)
+
+    def engine():
+        return ServingEngine(params=params, model_config=model_cfg, k=cfg.k,
+                             max_batch=8, max_inflight=2, timeout_s=60.0)
+
+    x = (np.random.RandomState(0).rand(sum(sw.SIZES), model_cfg.x_dim)
+         > 0.5).astype(np.float32)
+    modules, classes = sw.serving_modules(), sw.tracked_classes()
+    before = sw.patchables(modules)
+    ok = model_cfg.compute_dtype == "bfloat16" and \
+        model_cfg.likelihood == "logits" and cfg.k == TRAIN_K
+    ref = sw.direct_rows(engine, x)
+    for name in _kernels.all_launch_counts():
+        _kernels.reset_launch_counts((name,))
+    snaps = []
+
+    def snap():
+        snaps.append(_kernels.all_launch_counts())
+
+    traffic, want, problems, seconds, races = {}, 0, [], [], 0
+
+    def one(seed):
+        nonlocal want, races
+        r = sw.run_round(engine, x, seed, on_served=snap)
+        served, stopped = snaps[-2], snaps[-1]
+        for name, n in stopped.items():
+            traffic[name] = traffic.get(name, 0) + n - served.get(name, 0)
+        want += r.dispatches
+        problems.extend(sw.round_problems(r, ref))
+        if r.report is not None:
+            races += r.report["total"]
+            seconds.append(r.seconds)
+        return r
+
+    base = one(None)
+    print(f"race: the uninstrumented round (2 replicas, victim killed "
+          f"after request {len(sw.SIZES) // 2 + 1} of {len(sw.SIZES)}, "
+          f"{len(x)} rows): {base.seconds:.3f}s, rows bitwise the direct "
+          f"engine's: {np.array_equal(base.rows, ref)}", flush=True)
+    t0 = time.perf_counter()
+    seed = 0
+    while seed < RACE_MIN or (seed < RACE_MAX and
+                              time.perf_counter() - t0 < RACE_BUDGET_S):
+        one(seed)
+        seed += 1
+    sweep_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    total = _kernels.all_launch_counts()
+    left = sw.uninstall_problems(modules, classes, before)
+    b1 = traffic.get(hot_loop.KERNEL, 0)
+    launch_ok = b1 == want and traffic.get(hot_loop.KERNEL_BWD, 0) == 0
+    ok &= not problems and not left and launch_ok and seed >= RACE_MIN
+    print(f"race: {seed} fuzzed schedules (seeds 0-{seed - 1}) in "
+          f"{sweep_s:.1f}s, {np.mean(seconds):.3f}s per schedule (median "
+          f"{np.median(seconds):.3f}s, max {max(seconds):.3f}s): races "
+          f"{races}, contract failures {len(problems)}"
+          + (f" (first: {problems[:2]})" if problems else "")
+          + f"; uninstall clean: {not left}"
+          + (f" ({left})" if left else ""), flush=True)
+    print(f"race: B1 launches over the rounds' traffic {b1} (expected "
+          f"{want}: one per score dispatch of the two engines, the killed "
+          f"replica's included), B2 {traffic.get(hot_loop.KERNEL_BWD, 0)}; "
+          f"over the phase (warmups too) {total}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return total, ok
+
+
+# --------------------------------------------------------------------------
+# phase 17: the eager oracle on the card
+# --------------------------------------------------------------------------
+
+#: phase 17a's gradient tolerance, per leaf: the largest difference over
+#: the leaf's largest magnitude, JAX's oracle rtol (tests/test_api.py:293)
+#: applied at the leaf's scale. Both sides are fp32 on the same weights and
+#: draws; they differ in summation order (B1/B2's tiles against eager
+#: autograd) and in the oracle's probability clamp against exact logits
+#: (a pixel's term moves by at most 1e-7/p relative). Elementwise at JAX's
+#: atol 2e-6 the near-cancelled entries of a full-width leaf fail even
+#: between two fp32 eager paths; the phase prints how many leaves do.
+ORACLE_GRAD_TOL = 2e-3
+#: the bound: JAX's oracle tolerance (rtol, atol)
+ORACLE_BOUND_TOL = (1e-5, 1e-6)
+
+
+def oracle_grads(torch, np, zoo, hot_loop):
+    """Phase 17a-b: the flagship's fresh weights in the core's facade
+    (likelihood="logits", fp32: B1 and B2 on their fp32 path) and in the
+    eager oracle (``backend="torch"``, on the card), the IWAE bound and the
+    per-leaf IWAE and DReG gradients on the same injected draws at the
+    train shape. The oracle's calls change no launch count; the core's
+    launch B1 once per objective, B2 once for IWAE and twice for DReG.
+    Returns ({kernel: the oracle's launches}, ok)."""
+    from iwae_replication_project_tpu_torch.api import FlexibleModel, key_paths
+    from iwae_replication_project_tpu_torch.backends.torch_ref import (
+        TorchFlexibleModel)
+    from iwae_replication_project_tpu_torch.models import iwae as model
+    from iwae_replication_project_tpu_torch.objectives.gradients import (
+        objective_value_and_grad)
+    from iwae_replication_project_tpu_torch.ops import _kernels
+    from iwae_replication_project_tpu_torch.utils.tree import tree_leaves
+
+    cfg = zoo.get(PRESET)
+    arch = (list(cfg.n_hidden_encoder), list(cfg.n_hidden_decoder),
+            list(cfg.n_latent_encoder), list(cfg.n_latent_decoder))
+    core = FlexibleModel(*arch, dataset_bias=None, k=TRAIN_K, seed=cfg.seed,
+                         likelihood="logits").compile()
+    oracle = FlexibleModel(*arch, dataset_bias=None, backend="torch",
+                           seed=cfg.seed).compile()
+    oracle.load_jax_params(core.params)
+    ok = type(oracle) is TorchFlexibleModel and \
+        oracle.device.type == "cuda" and core.cfg.fused_likelihood and \
+        core.cfg.compute_dtype is None
+    x = torch.as_tensor((np.random.RandomState(3).rand(TRAIN_B, 784) > 0.5)
+                        .astype(np.float32), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    eps = [torch.randn((TRAIN_K, TRAIN_B, d), generator=gen, device="cuda")
+           for d in cfg.n_latent_encoder]
+    h, _, _ = model.encode(core.params, core.cfg, x, TRAIN_K, eps=eps)
+    h = [t.detach() for t in h]
+    oracle_launches = {}
+    for name, b2 in (("IWAE", 1), ("DReG", 2)):
+        for kn in _kernels.all_launch_counts():
+            _kernels.reset_launch_counts((kn,))
+        t0 = time.perf_counter()
+        cb, cg = objective_value_and_grad(core.objective_spec(name=name),
+                                          core.params, core.cfg, x, eps=eps)
+        torch.cuda.synchronize()
+        t_core = time.perf_counter() - t0
+        main = {n: c for n, c in _kernels.all_launch_counts().items() if c}
+        for kn in _kernels.all_launch_counts():
+            _kernels.reset_launch_counts((kn,))
+        t0 = time.perf_counter()
+        ob, og = oracle.estimator_gradients_as_jax_tree(x, name, TRAIN_K,
+                                                        h_fixed=h)
+        torch.cuda.synchronize()
+        t_oracle = time.perf_counter() - t0
+        after = _kernels.all_launch_counts()
+        for kn, n in after.items():
+            oracle_launches[kn] = oracle_launches.get(kn, 0) + n
+        main_ok = main == {hot_loop.KERNEL: 1, hot_loop.KERNEL_BWD: b2}
+        indep_ok = not any(after.values())
+        cb = float(cb)
+        rtol, atol = ORACLE_BOUND_TOL
+        bound_ok = abs(cb - ob) <= atol + rtol * abs(ob)
+        worst, elementwise = [], 0
+        for path, a, b in zip(key_paths(cg), tree_leaves(cg),
+                              tree_leaves(og)):
+            a = a.detach().cpu().numpy()
+            err = float(np.abs(a - b).max())
+            scale = float(np.abs(b).max())
+            worst.append((err / max(scale, 1e-30), err, path))
+            elementwise += not np.allclose(a, b, rtol=2e-3, atol=2e-6)
+        grad_ok = all(w[0] <= ORACLE_GRAD_TOL for w in worst)
+        ok &= main_ok and indep_ok and bound_ok and grad_ok
+        print(f"oracle: {name} at k={TRAIN_K} x B={TRAIN_B} on the same "
+              f"draws: bound core {cb:.6f} oracle {ob:.6f} (|diff| "
+              f"{abs(cb - ob):.3e}, tol {atol:g} + {rtol:g} x |bound|); "
+              f"core launches {main} (expected B1 1, B2 {b2}), oracle "
+              f"launches {sum(after.values())}; core {t_core * 1e3:.2f} ms, "
+              f"oracle {t_oracle * 1e3:.2f} ms (host clock, one call each) "
+              f"{'ok' if main_ok and indep_ok and bound_ok else 'FAIL'}",
+              flush=True)
+        print(f"oracle: {name} per-leaf worst |diff| / max|leaf| (tol "
+              f"{ORACLE_GRAD_TOL:g}), {len(worst)} leaves: "
+              + ", ".join(f"{p} {r:.2e} ({e:.2e})" for r, e, p in worst)
+              + f"; leaves outside JAX's elementwise rtol 2e-3 atol 2e-6: "
+              f"{elementwise} {'ok' if grad_ok else 'FAIL'}", flush=True)
+    return oracle_launches, ok
+
+
+def oracle_cli(np, tmp):
+    """Phase 17c-d: ``python -m iwae_replication_project_tpu_torch --backend
+    torch`` on the digits flagship for 2 stages (the eager oracle on the
+    card): per-stage NLL finite and falling, ms per eager step, and no
+    kernel launched in the process; then ``--backend tf2``, which exits
+    non-zero with the guidance message where TensorFlow is missing.
+    Returns ({kernel: launches of the eager process}, ok)."""
+    import importlib.util
+
+    here = str(Path(__file__).resolve().parent)
+    sub = os.path.join(tmp, "oracle")
+    cmd = [sys.executable, "-c", _CLI_WITH_LAUNCHES, "--backend", "torch",
+           "--preset", PRESET, "--dataset", "digits", "--n-stages", "2",
+           "--log-dir", f"{sub}/runs", "--checkpoint-dir", f"{sub}/ckpt"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=here)
+    wall = time.perf_counter() - t0
+    launch_lines = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("launches ")]
+    run_dirs = list(Path(sub, "runs").glob("*"))
+    rows = [json.loads(ln) for d in run_dirs for ln in
+            (d / "metrics.jsonl").read_text().splitlines()] \
+        if len(run_dirs) == 1 else []
+    if proc.returncode != 0 or not launch_lines or len(rows) != 2:
+        print(f"oracle: --backend torch exit {proc.returncode}, {len(rows)} "
+              f"rows FAIL", flush=True)
+        print(proc.stdout[-3000:], proc.stderr[-4000:], flush=True)
+        return {}, False
+    launches = json.loads(launch_lines[-1].split(" ", 1)[1])
+    nll = [r["NLL"] for r in rows]
+    ok = bool(np.isfinite(nll).all()) and nll[1] < nll[0] and \
+        not any(launches.values()) and \
+        run_dirs[0].name.endswith("-torch") and \
+        not any(r["synthetic_data"] for r in rows)
+    prev = 0
+    for r in rows:
+        steps = int(r["steps"]) - prev
+        prev = int(r["steps"])
+        print(f"oracle: --backend torch stage {int(r['stage'])}: NLL "
+              f"{r['NLL']:.4f} IWAE {r['IWAE']:.4f} LL_pruned "
+              f"{r['LL_pruned']:.4f}; {steps} eager steps "
+              f"in {r['stage_train_seconds']:.3f}s = "
+              f"{r['stage_train_seconds'] / steps * 1e3:.3f} ms per eager "
+              f"step (host clock; phase 15's replayed step beside it)",
+              flush=True)
+    print(f"oracle: --backend torch (digits, 2 stages, run dir "
+          f"{run_dirs[0].name}) exit 0 in {wall:.1f}s; NLL {nll} falling, "
+          f"kernel launches in the process {sum(launches.values())} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if importlib.util.find_spec("tensorflow") is None:
+        proc = subprocess.run(
+            [sys.executable, "-m", "iwae_replication_project_tpu_torch",
+             "--backend", "tf2", "--n-stages", "1", "--dataset", "digits",
+             "--log-dir", f"{sub}/tf2", "--checkpoint-dir", f"{sub}/tf2c"],
+            capture_output=True, text=True, timeout=300, cwd=here)
+        tf2_ok = proc.returncode != 0 and \
+            "requires TensorFlow" in proc.stderr and \
+            "backend='torch'" in proc.stderr
+        ok &= tf2_ok
+        print(f"oracle: --backend tf2 without TensorFlow exit "
+              f"{proc.returncode}: "
+              f"{(proc.stderr.strip().splitlines() or [''])[-1][:160]!r} "
+              f"{'ok' if tf2_ok else 'FAIL'}", flush=True)
+    else:
+        print("oracle: tensorflow is installed here: --backend tf2 is not "
+              "refused, and its run is not part of this phase", flush=True)
+    return launches, ok
+
+
+def eager_oracle(torch, np, zoo, hot_loop, tmp):
+    """Phase 17: :func:`oracle_grads` then :func:`oracle_cli`. Returns
+    ({kernel: launches of the oracle's calls and its process}, ok)."""
+    t0 = time.perf_counter()
+    in_proc, ok = oracle_grads(torch, np, zoo, hot_loop)
+    cli, cli_ok = oracle_cli(np, tmp)
+    launches = {k: in_proc.get(k, 0) + cli.get(k, 0)
+                for k in set(in_proc) | set(cli)}
+    ok &= cli_ok
+    print(f"oracle: phase 17 {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return launches, ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4583,6 +4895,12 @@ def main() -> int:
         digits_launches, ok = driver_digits(torch, np, zoo, hot_loop, tmp)
         if not ok:
             return fail("the driver on the digits failed")
+        race_launches, ok = race_tier(torch, np, zoo, hot_loop)
+        if not ok:
+            return fail("the fuzzed race sweep of the tier failed")
+        oracle_launches, ok = eager_oracle(torch, np, zoo, hot_loop, tmp)
+        if not ok:
+            return fail("the eager oracle phase failed")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -4600,6 +4918,11 @@ def main() -> int:
     for rec in row_records:
         rec["launches_by_path"] = {"serving_tier": tier_rows[rec["name"]],
                                    "multi_model_tier": mm_rows[rec["name"]]}
+    for rec in [record, record_bwd] + fll_records + row_records \
+            + [int8_record]:
+        paths = rec.setdefault("launches_by_path", {})
+        paths["race_tier"] = race_launches.get(rec["name"], 0)
+        paths["eager_oracle"] = oracle_launches.get(rec["name"], 0)
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records

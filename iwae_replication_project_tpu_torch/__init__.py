@@ -35,7 +35,12 @@ What is ported so far:
   processes and their group, the DDP-placed step), which the driver takes
   under its mesh flags;
 * the reference's facade, ``api.FlexibleModel``
-  (``examples/experiment_example_torch.py``);
+  (``examples/experiment_example_torch.py``), with JAX's ``backend=``
+  switch: ``"jax"`` the port's own path, ``"torch"`` and ``"tf2"`` the
+  eager oracles of ``backends`` (``--backend`` in the driver);
+* the lint framework, the concurrency rules and the race detector
+  (``analysis``: ``python -m iwae_replication_project_tpu_torch.analysis``
+  and ``.analysis.race``), with a fuzzed sweep of the serving tier;
 * paper-grade k behind the serving API (``serving.sharded``, the large-k
   ``score`` and ``score_adaptive``) and the serving tier over TCP
   (``serving.frontend``: the JAX package's JSON-lines wire, router, server,

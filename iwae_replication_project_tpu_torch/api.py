@@ -1,26 +1,43 @@
-"""The ``FlexibleModel`` facade on the port's core (port of ``api.py`` and
+"""The ``FlexibleModel`` facade (port of ``api.py`` and
 ``backends/jax_backend.py``).
 
 The reference exposes everything through one Keras subclass
-(``Flexible_Model``, flexible_IWAE.py:177-545). This class keeps that
+(``Flexible_Model``, flexible_IWAE.py:177-545). This facade keeps that
 method-for-method surface (``compile``, ``fit``, ``train_step``, the
 ``get_L*``/``get_NLL``/``get_training_statistics``/activity family,
-``generate``, ``tensorboard_log``, ``save_weights``/``load_weights``) over
-the port's functional core, with the JAX facade's constructor order and
+``generate``, ``tensorboard_log``, ``save_weights``/``load_weights``)
+behind JAX's ``backend=`` switch, with the same three values, so that a
+call written for the JAX facade runs unchanged:
+
+* ``backend="jax"`` (the default) is the package's own path, here the
+  port's: :class:`CoreFlexibleModel` over the functional core, on the card
+  with its kernels (the JAX name is kept; nothing of JAX runs);
+* ``backend="torch"`` is the eager oracle (``backends/torch_ref.py``):
+  per-op autograd with no kernel, independent of the core;
+* ``backend="tf2"`` is the TF2 oracle (``backends/tf2_ref.py``); without
+  TensorFlow it raises an ImportError that names the alternatives.
+
+``isinstance(m, FlexibleModel)`` holds for all three. :class:`FlexibleModel`
+holds only what the three share: the constructor's arguments and their
+validation, the output bias, the eager ``fit`` of the oracles, the
+``.npz`` weights and ``tensorboard_log``; the compute lives in each
+subclass, so the oracles inherit no method of the core's.
+
+:class:`CoreFlexibleModel` keeps the JAX facade's constructor order and
 defaults: ``likelihood="clamp"`` and fp32 matmuls, so that at its defaults
 it is the reference's arithmetic and runs no kernel. With
 ``likelihood="logits"`` on the card the decoder block runs the hot-loop
-kernels (B1/B2).
-
-``mesh=`` (a ``parallel.Mesh``) or ``mesh_sp > 1`` trains on a ``(dp,
-sp)`` mesh: every rank builds the facade alike, and ``fit`` runs one
-parallel epoch function call per epoch; evaluation stays on each rank's
-device, as in JAX. ``device=`` is where the model lives (None: the card).
+kernels (B1/B2). ``mesh=`` (a ``parallel.Mesh``) or ``mesh_sp > 1`` trains
+on a ``(dp, sp)`` mesh: every rank builds the facade alike, and ``fit``
+runs one parallel epoch function call per epoch; evaluation stays on each
+rank's device, as in JAX. ``device=`` is where the model lives (None: the
+card).
 
 Weights are saved in the JAX facade's ``.npz`` format (one entry per leaf,
 in the JAX tree's order, plus the ``__meta__`` JSON of key paths and
-architecture), so a file written by either package loads into the other.
-The legacy ``.pkl`` payloads hold JAX treedefs and are refused.
+architecture), so a file written by any backend of either package loads
+into any other. The legacy ``.pkl`` payloads hold JAX treedefs and are
+refused.
 """
 
 from __future__ import annotations
@@ -65,7 +82,53 @@ def key_paths(tree, prefix: str = "") -> list:
     return [prefix]
 
 
+def assemble_tree(pairs):
+    """The ``models/iwae.init_params`` tree, ``{"enc": (blk, ...), "dec":
+    (blk, ...), "out": {...}}``, from ``(tree path, leaf)`` pairs as the
+    oracles' correspondence walks yield them (JAX ``assemble_jax_tree``):
+    one assembler for both oracles' weight and gradient exports."""
+    tree = {"enc": [], "dec": [], "out": {}}
+    for path, leaf in pairs:
+        if path[0] == "out":
+            tree["out"][path[1]] = leaf
+        else:
+            group, i, nm = path
+            lst = tree[group]
+            while len(lst) <= i:
+                lst.append({})
+            lst[i][nm] = leaf
+    tree["enc"] = tuple(tree["enc"])
+    tree["dec"] = tuple(tree["dec"])
+    return tree
+
+
 class FlexibleModel:
+    """The facade's shared surface and its ``backend=`` switch (module
+    docstring). ``FlexibleModel(...)`` returns the backend's subclass."""
+
+    def __new__(cls, *args, backend: str = "jax", **kwargs):
+        if cls is not FlexibleModel:
+            return super().__new__(cls)
+        if backend == "jax":
+            return super().__new__(CoreFlexibleModel)
+        if backend == "torch":
+            from iwae_replication_project_tpu_torch.backends.torch_ref import (
+                TorchFlexibleModel)
+            return super().__new__(TorchFlexibleModel)
+        if backend == "tf2":
+            try:
+                import tensorflow  # noqa: F401
+            except ImportError as e:
+                raise ImportError(
+                    "backend='tf2' requires TensorFlow, which is not "
+                    "installed in this environment. Use backend='jax' (the "
+                    "port's own path, on the card) or backend='torch' (the "
+                    "eager oracle).") from e
+            from iwae_replication_project_tpu_torch.backends.tf2_ref import (
+                TF2FlexibleModel)
+            return super().__new__(TF2FlexibleModel)
+        raise ValueError(f"unknown backend {backend!r}; choose jax|torch|tf2")
+
     def __init__(self, n_hidden_encoder: Sequence[int],
                  n_hidden_decoder: Sequence[int],
                  n_latent_encoder: Sequence[int],
@@ -73,14 +136,13 @@ class FlexibleModel:
                  dataset_bias=_UNSET,
                  loss_function: str = "VAE", k: int = 50, p: float = 1,
                  alpha: float = 1, beta: float = 0.5, *,
-                 k2: int = 1, seed: int = 0, data_dir: str = "data",
-                 pixel_means=None, bias=None, mesh=None, mesh_sp: int = 1,
-                 compute_dtype: Optional[str] = None,
-                 likelihood: str = "clamp", device=None):
+                 backend: str = "jax", k2: int = 1, seed: int = 0,
+                 data_dir: str = "data", pixel_means=None, bias=None):
         """`dataset_bias` is a dataset name (the output bias from its pixel
         means, local files or the synthetic fallback) or None; the bias can
         instead be given as ``pixel_means=`` (through the logit of the
-        clipped mean) or ``bias=`` (installed as is)."""
+        clipped mean) or ``bias=`` (installed as is). ``backend`` picked
+        the subclass (:meth:`__new__`)."""
         self.n_hidden_encoder = tuple(n_hidden_encoder)
         self.n_hidden_decoder = tuple(n_hidden_decoder)
         self.n_latent_encoder = tuple(n_latent_encoder)
@@ -93,6 +155,10 @@ class FlexibleModel:
         self.k2 = k2
         self.seed = seed
         self.epoch = 0  # per-batch counter (flexible_IWAE.py:245)
+        # per-epoch counter of the oracles' fit() shuffle stream, apart from
+        # `epoch` so the data order of fit(epochs=N) does not depend on
+        # interleaved train_step() calls
+        self._fit_epochs = 0
         self._logger = None
         if dataset_bias is _UNSET:
             dataset_bias = (None if pixel_means is not None or bias is not None
@@ -101,26 +167,6 @@ class FlexibleModel:
         self._output_bias = self._resolve_bias(dataset_bias, data_dir,
                                                pixel_means=pixel_means,
                                                bias=bias)
-        self.device = resolve_device(device)
-        if mesh is not None:
-            self.device = mesh.device
-        self.cfg = model.ModelConfig(
-            n_hidden_enc=self.n_hidden_encoder,
-            n_latent_enc=self.n_latent_encoder,
-            n_hidden_dec=self.n_hidden_decoder,
-            n_latent_dec=self.n_latent_decoder,
-            x_dim=self.n_latent_decoder[-1], likelihood=likelihood,
-            compute_dtype=compute_dtype,
-            fused_likelihood=likelihood == "logits"
-            and self.device.type == "cuda")
-        self.mesh = mesh
-        self.mesh_sp = mesh_sp
-        self.state: Optional[ts.TrainState] = None
-        self._step_fn = None
-        self._epoch_fn = None
-        self._epoch_sig = None
-        self._eval_gen = torch.Generator(device=self.device).manual_seed(
-            seed + 1)
 
     @staticmethod
     def _resolve_bias(dataset_bias, data_dir: str, *, pixel_means=None,
@@ -165,6 +211,180 @@ class FlexibleModel:
             name=name or self.loss_function, k=k if k is not None else self.k,
             p=over.get("p", self.p), alpha=over.get("alpha", self.alpha),
             beta=over.get("beta", self.beta), k2=over.get("k2", self.k2))
+
+    def fit(self, x_train, epochs: int = 1, batch_size: int = 100,
+            binarization: str = "none", shuffle: bool = True,
+            verbose: bool = False) -> Dict[str, list]:
+        """The oracles' eager fit: one ``train_step`` per host batch
+        (``backends.epoch_batches``, the JAX pipeline's shuffle), the
+        reference's ``keras.Model.fit`` loop (experiment_example.py:82).
+        :class:`CoreFlexibleModel` runs whole epochs on the device
+        instead."""
+        from iwae_replication_project_tpu_torch.backends import epoch_batches
+        x_train = np.asarray(x_train, np.float32).reshape(len(x_train), -1)
+        history = {"loss": []}
+        for i in range(epochs):
+            e = self._fit_epochs
+            self._fit_epochs += 1
+            losses = [self.train_step(b)[self.loss_function]
+                      for b in epoch_batches(x_train, batch_size, epoch=e,
+                                             seed=self.seed,
+                                             binarization=binarization,
+                                             shuffle=shuffle)]
+            history["loss"].append(float(np.mean(losses)))
+            if verbose:
+                print(f"epoch {i + 1}/{epochs}: "
+                      f"loss={history['loss'][-1]:.4f}")
+        return history
+
+    def serving_engine(self, **knobs):
+        """An online-inference engine over this model's weights: the port's
+        own path only (``backend="jax"``)."""
+        raise NotImplementedError(
+            "serving requires backend='jax' (the port's own path): the "
+            "torch/tf2 oracles have no serving programs")
+
+    # ------------------------------------------------------------------
+    # logging and persistence
+    # ------------------------------------------------------------------
+
+    def _run_name(self) -> str:
+        return f"{self.loss_function}-{len(self.n_hidden_encoder)}L-k_{self.k}"
+
+    def tensorboard_log(self, res: dict, epoch_n: int = -1,
+                        logdir: str = "runs"):
+        """Write the eval scalars (flexible_IWAE.py:529-545) as JSONL and
+        TensorBoard events."""
+        from iwae_replication_project_tpu_torch.utils.logging import (
+            MetricsLogger)
+        if self._logger is None:
+            self._logger = MetricsLogger(logdir, run_name=self._run_name())
+        self._logger.log(res, step=self.epoch if epoch_n == -1 else epoch_n)
+
+    def _arch_descr(self) -> dict:
+        return {"n_hidden_encoder": list(self.n_hidden_encoder),
+                "n_hidden_decoder": list(self.n_hidden_decoder),
+                "n_latent_encoder": list(self.n_latent_encoder),
+                "n_latent_decoder": list(self.n_latent_decoder)}
+
+    def _weights_tree(self):
+        """The weights as a tree in the ``models/iwae.init_params`` layout
+        (kernels ``[in, out]``), leaves tensors or arrays (backend hook)."""
+        raise NotImplementedError
+
+    def _set_weights_tree(self, leaves: list) -> None:
+        """Install float32 arrays, in :meth:`_weights_tree`'s leaf order,
+        as the weights (backend hook)."""
+        raise NotImplementedError
+
+    def save_weights(self, path: str):
+        """The weights as the JAX facade's ``.npz`` (api.py:245-274): one
+        ``leaf_i`` entry per leaf and the ``__meta__`` JSON of key paths and
+        architecture. Under a mesh every rank holds them; call it on one."""
+        tree = self._weights_tree()
+        meta = {"paths": key_paths(tree), "arch": self._arch_descr(),
+                "format": 1}
+        arrays = {f"leaf_{i}": _to_numpy(t)
+                  for i, t in enumerate(tree_leaves(tree))}
+        if path.endswith(".pkl"):
+            path = path[:-len(".pkl")]
+        out = path if path.endswith(".npz") else path + ".npz"
+        with open(out, "wb") as f:
+            np.savez(f, __meta__=np.frombuffer(
+                json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+        return out
+
+    def load_weights(self, path: str):
+        """Load a ``.npz`` of any backend of either package, refusing any
+        structure mismatch: the architecture lists, the key paths and every
+        leaf's shape and dtype must match this model (api.py:276-357)."""
+        tree = self._weights_tree()
+        if path.endswith(".pkl") and not os.path.exists(path) \
+                and os.path.exists(path[:-len(".pkl")] + ".npz"):
+            fp = path[:-len(".pkl")] + ".npz"
+        elif path.endswith((".npz", ".pkl")):
+            fp = path
+        elif os.path.exists(path + ".npz"):
+            fp = path + ".npz"
+        elif os.path.exists(path + ".pkl"):
+            fp = path + ".pkl"
+        else:
+            fp = path
+        if fp.endswith(".pkl"):
+            raise ValueError(
+                f"{fp} is a legacy pickle of the JAX facade: it holds JAX "
+                f"treedefs, which cannot be read without JAX. Load it with "
+                f"the JAX package and save it again with save_weights (an "
+                f".npz, which both packages read)")
+        with np.load(fp) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            saved_paths = meta["paths"]
+            arrays = [z[f"leaf_{i}"] for i in range(len(saved_paths))]
+        saved_arch = meta.get("arch", "<unknown>")
+        paths, flat = key_paths(tree), tree_leaves(tree)
+
+        def refuse(why: str):
+            raise ValueError(
+                f"checkpoint architecture mismatch ({why}): checkpoint was "
+                f"saved from {saved_arch}, this model is "
+                f"{self._arch_descr()}")
+
+        if isinstance(meta.get("arch"), dict) \
+                and meta["arch"] != self._arch_descr():
+            refuse("architecture lists differ")
+        if len(flat) != len(arrays):
+            refuse(f"{len(arrays)} leaves vs {len(flat)}")
+        if saved_paths != paths:
+            diff = next((f"{s!r} vs {c!r}" for s, c in zip(saved_paths, paths)
+                         if s != c), "")
+            refuse(f"parameter tree structure differs: {diff}")
+        for i, (cur, saved) in enumerate(zip(flat, arrays)):
+            if tuple(cur.shape) != tuple(saved.shape):
+                refuse(f"leaf {i} ({paths[i]}) shape {tuple(saved.shape)} "
+                       f"vs {tuple(cur.shape)}")
+            if saved.dtype != np.float32:
+                refuse(f"leaf {i} ({paths[i]}) dtype {saved.dtype} "
+                       f"vs float32")
+        self._set_weights_tree(arrays)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """One weights leaf (a tensor or an array) as a float32 host array."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(leaf, np.float32)
+
+
+class CoreFlexibleModel(FlexibleModel):
+    """``backend="jax"``: the facade over the port's functional core, on
+    the card with its kernels (module docstring)."""
+
+    def __init__(self, *args, mesh=None, mesh_sp: int = 1,
+                 compute_dtype: Optional[str] = None,
+                 likelihood: str = "clamp", device=None, **kwargs):
+        # the core's execution knobs are consumed here; everything else
+        # must be a known base argument (a typo raises)
+        super().__init__(*args, **kwargs)
+        self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = mesh.device
+        self.cfg = model.ModelConfig(
+            n_hidden_enc=self.n_hidden_encoder,
+            n_latent_enc=self.n_latent_encoder,
+            n_hidden_dec=self.n_hidden_decoder,
+            n_latent_dec=self.n_latent_decoder,
+            x_dim=self.n_latent_decoder[-1], likelihood=likelihood,
+            compute_dtype=compute_dtype,
+            fused_likelihood=likelihood == "logits"
+            and self.device.type == "cuda")
+        self.mesh = mesh
+        self.mesh_sp = mesh_sp
+        self.state: Optional[ts.TrainState] = None
+        self._step_fn = None
+        self._epoch_fn = None
+        self._epoch_sig = None
+        self._eval_gen = torch.Generator(device=self.device).manual_seed(
+            self.seed + 1)
 
     # ------------------------------------------------------------------
     # training (reference: compile/fit/train_step)
@@ -406,107 +626,20 @@ class FlexibleModel:
                                     generator=gen)[0]
 
     # ------------------------------------------------------------------
-    # logging and persistence
-    # ------------------------------------------------------------------
-
-    def _run_name(self) -> str:
-        return f"{self.loss_function}-{len(self.n_hidden_encoder)}L-k_{self.k}"
-
-    def tensorboard_log(self, res: dict, epoch_n: int = -1,
-                        logdir: str = "runs"):
-        """Write the eval scalars (flexible_IWAE.py:529-545) as JSONL and
-        TensorBoard events."""
-        from iwae_replication_project_tpu_torch.utils.logging import (
-            MetricsLogger)
-        if self._logger is None:
-            self._logger = MetricsLogger(logdir, run_name=self._run_name())
-        self._logger.log(res, step=self.epoch if epoch_n == -1 else epoch_n)
-
-    def _arch_descr(self) -> dict:
-        return {"n_hidden_encoder": list(self.n_hidden_encoder),
-                "n_hidden_decoder": list(self.n_hidden_decoder),
-                "n_latent_encoder": list(self.n_latent_encoder),
-                "n_latent_decoder": list(self.n_latent_decoder)}
-
-    def save_weights(self, path: str):
-        """The weights as the JAX facade's ``.npz`` (api.py:245-274): one
-        ``leaf_i`` entry per leaf and the ``__meta__`` JSON of key paths and
-        architecture. Under a mesh every rank holds them; call it on one."""
-        self._require_compiled()
-        leaves = tree_leaves(self.params)
-        meta = {"paths": key_paths(self.params), "arch": self._arch_descr(),
-                "format": 1}
-        arrays = {f"leaf_{i}": t.detach().to("cpu", torch.float32).numpy()
-                  for i, t in enumerate(leaves)}
-        if path.endswith(".pkl"):
-            path = path[:-len(".pkl")]
-        out = path if path.endswith(".npz") else path + ".npz"
-        with open(out, "wb") as f:
-            np.savez(f, __meta__=np.frombuffer(
-                json.dumps(meta).encode(), dtype=np.uint8), **arrays)
-        return out
-
-    def load_weights(self, path: str):
-        """Load a ``.npz`` of either package, refusing any structure
-        mismatch: the architecture lists, the key paths and every leaf's
-        shape and dtype must match this model (api.py:276-357)."""
-        self._require_compiled()
-        if path.endswith(".pkl") and not os.path.exists(path) \
-                and os.path.exists(path[:-len(".pkl")] + ".npz"):
-            fp = path[:-len(".pkl")] + ".npz"
-        elif path.endswith((".npz", ".pkl")):
-            fp = path
-        elif os.path.exists(path + ".npz"):
-            fp = path + ".npz"
-        elif os.path.exists(path + ".pkl"):
-            fp = path + ".pkl"
-        else:
-            fp = path
-        if fp.endswith(".pkl"):
-            raise ValueError(
-                f"{fp} is a legacy pickle of the JAX facade: it holds JAX "
-                f"treedefs, which cannot be read without JAX. Load it with "
-                f"the JAX package and save it again with save_weights (an "
-                f".npz, which both packages read)")
-        with np.load(fp) as z:
-            meta = json.loads(bytes(z["__meta__"]).decode())
-            saved_paths = meta["paths"]
-            arrays = [z[f"leaf_{i}"] for i in range(len(saved_paths))]
-        saved_arch = meta.get("arch", "<unknown>")
-        paths, flat = key_paths(self.params), tree_leaves(self.params)
-
-        def refuse(why: str):
-            raise ValueError(
-                f"checkpoint architecture mismatch ({why}): checkpoint was "
-                f"saved from {saved_arch}, this model is "
-                f"{self._arch_descr()}")
-
-        if isinstance(meta.get("arch"), dict) \
-                and meta["arch"] != self._arch_descr():
-            refuse("architecture lists differ")
-        if len(flat) != len(arrays):
-            refuse(f"{len(arrays)} leaves vs {len(flat)}")
-        if saved_paths != paths:
-            diff = next((f"{s!r} vs {c!r}" for s, c in zip(saved_paths, paths)
-                         if s != c), "")
-            refuse(f"parameter tree structure differs: {diff}")
-        for i, (cur, saved) in enumerate(zip(flat, arrays)):
-            if tuple(cur.shape) != tuple(saved.shape):
-                refuse(f"leaf {i} ({paths[i]}) shape {tuple(saved.shape)} "
-                       f"vs {tuple(cur.shape)}")
-            if saved.dtype != np.float32:
-                refuse(f"leaf {i} ({paths[i]}) dtype {saved.dtype} "
-                       f"vs float32")
-        with torch.no_grad():
-            for cur, saved in zip(flat, arrays):
-                cur.copy_(torch.from_numpy(saved))
-        self.state.graphs.clear()
-
-    # ------------------------------------------------------------------
 
     @property
     def params(self):
         return self.state.params
+
+    def _weights_tree(self):
+        self._require_compiled()
+        return self.params
+
+    def _set_weights_tree(self, leaves: list) -> None:
+        with torch.no_grad():
+            for cur, saved in zip(tree_leaves(self.params), leaves):
+                cur.copy_(torch.from_numpy(saved))
+        self.state.graphs.clear()
 
     def _require_compiled(self):
         if self.state is None:

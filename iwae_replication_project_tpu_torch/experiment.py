@@ -69,6 +69,14 @@ captures and their seconds), ``compile_cache_hits`` (libraries found
 built on disk), ``compile_cache_misses`` and ``compile_seconds`` (``nvcc``
 builds and their seconds). On the CPU nothing is captured or built, and
 all six are 0.
+
+**The eager backends** (``backend="torch"`` or ``"tf2"``, ``--backend``;
+JAX :94-104): :func:`run_experiment` hands the run to
+:func:`_run_experiment_eager`, the staged Burda schedule on the facade's
+oracle (``api.FlexibleModel(backend=...)``) with the full evaluation suite
+after each stage, no checkpoint and no resume (the reference's eager path
+had neither), logged under ``<run_name>-<backend>``. The oracles are
+single-process: a mesh or ``--multihost`` with one raises.
 """
 
 from __future__ import annotations
@@ -208,8 +216,20 @@ def run_experiment(cfg: ExperimentConfig,
     estimator diagnostics and the grad SNR of the stage's last pass),
     ``synthetic_data``, ``raw_means_bias`` and ``bfloat16``,
     ``stage_figure_seconds``, and the six compile-cache fields (module
-    docstring).
+    docstring). With ``cfg.backend`` "torch" or "tf2" the run is
+    :func:`_run_experiment_eager`'s, which returns ``(model, history)``.
     """
+    if cfg.backend in ("torch", "tf2"):
+        if cfg.uses_mesh():
+            raise ValueError(
+                f"--multihost and the mesh flags require backend='jax' (the "
+                f"eager {cfg.backend} backend is a single-process oracle)")
+        return _run_experiment_eager(cfg, max_batches_per_pass, device)
+    if cfg.backend != "jax":
+        # anything else: the facade's canonical error
+        from iwae_replication_project_tpu_torch.api import FlexibleModel
+        FlexibleModel([1], [1], [1], [1], backend=cfg.backend)
+        raise AssertionError("unreachable")
     stats0 = cache_stats()
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -444,6 +464,74 @@ def _stage_figures(params, model_cfg, cfg: ExperimentConfig, x_test,
             generator=eval_generator(cfg.seed, 20_000 + stage, dev))
 
 
+def _run_experiment_eager(cfg: ExperimentConfig,
+                          max_batches_per_pass: Optional[int] = None,
+                          device=None):
+    """The staged experiment on an eager oracle ("torch", or "tf2": the
+    reference's own execution style) with the full evaluation suite after
+    each stage (training statistics with activity and the pruned NLL,
+    flexible_IWAE.py:496-526); no checkpoint and no resume (JAX
+    experiment.py:506-556). Returns ``(model, history)``: one dict per
+    stage with the suite's scalars, ``learning_rate``, ``stage``,
+    ``passes``, ``steps`` (total so far), ``stage_train_seconds`` (host
+    clock over the stage's steps), ``number_of_active_units``,
+    ``number_of_PCA_active_units``, ``synthetic_data``, ``raw_means_bias``
+    and ``bfloat16`` (False: the oracles compute in fp32)."""
+    from iwae_replication_project_tpu_torch.api import FlexibleModel
+    from iwae_replication_project_tpu_torch.backends import epoch_batches
+
+    ds = load_dataset(cfg.dataset, data_dir=cfg.data_dir,
+                      allow_synthetic=cfg.allow_synthetic)
+    mdl = FlexibleModel(list(cfg.n_hidden_encoder), list(cfg.n_hidden_decoder),
+                        list(cfg.n_latent_encoder), list(cfg.n_latent_decoder),
+                        dataset_bias=None, pixel_means=ds.bias_means,
+                        loss_function=cfg.loss_function, k=cfg.k, p=cfg.p,
+                        alpha=cfg.alpha, beta=cfg.beta, k2=cfg.k2,
+                        backend=cfg.backend, seed=cfg.seed,
+                        device=device).compile()
+    logger = MetricsLogger(cfg.log_dir,
+                           run_name=f"{cfg.run_name()}-{cfg.backend}")
+    x_train = ds.x_train.reshape(len(ds.x_train), -1)
+    x_test = ds.x_test.reshape(len(ds.x_test), -1)
+    history = []
+    step_count = 0
+    try:
+        for stage, lr, passes in burda_stages(cfg.n_stages,
+                                              cfg.passes_scale):
+            mdl.set_learning_rate(lr)
+            t0 = time.perf_counter()
+            for _ in range(passes):
+                for bi, batch in enumerate(epoch_batches(
+                        x_train, cfg.batch_size, epoch=step_count,
+                        seed=cfg.seed, binarization=ds.binarization)):
+                    if max_batches_per_pass is not None and \
+                            bi >= max_batches_per_pass:
+                        break
+                    mdl.train_step(batch)
+                    step_count += 1
+            train_s = time.perf_counter() - t0
+            res, res2 = mdl.get_training_statistics(
+                x_test, cfg.eval_k,
+                batch_size=min(cfg.eval_batch_size, len(x_test)),
+                nll_k=cfg.nll_k, nll_chunk=cfg.nll_chunk,
+                activity_samples=cfg.activity_samples)
+            res.update(learning_rate=lr, stage=stage, passes=passes,
+                       steps=step_count, stage_train_seconds=train_s,
+                       synthetic_data=bool(ds.synthetic),
+                       raw_means_bias=ds.bias_source == "raw",
+                       bfloat16=False)
+            print({k: round(v, 4) for k, v in res.items()
+                   if isinstance(v, float)}, flush=True)
+            logger.log(res, step=step_count)
+            history.append(dict(
+                res, number_of_active_units=res2["number_of_active_units"],
+                number_of_PCA_active_units=res2[
+                    "number_of_PCA_active_units"]))
+    finally:
+        logger.close()
+    return mdl, history
+
+
 def _run_or_exit(cfg: ExperimentConfig, device) -> None:
     try:
         run_experiment(cfg, device=device)
@@ -495,6 +583,9 @@ def main(argv=None):
     from iwae_replication_project_tpu_torch.utils.config import parse_args
 
     ns, cfg = parse_args(argv)
+    if cfg.backend != "jax":  # a single-process oracle (a mesh raises)
+        _run_or_exit(cfg, ns.device)
+        return
     if cfg.multihost:
         multihost.initialize(cfg.coordinator, cfg.num_processes,
                              cfg.process_id, device=ns.device)

@@ -236,7 +236,7 @@ class FleetManager:
             for op in self.affinity_ops:
                 self.router.prime_affinity(model, op, None, home)
         self.plan = plan
-        self.placement_log.append({
+        self.placement_log.append({  # iwaelint: disable=unlocked-shared-state -- every caller holds self._lock (the _locked suffix: step, scale_up, scale_down and rebalance take it first); the rule's write walk does not follow calls
             "t": self._clock(), "event": "rebalance", "cause": cause,
             **plan.record()})
         return plan

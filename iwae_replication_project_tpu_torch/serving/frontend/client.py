@@ -381,9 +381,7 @@ class TierClient:
         self._sock.settimeout(policy.hedge_after_s)
         try:
             return self.wait(rid)
-        except socket.timeout:
-            # the timeout IS the hedge trigger: a slow (not dead) primary
-            # falls through to the two-connection race below
+        except socket.timeout:  # iwaelint: disable=swallowed-exception -- the timeout IS the hedge trigger: a slow (not dead) primary falls through to the two-connection race below, where the pending request and its span stay live on purpose for the hedge to answer
             pass
         finally:
             if self._sock is not None:

@@ -327,11 +327,7 @@ class RemoteEngine:
                 # chaos hook: an injected OSError severs the proxy exactly
                 # like a mid-send connection loss
                 fault_point(SITE_REMOTE_SEND, addr=self._addr)
-                # the proxy lock is the frame serializer: id allocation,
-                # pending registration and the send are atomic per request,
-                # or concurrent submits interleave frames; a dead child
-                # tier fails fast with OSError
-                self._sock.sendall(protocol.encode_line(req))
+                self._sock.sendall(protocol.encode_line(req))  # iwaelint: disable=blocking-call-under-lock -- the proxy lock IS the frame serializer: id allocation, pending registration and the send must be atomic per request or concurrent submits interleave frames; a dead child tier fails fast with OSError
             except OSError as e:
                 del self._pending[self._next_id]
                 self._spans.pop(self._next_id, None)
@@ -377,8 +373,7 @@ class RemoteEngine:
             req = {"op": "slo", "id": self._next_id}
             self._pending[self._next_id] = fut
             try:
-                # the frame-serializer rule of submit
-                self._sock.sendall(protocol.encode_line(req))
+                self._sock.sendall(protocol.encode_line(req))  # iwaelint: disable=blocking-call-under-lock -- the frame-serializer rule of submit: id allocation, pending registration and the send are atomic per request
             except OSError as e:
                 del self._pending[self._next_id]
                 self._dead = f"send failed: {e}"

@@ -106,10 +106,7 @@ class _Connection:
             # fails exactly like a real peer reset
             fault_point(SITE_TIER_WRITE, sock=self._sock, conn=self)
             try:
-                # the per-connection write lock is the frame serializer:
-                # responses interleaving on one socket would corrupt the
-                # line protocol; a dead peer fails fast with OSError
-                self._sock.sendall(data)
+                self._sock.sendall(data)  # iwaelint: disable=blocking-call-under-lock -- the per-connection write lock IS the frame serializer: responses interleaving on one socket would corrupt the line protocol; a dead peer fails fast with OSError
             except OSError:
                 # the client vanished; the response was produced — nothing
                 # to deliver it to. Reads will fail and retire the loop.

@@ -1,11 +1,11 @@
 """Experiment configuration and its command line (port of
 ``utils/config.py``).
 
-The fields are the JAX config's, less the two execution knobs the port has
-no counterpart for (:data:`JAX_ONLY_FIELDS`): ``backend``, whose JAX switch
-picks the eager oracles ``backends/torch_ref.py`` and ``tf2_ref.py``, the
-JAX package's cross-check backends (the port runs itself, on the card or,
-with ``--device cpu``, the CPU), and ``donate_buffers``. ``save_figures``
+The fields are the JAX config's, less the execution knob the port has no
+counterpart for (:data:`JAX_ONLY_FIELDS`): ``donate_buffers``. ``backend``
+is JAX's switch with JAX's values: ``"jax"`` runs the port's own path,
+``"torch"`` and ``"tf2"`` the eager oracles (``backends/``; the driver's
+``_run_experiment_eager``). ``save_figures``
 makes the stage figures (``utils/viz.py``) and ``compile_cache_dir`` names
 the directory of the kernels' libraries (``ops/_kernels.use_build_dir``).
 :meth:`ExperimentConfig.run_name` gives the JAX name for the same science
@@ -39,17 +39,14 @@ SCIENCE_FIELDS = (
     "seed", "switch_stage", "switch_loss", "switch_k", "likelihood",
     "passes_scale")
 
-#: why the port refuses the JAX ``backend`` switch
-BACKEND_REFUSAL = (
-    "the eager oracles backends/torch_ref.py and tf2_ref.py are the JAX "
-    "package's cross-check backends; the port runs itself, on the card or "
-    "the CPU (--device)")
+#: the ``backend`` values (JAX's): the port's own path, the eager torch
+#: oracle, the TF2 oracle
+BACKENDS = ("jax", "torch", "tf2")
 
 #: JAX config fields the port does not have: field -> (the JAX default, why
 #: the port lacks it). A config JSON may carry one at its default (a
 #: JAX-written config does); any other value is refused.
 JAX_ONLY_FIELDS = {
-    "backend": ("jax", BACKEND_REFUSAL),
     "donate_buffers": (True, "the port has no buffer donation to turn off: "
                              "its train step writes the new state into the "
                              "old state's tensors in place"),
@@ -102,6 +99,10 @@ class ExperimentConfig:
     nll_chunk: int = 250
     eval_batch_size: int = 500
     activity_samples: int = 1000
+
+    # execution backend (BACKENDS): "jax" runs the port's own path, "torch"
+    # the eager oracle and "tf2" the TF2 oracle (single process, no mesh)
+    backend: str = "jax"
 
     # the (dp, sp) mesh (parallel/): with mesh_dp or mesh_sp > 1 the run
     # takes the parallel path; mesh_dp None absorbs the ranks. Without
@@ -289,12 +290,13 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--passes-scale", dest="passes_scale", default=None,
                     type=float)
     ap.add_argument("--seed", default=None, type=int)
-    for flag, field, takes_value in (
-            ("--backend", "backend", True),
-            ("--no-donate-buffers", "donate_buffers", False)):
-        why = JAX_ONLY_FIELDS[field][1]
-        ap.add_argument(flag, action=_refused(why, takes_value),
-                        default=None, help=f"refused: {why}")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="jax: the port's own path (the default); torch: "
+                         "the eager oracle; tf2: the TF2 oracle (needs "
+                         "TensorFlow)")
+    why = JAX_ONLY_FIELDS["donate_buffers"][1]
+    ap.add_argument("--no-donate-buffers", action=_refused(why, False),
+                    default=None, help=f"refused: {why}")
     ap.add_argument("--compile-cache-dir", dest="compile_cache_dir",
                     default=None, type=str,
                     help="directory the CUDA kernels' libraries are built "

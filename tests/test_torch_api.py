@@ -14,7 +14,11 @@ import torch
 
 from iwae_replication_project_tpu.api import FlexibleModel as JFlexibleModel
 from iwae_replication_project_tpu.backends.jax_backend import JaxFlexibleModel
-from iwae_replication_project_tpu_torch.api import FlexibleModel, key_paths
+from iwae_replication_project_tpu_torch.api import (
+    CoreFlexibleModel,
+    FlexibleModel,
+    key_paths,
+)
 from iwae_replication_project_tpu_torch.utils.tree import tree_leaves
 from torch_parity import ARCH, D, binary_rows
 import torch_parallel_worker as W
@@ -46,7 +50,9 @@ def _public(cls):
 
 
 def test_method_surface_is_the_jax_facades():
-    assert _public(FlexibleModel) == _public(JaxFlexibleModel)
+    # the shared base and the backend="jax" class, each against JAX's
+    assert _public(FlexibleModel) == _public(JFlexibleModel)
+    assert _public(CoreFlexibleModel) == _public(JaxFlexibleModel)
     # the reference's constructor order and defaults
     want = inspect.signature(JFlexibleModel.__init__).parameters
     got = inspect.signature(FlexibleModel.__init__).parameters
@@ -57,8 +63,9 @@ def test_method_surface_is_the_jax_facades():
     for name in positional[6:]:  # after self, the 4 lists, dataset_bias
         assert got[name].default == want[name].default, name
     jk = inspect.signature(JaxFlexibleModel.__init__).parameters
+    ck = inspect.signature(CoreFlexibleModel.__init__).parameters
     for name in ("likelihood", "compute_dtype", "mesh", "mesh_sp"):
-        assert got[name].default == jk[name].default, name
+        assert ck[name].default == jk[name].default, name
     for name in ("k2", "seed", "data_dir", "pixel_means", "bias"):
         assert got[name].default == want[name].default, name
 

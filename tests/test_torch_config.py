@@ -1,7 +1,8 @@
 """The port's experiment config and command line (``utils/config.py``)
 against the JAX package's: run names, JSON round trips, the flags both
-runners take on the same argv, the flags the port refuses, and C5's path
-selection rule driven with stub library numbers."""
+runners take on the same argv (``--backend`` with JAX's three values), the
+flag the port refuses, and C5's path selection rule driven with stub
+library numbers."""
 
 import dataclasses
 import json
@@ -87,11 +88,16 @@ def test_run_name_and_json_match_jax(over):
 
 def test_json_refuses_what_the_port_cannot_run():
     d = json.loads(jconfig.ExperimentConfig().to_json())
-    for key, value, why in (("backend", "torch", "cross-check backends"),
-                            ("donate_buffers", False, "no buffer donation")):
-        bad = dict(d, **{key: value})
-        with pytest.raises(ValueError, match=why):
-            ExperimentConfig.from_json(json.dumps(bad))
+    bad = dict(d, donate_buffers=False)
+    with pytest.raises(ValueError, match="no buffer donation"):
+        ExperimentConfig.from_json(json.dumps(bad))
+    # a JAX config naming an eager backend loads as the JAX config holds it
+    for backend in ("torch", "tf2"):
+        eager = dict(d, backend=backend)
+        got = ExperimentConfig.from_json(json.dumps(eager))
+        want = jconfig.ExperimentConfig.from_json(json.dumps(eager))
+        assert got.backend == want.backend == backend
+        assert got.run_name() == want.run_name()
     # the mesh fields load as the JAX config holds them
     mesh = dict(d, mesh_dp=2, mesh_sp=2, multihost=True,
                 coordinator="h:1", num_processes=4, process_id=3)
@@ -113,13 +119,10 @@ def test_json_refuses_what_the_port_cannot_run():
 
 
 @pytest.mark.parametrize("argv,why", [
-    (["--backend", "torch"], "cross-check backends"),
-    (["--backend", "tf2"], "cross-check backends"),
     (["--no-donate-buffers"], "no buffer donation"),
 ])
 def test_refused_flags_name_their_roadmap_item(argv, why, capsys):
-    """The JAX flags of fields the port lacks are refused with the reason:
-    ``--backend`` picks the JAX package's eager cross-check oracles, and
+    """The JAX flag of a field the port lacks is refused with the reason:
     the port's step has no buffer donation to turn off."""
     with pytest.raises(SystemExit) as e:
         tconfig.config_from_args(argv)
@@ -127,6 +130,29 @@ def test_refused_flags_name_their_roadmap_item(argv, why, capsys):
     err = capsys.readouterr().err
     assert why in err and argv[0] in err
     jconfig.config_from_args(argv)  # the JAX runner takes them
+
+
+@pytest.mark.parametrize("argv,backend", [
+    (["--backend", "torch"], "torch"),
+    (["--backend", "tf2"], "tf2"),
+    (["--backend", "jax"], "jax"),
+])
+def test_backend_flag_parses_as_jax_does(argv, backend):
+    """``--backend``, once refused, parses as the JAX runner parses it:
+    "jax" the port's own path, "torch" and "tf2" the eager oracles. The
+    run's identity does not change with it (an execution knob)."""
+    got = tconfig.config_from_args(argv)
+    want = jconfig.config_from_args(argv)
+    assert got.backend == want.backend == backend
+    assert _port_view(got) == {k: getattr(want, k) for k in _port_view(got)}
+    assert got.run_name() == want.run_name() == ExperimentConfig().run_name()
+
+
+def test_unknown_backend_flag_is_an_argparse_error(capsys):
+    with pytest.raises(SystemExit) as e:
+        tconfig.config_from_args(["--backend", "numpy"])
+    assert e.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,field,value", [
