@@ -240,8 +240,18 @@ phases, one line per phase, and exits non-zero on the first failure:
    flagship for 2 stages (NLL finite and falling, ms per eager step, no
    kernel launched in the process), and ``--backend tf2``, refused with the
    guidance message where TensorFlow is not installed;
-18. prints the kernels' JSON record (launches of the serving and training
-   runs, of phase 14's int8 burst, and per path of phases 8-17 under
+18. one run of the replication at full width (lines ``replication:``):
+   ``digits-2L-IWAE-k50-s0-ps0.2-bfloat16`` of
+   ``scripts/torch_run_replication.py``'s bf16 seed study, through that
+   script's own ``run_row`` (the flagship's architecture on the bf16
+   tensor-core path of B1/B2, all 8 stages of the scaled Burda schedule,
+   657 passes), its final NLL within max(2, 3 s sqrt(1 + 1/5)) of the mean
+   of JAX's five committed seeds (``results/summary_seeds_scaled_bf16.json``;
+   s their sd), the NLL falling at every stage, B1's and B2's launches
+   equal to the steps and the eight evaluations' count; the phase's
+   seconds and the host ms per step;
+19. prints the kernels' JSON record (launches of the serving and training
+   runs, of phase 14's int8 burst, and per path of phases 8-18 under
    ``launches_by_path``, ``eager_oracle`` 0 for every kernel) and, last,
    the contract line ``{"ok": true, "device": {...}}``.
 
@@ -4746,6 +4756,66 @@ def eager_oracle(torch, np, zoo, hot_loop, tmp):
     return launches, ok
 
 
+# --------------------------------------------------------------------------
+# phase 18: one replication run at full width
+# --------------------------------------------------------------------------
+
+#: the run phase 18 makes, a row of the bf16 seed study
+REPLICATION_ROW = "digits-2L-IWAE-k50-s0-ps0.2-bfloat16"
+
+
+def replication_8stage(torch, np, hot_loop):
+    """Phase 18: ``REPLICATION_ROW`` through
+    ``scripts/torch_run_replication.run_row`` (which sets the launch counts
+    to 0 before the run and reads them after), held against JAX's five
+    committed bf16 seeds of the same configuration. Returns ({kernel:
+    launches}, ok)."""
+    from iwae_replication_project_tpu_torch.data import load_dataset
+    from iwae_replication_project_tpu_torch.training.schedule import (
+        burda_stages)
+
+    t0 = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here / "scripts"))
+    import torch_run_replication as rep
+
+    cfg = dict(rep.seed_study((0,), 8, 0.2, "bfloat16"))[REPLICATION_ROW]
+    jax_nll = [r["NLL"] for r in json.loads(
+        (here / "results" / rep.OUTPUTS["bf16"][1]).read_text())
+        if rep.study_key(r["name"]) == rep.study_key(REPLICATION_ROW)]
+    mean, sd = rep.mean_sd(jax_nll)
+    bound = max(rep.BOUND_FLOOR, 3 * sd * math.sqrt(1 + 1 / len(jax_nll)))
+    ds = load_dataset("digits", allow_synthetic=False)
+    steps = sum(p for _, _, p in burda_stages(cfg.n_stages,
+                                              cfg.passes_scale)) \
+        * (len(ds.x_train) // cfg.batch_size)
+    per_eval = eval_b1_launches(cfg, len(ds.x_test), diagnostics=True)
+    want = {hot_loop.KERNEL: steps + cfg.n_stages * per_eval,
+            hot_loop.KERNEL_BWD: steps}
+    row = rep.run_row(REPLICATION_ROW, cfg)
+    nll = row["NLL_by_stage"]
+    gap = row["NLL"] - mean
+    falls = all(b < a for a, b in zip(nll, nll[1:]))
+    finite = bool(np.isfinite(nll).all())
+    launch_ok = row["launches"] == want
+    ok = finite and falls and abs(gap) <= bound and launch_ok \
+        and row["steps"] == steps
+    print(f"replication: {REPLICATION_ROW} ({row['run_name']}) NLL by stage "
+          f"{[round(v, 3) for v in nll]}; final {row['NLL']:.4f} against "
+          f"JAX's mean {mean:.4f} (sd {sd:.4f}, {len(jax_nll)} seeds): gap "
+          f"{gap:+.4f}, bound {bound:.4f}; falls at every stage {falls}; "
+          f"IWAE bound {row['IWAE_bound']:.4f}, active units "
+          f"{row['active_units']}", flush=True)
+    print(f"replication: {row['steps']} steps in {row['train_seconds']:.2f} "
+          f"s of training, {row['ms_per_step']:.4f} host ms per step; run "
+          f"{row['wall_seconds']:.2f} s; launches {row['launches']} "
+          f"(expected {want}: {steps} steps, {cfg.n_stages} evaluations of "
+          f"{per_eval})", flush=True)
+    print(f"replication: phase 18 {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return row["launches"], ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4901,6 +4971,9 @@ def main() -> int:
         oracle_launches, ok = eager_oracle(torch, np, zoo, hot_loop, tmp)
         if not ok:
             return fail("the eager oracle phase failed")
+    repl_launches, ok = replication_8stage(torch, np, hot_loop)
+    if not ok:
+        return fail("the 8-stage replication run missed its bound")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -4923,6 +4996,7 @@ def main() -> int:
         paths = rec.setdefault("launches_by_path", {})
         paths["race_tier"] = race_launches.get(rec["name"], 0)
         paths["eager_oracle"] = oracle_launches.get(rec["name"], 0)
+        paths["replication_8stage"] = repl_launches.get(rec["name"], 0)
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records

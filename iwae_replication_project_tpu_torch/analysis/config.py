@@ -8,10 +8,11 @@ belongs to its linter; this module never reads it. A
 ``[tool.iwaelint_torch]`` table, where one exists, overrides the defaults
 key by key.
 
-The fields are those the rules ported so far read (the concurrency rules
-and the leak pass). The JAX linter's fields of its JAX-specific rules
-(hot paths, entry points, cache owners, import shims) come with the torch
-counterparts of those rules.
+The fields are those the rules read: the concurrency rules and the leak
+pass (``concurrency_paths``, ``leak_paths``), and the torch counterparts
+of the JAX linter's idiom rules (``hot_paths`` for ``host-sync``,
+``entry_points`` and ``cache_owners`` for ``cache-setup``,
+``import_shims`` and ``fragile_imports`` for ``fragile-import``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,46 @@ _PKG = "iwae_replication_project_tpu_torch"
 
 def _default_paths() -> List[str]:
     return [_PKG]
+
+
+def _default_hot_paths() -> List[str]:
+    # the per-step and per-dispatch modules, where a host sync stalls the
+    # captured graphs' queue (host-sync): the train step and epoch, the
+    # ops and their kernel wrappers, the mesh, and the serving programs
+    # the engines replay
+    return [f"{_PKG}/training", f"{_PKG}/ops", f"{_PKG}/parallel",
+            f"{_PKG}/serving/programs.py"]
+
+
+def _default_entry_points() -> List[str]:
+    # the entry points that load kernels, each setting the kernel build
+    # directory through ops/_kernels.use_build_dir (cache-setup): the
+    # staged driver (its CLI, the zoo and the facade run through
+    # run_experiment), the serving CLI and the autotuner's CLI
+    return [f"{_PKG}/experiment.py", f"{_PKG}/serving/cli.py",
+            f"{_PKG}/ops/autotune.py"]
+
+
+def _default_cache_owners() -> List[str]:
+    # the one module that owns the build directory's state
+    return [f"{_PKG}/ops/_kernels.py"]
+
+
+def _default_import_shims() -> List[str]:
+    # the modules allowed to import private or version-moving torch modules
+    # (fragile-import): the kernel loader and launcher, the executable
+    # store that reads the caching allocator's snapshot, and the profiling
+    # helpers' dispatch-mode tracer (torch.utils._python_dispatch)
+    return [f"{_PKG}/ops/_kernels.py", f"{_PKG}/utils/compile_cache.py",
+            f"{_PKG}/utils/profiling.py"]
+
+
+def _default_fragile_imports() -> List[str]:
+    # torch modules that moved or are marked for removal across 2.x (any
+    # private torch module is fragile as well, listed or not)
+    return ["torch.distributed._tensor", "torch.cuda.amp",
+            "torch.testing._internal", "torch.utils._pytree",
+            "torch.ao.quantization.quantize_fx", "functorch"]
 
 
 def _default_concurrency_paths() -> List[str]:
@@ -82,6 +123,20 @@ class LintConfig:
     select: List[str] = dataclasses.field(default_factory=list)
     #: never run these rules
     disable: List[str] = dataclasses.field(default_factory=list)
+    #: per-step / per-dispatch modules where host syncs are flagged
+    hot_paths: List[str] = dataclasses.field(default_factory=_default_hot_paths)
+    #: files that must set the kernel build directory (cache-setup rule)
+    entry_points: List[str] = dataclasses.field(
+        default_factory=_default_entry_points)
+    #: files that own the kernel build directory's state
+    cache_owners: List[str] = dataclasses.field(
+        default_factory=_default_cache_owners)
+    #: files allowed to import private or fragile torch modules
+    import_shims: List[str] = dataclasses.field(
+        default_factory=_default_import_shims)
+    #: fragile module names (fragile-import rule)
+    fragile_imports: List[str] = dataclasses.field(
+        default_factory=_default_fragile_imports)
     #: files the lock-order / unlocked-shared-state rules analyze
     concurrency_paths: List[str] = dataclasses.field(
         default_factory=_default_concurrency_paths)

@@ -201,7 +201,7 @@ def digits_table() -> Tuple[np.ndarray, np.ndarray]:
     packaged ``digits.csv.gz``, parsed as scikit-learn's ``load_digits``
     parses it (its ``data`` and ``target``)."""
     with gzip.open(DIGITS_CSV, "rt") as f:
-        table = np.loadtxt(f, delimiter=",", dtype=np.float64)
+        table = np.loadtxt(f, delimiter=",", dtype=np.float64)  # iwaelint: disable=dtype-promotion -- load_digits' own parse of the table; the pixels become float32 rows before any tensor is made
     return table[:, :-1], table[:, -1].astype(np.int64)
 
 

@@ -42,9 +42,10 @@ class ModelConfig:
     the kernel's rule or a measured winner), which changes no output bit,
     and it needs ``hot_loop_path="kernel"``. ``row_invariant`` runs every dense layer and
     every sum over samples, latents or pixels through
-    ``ops/row_invariant`` (on CUDA: kernels whose per-row arithmetic does
-    not depend on the batch); the serving dispatcher sets it on CUDA,
-    inference only.
+    ``ops/row_invariant`` (kernels on CUDA, fixed-order plain versions on
+    the CPU, whose per-row arithmetic does not depend on the batch) and
+    the CPU's sigmoid and log1p row by row; the serving dispatcher sets it
+    on every device, inference only.
     """
 
     n_hidden_enc: Tuple[int, ...]
@@ -217,7 +218,16 @@ def decode_logits(params: Params, cfg: ModelConfig,
 def decode_probs(params: Params, cfg: ModelConfig,
                  h1: torch.Tensor) -> torch.Tensor:
     """Clamped pixel probabilities."""
-    return dist.clamp_probs(torch.sigmoid(decode_logits(params, cfg, h1)))
+    return _probs(decode_logits(params, cfg, h1), cfg)
+
+
+def _probs(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``clamp_probs(sigmoid(logits))``, row by row under
+    ``cfg.row_invariant`` (``ops/row_invariant.rowwise``)."""
+    if cfg.row_invariant:
+        return ri_ops.rowwise(lambda t: dist.clamp_probs(torch.sigmoid(t)),
+                              logits)
+    return dist.clamp_probs(torch.sigmoid(logits))
 
 
 def log_px_given_h(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -242,8 +252,14 @@ def log_px_given_h(params: Params, cfg: ModelConfig, x: torch.Tensor,
                                       row_invariant=cfg.row_invariant)
     logits = decode_logits(params, cfg, h1)
     if cfg.likelihood == "clamp":
-        probs = dist.clamp_probs(torch.sigmoid(logits))
-        lp = dist.bernoulli_log_prob(x, probs)
+        probs = _probs(logits, cfg)
+        if cfg.row_invariant:
+            lp = x * torch.log(probs) + (1.0 - x) * ri_ops.rowwise(
+                lambda p: torch.log1p(-p), probs)
+        else:
+            lp = dist.bernoulli_log_prob(x, probs)
+    elif cfg.row_invariant:
+        lp = x * logits - ri_ops.rowwise(dist.softplus, logits)
     else:
         lp = dist.bernoulli_log_prob_from_logits(x, logits)
     return _sum_last(lp, cfg)

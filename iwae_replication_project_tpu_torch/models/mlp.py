@@ -13,7 +13,7 @@ would round its output to bf16 a second time, so the operands are rounded and
 then multiplied in fp32 instead (a product of two bf16 values is exact in
 fp32, so only the summation order can differ from JAX).
 
-``row_invariant=True`` (the serving programs on CUDA, set by
+``row_invariant=True`` (the serving programs on every device, set by
 ``ops/hot_loop.serving_dispatch_config``) runs each layer through
 ``ops/row_invariant.dense``: the same function with every output summed
 over K in one fixed order, so a row's bits do not depend on its batch.

@@ -703,6 +703,8 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown kinds {unknown}; choose from {KINDS}")
     dev = resolve_device(args.device)
+    if dev.type == "cuda":  # the kernels' library directory (cache-setup)
+        _kernels.use_build_dir(None)
     cfg = ModelConfig.two_layer(likelihood="logits")
     cd = None if args.compute_dtype in (None, "float32") \
         else args.compute_dtype

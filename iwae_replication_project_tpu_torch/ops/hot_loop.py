@@ -300,12 +300,13 @@ def serving_dispatch_config(cfg, k: Optional[int] = None,
     """``(dispatch cfg, path)`` of a serving program at (k, bucket=`rows`)
     (JAX :469-496).
 
-    On CUDA every serving program takes the row-invariant ops
+    Every serving program takes the row-invariant ops
     (``row_invariant=True``: ``ops/row_invariant``'s dense layers and sums,
-    whose per-row arithmetic does not depend on the bucket), so a row's
-    result is bitwise the same in every bucket, as the JAX programs promise
-    (JAX serving/programs.py:1-11); on the CPU the flag stays as `cfg` has
-    it. ``gated=False`` is a program that never runs the decoder block
+    whose per-row arithmetic does not depend on the bucket: the kernels on
+    CUDA, their fixed-order plain versions on the CPU), so a row's result is
+    bitwise the same in every bucket on either device, as the JAX programs
+    promise (JAX serving/programs.py:1-11). ``gated=False`` is a program
+    that never runs the decoder block
     (encode, decode): it gets only that flag. For a gated program, models
     with ``likelihood="clamp"`` and an explicit ``"reference"`` force keep
     the unfused composition. Otherwise, in the JAX gate's order: the pin
@@ -319,7 +320,7 @@ def serving_dispatch_config(cfg, k: Optional[int] = None,
     import models/).
     """
     dev = torch.device(device)
-    if dev.type == "cuda" and not cfg.row_invariant:
+    if not cfg.row_invariant:
         cfg = dataclasses.replace(cfg, row_invariant=True)
     if not gated or getattr(cfg, "likelihood", None) != "logits" \
             or force == "reference":
@@ -356,7 +357,7 @@ def _reference_impl(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype=None,
     """Unfused composition: the parity oracle and the kernel's plain version.
 
     ``h1`` ``[k, B, H1]``, ``x`` ``[B, D]`` -> ``[k, B]``. With
-    ``row_invariant`` (the serving programs on CUDA) the dense layers and
+    ``row_invariant`` (the serving programs) the dense layers and
     the pixel sum go through ``ops/row_invariant``, so a row's bits do not
     depend on the rows beside it.
     """
@@ -364,8 +365,14 @@ def _reference_impl(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype=None,
     y1 = layer(h1, w1, b1, compute_dtype, tanh=True)
     y2 = layer(y1, w2, b2, compute_dtype, tanh=True)
     logits = layer(y2, w3, b3, compute_dtype)
-    ll = x[None] * logits - softplus(logits)
-    return ri_ops.sum_over(ll, -1, row_invariant)
+    return _pixel_ll(x, logits, row_invariant)
+
+
+def _pixel_ll(x, logits, row_invariant: bool) -> torch.Tensor:
+    """``sum_d x * l - softplus(l)``, row by row under `row_invariant`."""
+    sp = ri_ops.rowwise(softplus, logits) if row_invariant \
+        else softplus(logits)
+    return ri_ops.sum_over(x[None] * logits - sp, -1, row_invariant)
 
 
 def _blocked_scan_impl(h1, w1, b1, w2, b2, w3, b3, x, *, block_k: int,
@@ -377,8 +384,8 @@ def _blocked_scan_impl(h1, w1, b1, w2, b2, w3, b3, x, *, block_k: int,
     (``use_reentrant=False``): the forward keeps one ``[bk, B, D]`` slab
     of logits at a time and the backward recomputes it. Slabs cut k, never
     rows, and every slab runs the same per-row ops, so blocking changes
-    memory, not a row's arithmetic (on CUDA under ``row_invariant`` a row's
-    bits; elsewhere the matmul library may sum another way per shape).
+    memory, not a row's arithmetic (under ``row_invariant`` a row's bits;
+    without it the matmul library may sum another way per shape).
     """
     k = h1.shape[0]
     bk = largest_divisor_leq(k, max(int(block_k), 1))
@@ -600,7 +607,7 @@ def decoder_score(out_params, x, h1, *,
     The path is :func:`select_path`'s; `force_path` pins one (the config's
     ``hot_loop_path``), `force_tile` B1's row groups (the config's
     ``hot_loop_tile``; else a ``fwd`` winner's, else the kernel's rule).
-    `row_invariant` (the serving programs on CUDA) runs the blocked scan's
+    `row_invariant` (the serving programs) runs the blocked scan's
     and the reference's ops through ``ops/row_invariant``.
     """
     w1, b1 = out_params["l1"]["w"], out_params["l1"]["b"]
@@ -670,8 +677,7 @@ def decoder_score_int8(out_q, x, h1, *,
     y1 = ri_ops.dense_int8(h1, l1["w_q"], l1["scale"], l1["b"], tanh=True)
     y2 = ri_ops.dense_int8(y1, l2["w_q"], l2["scale"], l2["b"], tanh=True)
     logits = ri_ops.dense_int8(y2, lo["w_q"], lo["scale"], lo["b"])
-    ll = x[None] * logits - softplus(logits)
-    return ri_ops.sum_over(ll, -1, row_invariant)
+    return _pixel_ll(x, logits, row_invariant)
 
 
 #: (autotune entry key, winner store, device) -> the admission verdict

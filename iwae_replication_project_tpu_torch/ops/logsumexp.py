@@ -6,7 +6,7 @@ rescaled sum) serve large-k evaluation, which folds the k=5000 NLL in
 k-chunks with O(chunk) memory. Every carry is never-NaN: an all ``-inf``
 column finalizes to ``-inf`` and :func:`lse_var_stats` gives it ess 0 and se
 ``+inf``. The element count ``n`` is a Python int: chunk sizes are known on
-the host. ``fixed_order=True`` (the serving programs on CUDA) takes every
+the host. ``fixed_order=True`` (the serving programs) takes every
 sum through ``ops/row_invariant.fixed_sum``, whose outputs do not depend on
 the batch; maxima are exact in any order.
 """

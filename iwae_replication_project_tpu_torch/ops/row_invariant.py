@@ -23,12 +23,22 @@ output's inputs:
 
 They are not ports of TPU kernels (the XLA programs need no such care). The
 choice to use them is the dispatcher's: ``ops/hot_loop.serving_dispatch_
-config`` sets ``ModelConfig.row_invariant`` for serving on CUDA, and
+config`` sets ``ModelConfig.row_invariant`` for every serving program, and
 ``models/`` and ``ops/logsumexp.py`` route on that flag. Training and
 evaluation keep cuBLAS and ``torch.sum``: their shapes are fixed per step or
 chunk. Each wrapper launches its kernel for CUDA tensors (or raises) and
 computes its plain version only for CPU tensors; neither kernel has a
 backward, so a CUDA call that autograd would record raises.
+
+The CPU has the same hazard: ``torch.matmul`` takes a matrix-vector path
+for one row and a blocked one for more, and ``torch.sum`` may split a long
+reduction across threads when it has few outputs. So the wrappers' plain
+versions on the CPU (:func:`matmul_in_slabs`, :func:`sum_in_slabs`) sum
+every output in one fixed order of exactly rounded elementwise adds, whose
+bits depend on nothing but that output's inputs. They are slower than the
+library and keep their temporaries to a few million elements. The
+programs' ``sigmoid`` and ``log1p`` run row by row there
+(:func:`rowwise`).
 """
 
 from __future__ import annotations
@@ -77,6 +87,93 @@ def dense_plain(x, w, b, compute_dtype=None, tanh: bool = False):
         x = x.to(compute_dtype).float()
         w = w.to(compute_dtype).float()
     y = torch.matmul(x, w) + b
+    return torch.tanh(y) if tanh else y
+
+
+#: the CPU plain versions' temporaries: at most this many fp32 elements
+_CPU_TEMP_ELEMS = 1 << 22
+
+
+def slab_plan(k: int) -> Tuple[int, int]:
+    """``(slabs, width)`` of the CPU plain versions' fixed order over `k`
+    terms: ``width = ceil(sqrt(k))`` consecutive terms a slab,
+    ``ceil(k / width)`` slabs, the last padded with zeros."""
+    width = max(1, math.isqrt(max(k, 1) - 1) + 1)
+    return -(-k // width), width
+
+
+def _slab_sum(terms, slabs: int, width: int, shape) -> torch.Tensor:
+    """The fixed two-level order: ``part[s] = (t[s, 0] + t[s, 1]) + ...``
+    for every slab at once (``terms(j)`` gives term j of each slab,
+    ``[..., slabs, N]``), then ``((0 + part[0]) + part[1]) + ...``. Every
+    step is one exactly rounded elementwise add, so an output's bits
+    depend on its own terms alone."""
+    part = None
+    for j in range(width):
+        t = terms(j)
+        part = t.clone() if part is None else part.add_(t)
+    acc = part.new_zeros(shape)
+    for s in range(slabs):
+        acc.add_(part.select(-2, s))
+    return acc
+
+
+def matmul_in_slabs(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (`x` ``[..., K]``, `w` ``[K, N]``) in a fixed order per
+    output: the exactly rounded products ``x[..., j] * w[j]`` summed over
+    the slabs of :func:`slab_plan` by :func:`_slab_sum`, as separate
+    elementwise ops (no fused multiply-add). A row's bits therefore do not
+    depend on the rows beside it or on their number; ~3 sqrt(K) ops, rows
+    in chunks that keep each temporary under ``_CPU_TEMP_ELEMS``."""
+    k, n = w.shape
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    out = x2.new_zeros(m, n)
+    if m == 0 or n == 0:
+        return out.view(lead + (n,))
+    slabs, width = slab_plan(k)
+    pad = slabs * width - k
+    if pad:
+        x2 = torch.nn.functional.pad(x2, (0, pad))
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    xs, ws = x2.view(m, slabs, width), w.reshape(slabs, width, n)
+    rows = max(1, _CPU_TEMP_ELEMS // (slabs * n))
+    for r0 in range(0, m, rows):
+        xr = xs[r0:r0 + rows]
+        out[r0:r0 + rows] = _slab_sum(
+            lambda j: xr[:, :, j, None] * ws[:, j], slabs, width,
+            (xr.shape[0], n))
+    return out.view(lead + (n,))
+
+
+def sum_in_slabs(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` in :func:`matmul_in_slabs`'s fixed order:
+    ``row_sum``'s plain version on the CPU."""
+    d = dim % x.dim()
+    r = x.shape[d]
+    xt = x.movedim(d, -1)
+    shape = tuple(xt.shape[:-1])
+    if r == 0:
+        return xt.new_zeros(shape)
+    slabs, width = slab_plan(r)
+    pad = slabs * width - r
+    if pad:
+        xt = torch.nn.functional.pad(xt, (0, pad))
+    xs = xt.reshape(shape + (slabs, width))
+    return _slab_sum(lambda j: xs[..., j, None], slabs, width,
+                     shape + (1,))[..., 0]
+
+
+def dense_in_slabs(x, w, b, compute_dtype=None, tanh: bool = False):
+    """``row_dense``'s plain version on the CPU: the operands rounded as
+    :func:`dense_plain` rounds them, :func:`matmul_in_slabs`, then the
+    bias and tanh. Within rounding of :func:`dense_plain`; a row's bits
+    the same in every bucket."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype).float()
+        w = w.to(compute_dtype).float()
+    y = matmul_in_slabs(x, w) + b
     return torch.tanh(y) if tanh else y
 
 
@@ -138,13 +235,13 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     On CUDA tensors this launches ``csrc/row_dense.cu`` on the current
     stream, on the tile :func:`dense_tile` plans, and counts one launch; it
     raises for anything the kernel does not take. On CPU tensors it
-    computes the plain version."""
+    computes the plain version in a fixed order, :func:`dense_in_slabs`."""
     if compute_dtype is not None and compute_dtype is not torch.bfloat16:
         raise ValueError(f"compute_dtype must be None or torch.bfloat16, got "
                          f"{compute_dtype!r}")
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return dense_plain(x, w, b, compute_dtype, tanh)
+            return dense_in_slabs(x, w, b, compute_dtype, tanh)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x, w, b)
     if x.dim() < 1 or w.dim() != 2:
@@ -171,11 +268,15 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
-def dense_int8_plain(x, w_q, scale, b, tanh: bool = False):
+def dense_int8_plain(x, w_q, scale, b, tanh: bool = False,
+                     in_slabs: bool = False):
     """The int8 layer's plain composition (the JAX ``_dense_wq``, :540-546):
-    ``(x @ w_q.float()) * scale + b``, then tanh. The CPU runs it; the card
-    compares the kernel with it."""
-    y = torch.matmul(x, w_q.float()) * scale + b
+    ``(x @ w_q.float()) * scale + b``, then tanh; ``in_slabs`` takes the
+    product by :func:`matmul_in_slabs` (the CPU's wrapper). The card
+    compares the kernel with the library's product."""
+    w = w_q.float()
+    y = (matmul_in_slabs(x, w) if in_slabs else torch.matmul(x, w)) \
+        * scale + b
     return torch.tanh(y) if tanh else y
 
 
@@ -190,10 +291,11 @@ def dense_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     converted in registers, each output one fp32 FMA chain over K in index
     order, then ``acc * scale[n] + b[n]`` rounded as two operations. It
     raises for anything the kernel does not take (never the plain
-    version). On CPU tensors it computes :func:`dense_int8_plain`."""
+    version). On CPU tensors it computes :func:`dense_int8_plain` in a
+    fixed order."""
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return dense_int8_plain(x, w_q, scale, b, tanh)
+            return dense_int8_plain(x, w_q, scale, b, tanh, in_slabs=True)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x, scale, b)
     if x.dim() < 1 or w_q.dim() != 2:
@@ -236,6 +338,21 @@ def sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
+def rowwise(fn, t: torch.Tensor) -> torch.Tensor:
+    """``fn(t)`` for an elementwise `fn`, with each row's bits independent
+    of the rows beside it (rows along axis -2, as ``[k, B, D]`` and
+    ``[B, D]`` hold them). On CUDA tensors it is ``fn(t)``: each element
+    is one thread's arithmetic. On CPU tensors it applies `fn` to each row
+    ``t[..., i, :]`` alone, made contiguous: the CPU's vectorized loops
+    compute the elements past the last whole vector of a call by scalar
+    code whose ``sigmoid`` and ``log1p`` round differently, and where that
+    tail falls moves with the number of rows."""
+    if t.device.type != "cpu" or t.dim() < 2:
+        return fn(t)
+    return torch.stack([fn(t.select(-2, i).contiguous())
+                        for i in range(t.shape[-2])], dim=-2)
+
+
 def sum_over(x: torch.Tensor, dim: int, fixed_order: bool) -> torch.Tensor:
     """The sum over `dim`: :func:`fixed_sum` when ``fixed_order`` (the
     serving programs on CUDA), else ``torch.sum``."""
@@ -246,10 +363,10 @@ def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``torch.sum(x, dim)`` with every output summed in index order by one
     thread: on CUDA tensors this launches ``csrc/row_sum.cu`` on the current
     stream and counts one launch (it raises for anything the kernel does not
-    take); on CPU tensors it is ``torch.sum``."""
+    take); on CPU tensors it is :func:`sum_in_slabs`."""
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return torch.sum(x, dim=dim)
+            return sum_in_slabs(x, dim)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x)
     if x.dim() == 0:

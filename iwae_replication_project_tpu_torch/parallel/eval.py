@@ -195,7 +195,7 @@ def local_row_adaptive_log_px(params, cfg: model.ModelConfig, mesh: Mesh,
                              k_used)
         converged = converged | ok
 
-    used = k_used.tolist()
+    used = k_used.tolist()  # iwaelint: disable=host-sync -- the adaptive round's one fetch: each row's block count sizes the second pass's draws on the host
     bpd_row = [_ceil_div(_ceil_div(u, k_chunk), sp) for u in used]
     st2 = online_lse_var_init((n_rows,), device=dev)
     for i in range(max(bpd_row[:real], default=0)):
@@ -475,8 +475,8 @@ def parallel_training_statistics(params, cfg: model.ModelConfig, mesh: Mesh,
         pruned = parallel_pruned_nll(params, cfg, mesh, batches[0], masks,
                                      k=nll_k, chunk=chunk, generator=gen,
                                      noise=noise.get("pruned"))
-    fetched = torch.cat([scalars, n_active.float(), n_active_pca.float(),
-                         pruned.reshape(1)]).cpu().tolist()  # the one fetch
+    fetched = torch.cat([scalars, n_active.float(), n_active_pca.float(),  # iwaelint: disable=host-sync -- the suite's one fetch, after all of its device work
+                         pruned.reshape(1)]).cpu().tolist()
     L = len(masks)
     res = dict(zip(ev.SCALAR_NAMES, fetched))
     res["nll_chunk"] = float(chunk)

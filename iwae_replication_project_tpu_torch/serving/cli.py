@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from iwae_replication_project_tpu_torch import zoo
+from iwae_replication_project_tpu_torch.ops import _kernels
 from iwae_replication_project_tpu_torch.serving.batcher import (
     EngineOverloaded,
 )
@@ -780,6 +781,9 @@ def main(argv=None) -> int:
     if args.client:
         return client_mode(args)
     _check_mesh(ap, args)
+    # the kernels' library directory: $IWAE_COMPILE_CACHE, else the
+    # package's _build/ (cache-setup); stdout stays the JSON lines
+    _kernels.use_build_dir(None, say=lambda m: print(m, file=sys.stderr))
     if args.store_budget_mb is not None:
         if args.store_budget_mb < 0:
             ap.error(f"--store-budget-mb {args.store_budget_mb} must be >= "

@@ -63,10 +63,11 @@ dispatch replays; on the CPU it is the eager program. The ``aot_hits`` and
 ``aot_misses`` counters count the resolutions, ``recompiles`` the kernel
 builds a dispatch caused; :meth:`warmup` fills the store for the ladder.
 
-**Row invariance on the card.** ``serving_dispatch_config`` gives every
-program on CUDA the row-invariant ops (``ops/row_invariant``), so a row's
-result is bitwise the same in every bucket, beside any neighbours and
-padding, as in the JAX package.
+**Row invariance.** ``serving_dispatch_config`` gives every program the
+row-invariant ops (``ops/row_invariant``: the kernels on the card, their
+fixed-order plain versions on the CPU), so a row's result is bitwise the
+same in every bucket, beside any neighbours and padding, as in the JAX
+package.
 
 **Profiling.** ``profiling=`` (a
 :class:`~..telemetry.profiling.ProfilingConfig`; True or None = on, the
@@ -572,8 +573,7 @@ class ServingEngine:
         """The serving gate's choice: gated ops run the CUDA kernel on the
         card for logits models (or a measured ``serving_row`` winner's
         path; the plain composition otherwise); the others never touch the
-        decoder block. Every program on the card takes the row-invariant
-        ops. Under the int8 policy a gated op first asks
+        decoder block. Every program takes the row-invariant ops. Under the int8 policy a gated op first asks
         ``serving_int8_admit``: admitted, it runs the unfused program over
         ``_params_q`` (path ``int8``); rejected, the exact fp32 program
         below, and :attr:`int8_admission` keeps the reason."""

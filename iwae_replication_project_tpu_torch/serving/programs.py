@@ -108,7 +108,7 @@ def score_rows(params, cfg: model.ModelConfig, base_seed: int,
         noise = draw_noise(cfg, "score", base_seed, seeds, k)
     log_w = model.log_weights(params, cfg, x, k,
                               eps=_noise_on(noise, x.device))   # [k, B]
-    # iwae_per_example's logmeanexp over k, its sum in a fixed order on CUDA
+    # iwae_per_example's logmeanexp over k, its sum in a fixed order
     return logmeanexp(log_w, dim=0, fixed_order=cfg.row_invariant)
 
 

@@ -174,7 +174,7 @@ class ShardedScoreEngine(ServingEngine):
                 not self._followers_stopped:
             self._followers_stopped = True
             with self._launch_context():
-                self.mesh.broadcast(torch.zeros(_HEADER, dtype=torch.float64,
+                self.mesh.broadcast(torch.zeros(_HEADER, dtype=torch.float64,  # iwaelint: disable=dtype-promotion -- the stop header: the dispatch header's type, never model numerics
                                                 device=self.device))
 
     # -- the dispatch hooks ----------------------------------------------
@@ -239,7 +239,7 @@ class ShardedScoreEngine(ServingEngine):
             mesh = self.mesh
             mesh.broadcast(torch.tensor(
                 [OP_CODES[op], bucket, k, tse, floor, n_real],
-                dtype=torch.float64, device=self.device))
+                dtype=torch.float64, device=self.device))  # iwaelint: disable=dtype-promotion -- the broadcast dispatch header carries k, the bucket and the target se exactly (integers to 2^53); it never enters the model's numerics
             mesh.broadcast(torch.tensor(seeds, dtype=torch.int64,
                                         device=self.device))
             mesh.broadcast(x)
@@ -280,7 +280,7 @@ class ShardedScoreEngine(ServingEngine):
         """A follower's side of one dispatch; False on rank 0's stop."""
         dev = self.device
         with self._launch_context():
-            header = torch.zeros(_HEADER, dtype=torch.float64, device=dev)
+            header = torch.zeros(_HEADER, dtype=torch.float64, device=dev)  # iwaelint: disable=dtype-promotion -- the follower's receive buffer of the float64 dispatch header
             self.mesh.broadcast(header)
             code, bucket, k, tse, floor, n_real = header.tolist()
             if code == 0:

@@ -34,6 +34,11 @@ PORT_PKG = "iwae_replication_project_tpu_torch"
 CONCURRENCY_RULES = ["blocking-call-under-lock", "lock-order",
                      "swallowed-exception", "unlocked-shared-state"]
 LEAK_RULES = ["leaked-future", "leaked-pin", "leaked-span"]
+#: the torch counterparts of the JAX linter's idiom rules
+#: (tests/test_torch_lint_rules.py)
+IDIOM_RULES = ["cache-setup", "donated-after-call", "dtype-promotion",
+               "fragile-import", "host-sync", "jit-in-loop", "key-reuse",
+               "nonhashable-static"]
 
 
 def lint_src(tmp_path, src, rel="conc/mod.py", **config_over):
@@ -55,15 +60,19 @@ def rules_of(findings):
 
 class TestFramework:
     def test_the_ported_rules_are_registered(self):
-        assert sorted(all_rules()) == sorted(CONCURRENCY_RULES + LEAK_RULES)
-        # the same rules, summary for summary, as JAX's registry holds
+        assert sorted(all_rules()) == sorted(CONCURRENCY_RULES + LEAK_RULES
+                                             + IDIOM_RULES)
+        # JAX's registry, rule for rule; the concurrency rules and the
+        # leak pass summary for summary (the idiom rules say what they
+        # mean in PyTorch instead)
         jrules = jcore.all_rules()
-        for name, rule in all_rules().items():
-            assert rule.summary == jrules[name].summary, name
+        assert sorted(jrules) == sorted(all_rules())
+        for name in CONCURRENCY_RULES + LEAK_RULES:
+            assert all_rules()[name].summary == jrules[name].summary, name
 
     def test_unknown_rule_in_config_raises(self, tmp_path):
         with pytest.raises(ValueError, match="unknown rule"):
-            lint_src(tmp_path, "x = 1\n", select=["key-reuse"])
+            lint_src(tmp_path, "x = 1\n", select=["no-such-rule"])
 
     def test_syntax_error_is_a_finding(self, tmp_path):
         assert rules_of(lint_src(tmp_path, "def f(:\n")) == ["parse-error"]
@@ -114,7 +123,7 @@ class TestFramework:
 
     def test_unknown_table_key_raises(self, tmp_path):
         (tmp_path / "pyproject.toml").write_text(
-            "[tool.iwaelint_torch]\nhot_paths = ['x']\n")
+            "[tool.iwaelint_torch]\nno_such_key = ['x']\n")
         with pytest.raises(ValueError, match="unknown .tool.iwaelint_torch."):
             load_config(str(tmp_path))
 
@@ -241,15 +250,15 @@ class TestUselessSuppression:
         assert lint_src(tmp_path, src, select=["lock-order"]) == []
 
     def test_unknown_rule_token_fires_even_under_select(self, tmp_path):
-        # a JAX-only rule is unknown to the port's registry: the port's
-        # files may not carry a suppression no port rule can make live
+        # a rule no registry holds: the port's files may not carry a
+        # suppression no port rule can make live
         src = """
             def fine(x):
-                return x + 1  # iwaelint: disable=host-sync -- a JAX rule
+                return x + 1  # iwaelint: disable=no-such-rule -- a typo
         """
         got = lint_src(tmp_path, src, select=["lock-order"])
         assert rules_of(got) == [USELESS_SUPPRESSION]
-        assert "unknown rule 'host-sync'" in got[0].message
+        assert "unknown rule 'no-such-rule'" in got[0].message
 
     def test_useless_suppression_is_not_suppressible(self, tmp_path):
         src = """

@@ -309,8 +309,10 @@ def test_serving_winner_decides_gate(tmp_path, monkeypatch):
                       n_hidden_dec=(16,), n_latent_dec=(20,), x_dim=20,
                       likelihood="logits")
     cpu = torch.device("cpu")
+    # every serving program takes the row-invariant ops, on the CPU too
+    served = dataclasses.replace(cfg, row_invariant=True)
     assert hl.serving_dispatch_config(cfg, 4, 8, device=cpu) == (
-        cfg, "reference")
+        served, "reference")
     _plant(tmp_path, monkeypatch, "serving_row", (4, 8, 10, 16, 20),
            {"path": "blocked_scan", "block_k": 2})
     out, path = hl.serving_dispatch_config(cfg, 4, 8, device=cpu)
@@ -384,7 +386,7 @@ def test_kernel_winner_never_routes_a_cpu_tensor_to_a_kernel(tmp_path,
     _plant(tmp_path, monkeypatch, "serving_row", SHAPE,
            {"path": "kernel", "groups": 2})
     assert hl.serving_dispatch_config(cfg, k, b, device=cpu) == (
-        cfg, "reference")
+        dataclasses.replace(cfg, row_invariant=True), "reference")
 
 
 # ---------------------------------------------------------------------------

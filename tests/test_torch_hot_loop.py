@@ -125,8 +125,8 @@ def test_serving_gate_outcomes(likelihood, device, force, path,
                                monkeypatch):
     """The JAX gate's rule (hot_loop.py:483-484): clamp models and a
     reference force keep the unfused config; logits models on CUDA bake the
-    kernel pin into the dispatch config. Every CUDA dispatch config takes
-    the row-invariant ops; the CPU's is `cfg` itself. The gate reads the
+    kernel pin into the dispatch config. Every dispatch config takes the
+    row-invariant ops, on the CPU as on CUDA. The gate reads the
     kernel libraries' numbers at the model's widths, stubbed here as "both
     kernels take them" (no library is built on the CPU)."""
     monkeypatch.setattr(thl, "library_limits",
@@ -135,10 +135,8 @@ def test_serving_gate_outcomes(likelihood, device, force, path,
     out, got = thl.serving_dispatch_config(cfg, device=torch.device(device),
                                            force=force)
     assert got == path
-    assert out.row_invariant == (device == "cuda")
+    assert out.row_invariant
     if path == "kernel":
         assert out.fused_likelihood and out.hot_loop_path == "kernel"
-    elif device == "cuda":
-        assert out == dataclasses.replace(cfg, row_invariant=True)
     else:
-        assert out is cfg
+        assert out == dataclasses.replace(cfg, row_invariant=True)

@@ -208,7 +208,9 @@ def test_quantize_out_block_is_bitwise_jax():
 def test_dense_int8_plain_matches_jax_dense_wq(tanh):
     """The plain int8 layer against JAX's ``_dense_wq`` (then tanh): the
     same fp32 products summed in another order; outputs of order 1:
-    1e-5 absolute."""
+    1e-5 absolute. On the CPU the wrapper is the plain composition with
+    its product in the fixed slab order (``in_slabs=True``), bit for
+    bit."""
     blk = _out_block()
     jq = jhl.quantize_out_block(jax.tree_util.tree_map(jnp.asarray, blk))
     tq = hl.quantize_out_block(_torch_block(blk))
@@ -220,14 +222,15 @@ def test_dense_int8_plain_matches_jax_dense_wq(tanh):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-6)
     assert torch.equal(got, ri.dense_int8_plain(
         torch.from_numpy(x), tq["l1"]["w_q"], tq["l1"]["scale"],
-        tq["l1"]["b"], tanh))
+        tq["l1"]["b"], tanh, in_slabs=True))
 
 
 @pytest.mark.parametrize("row_invariant", [False, True])
 def test_decoder_score_int8_matches_jax(row_invariant):
     """``decoder_score_int8`` against JAX's on the same quantized block:
     rows of ~30 nats, fp32 in another summation order: 1e-5 relative. On
-    the CPU the row-invariant sum is ``torch.sum``, the same function."""
+    the CPU the row-invariant sum is the fixed slab order's
+    (``row_invariant.sum_in_slabs``), ``torch.sum``'s within rounding."""
     blk = _out_block()
     jq = jhl.quantize_out_block(jax.tree_util.tree_map(jnp.asarray, blk))
     tq = hl.quantize_out_block(_torch_block(blk))

@@ -175,33 +175,58 @@ def no_launch(monkeypatch):
     monkeypatch.setattr(_kernels, "entry", refuse)
 
 
+def _slab_order(terms, k):
+    """The CPU plain versions' order, written out: slabs of ceil(sqrt k)
+    consecutive terms, each slab's terms added in order, then the slabs'
+    sums added in order from 0."""
+    width = math.ceil(math.sqrt(k))
+    acc = None
+    for s0 in range(0, k, width):
+        part = terms(s0)
+        for j in range(s0 + 1, min(s0 + width, k)):
+            part = part + terms(j)
+        acc = (0.0 + part) if acc is None else acc + part
+    return acc
+
+
 @pytest.mark.parametrize("cd", [None, torch.bfloat16])
 @pytest.mark.parametrize("tanh", [False, True])
 @pytest.mark.parametrize("m,k,n", [(64, 784, 200), (3200, 100, 50), (7, 37, 130),
                                    (1, 1, 1)])
 def test_cpu_dense_is_the_plain_version(no_launch, m, k, n, tanh, cd):
-    """On the CPU the wrapper computes the plain composition, bit for bit:
-    bf16-rounded operands (when asked), ``torch.matmul`` in fp32, the bias,
-    then tanh."""
+    """On the CPU the wrapper computes the plain composition in a fixed
+    order, bit for bit: bf16-rounded operands (when asked), each output's
+    exact fp32 products summed in slabs (``row_invariant.slab_plan``), the
+    bias, then tanh; within rounding of ``torch.matmul``'s
+    (``dense_plain``)."""
     rng = np.random.RandomState(m + k + n)
     x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
     w = torch.from_numpy((rng.randn(k, n) * k ** -0.5).astype(np.float32))
     b = torch.from_numpy((rng.randn(n) * 0.1).astype(np.float32))
     xr, wr = (x.to(cd).float(), w.to(cd).float()) if cd else (x, w)
-    want = torch.matmul(xr, wr) + b
+    want = _slab_order(lambda j: xr[:, j, None] * wr[j], k) + b
     if tanh:
         want = torch.tanh(want)
     assert torch.equal(ri.dense(x, w, b, cd, tanh), want)
     assert torch.equal(ri.dense(x[None], w, b, cd, tanh)[0], want)
+    np.testing.assert_allclose(want.numpy(),
+                               ri.dense_plain(x, w, b, cd, tanh).numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape,dim", [((50, 64, 100), -1), ((50, 64), 0),
                                        ((7, 33, 5), 1), ((1, 1, 784), -1)])
 def test_cpu_fixed_sum_is_torch_sum(no_launch, shape, dim):
+    """On the CPU ``fixed_sum`` is the sum in the plain versions' fixed
+    slab order, bit for bit, and ``torch.sum``'s value within rounding."""
     x = torch.from_numpy(np.random.RandomState(3).randn(*shape)
                          .astype(np.float32))
-    assert torch.equal(ri.fixed_sum(x, dim), torch.sum(x, dim=dim))
-    assert torch.equal(ri.sum_over(x, dim, True), torch.sum(x, dim=dim))
+    want = _slab_order(lambda j: x.select(dim, j), x.shape[dim])
+    assert torch.equal(ri.fixed_sum(x, dim), want)
+    assert torch.equal(ri.sum_over(x, dim, True), want)
+    assert torch.equal(ri.sum_over(x, dim, False), torch.sum(x, dim=dim))
+    np.testing.assert_allclose(want.numpy(), torch.sum(x, dim=dim).numpy(),
+                               atol=1e-4, rtol=1e-6)
 
 
 def test_cpu_wrappers_check_their_arguments():

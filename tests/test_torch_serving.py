@@ -167,14 +167,14 @@ def test_blocking_ops_shapes(tiny):
 @pytest.mark.parametrize("n", [1, 3, 7, 17])
 def test_padded_bucket_parity_score(tiny, n):
     """Engine score over a ragged batch (padded to its bucket) == the
-    program on exactly those rows, unpadded, with the same seeds. On the
-    CPU this holds bitwise: the row's arithmetic does not change with the
-    batch size."""
+    program the engine serves (its dispatch config) on exactly those rows,
+    unpadded, with the same seeds. On the CPU this holds bitwise: the
+    row's arithmetic does not change with the batch size."""
     eng = make_engine(tiny, max_batch=32)
     x = tiny["x"][:n]
     got = eng.score(x)
-    direct = tprog.score_rows(eng._params, eng.cfg, 0, list(range(n)),
-                              torch.from_numpy(x), K).numpy()
+    direct = tprog.score_rows(eng._params, eng._kernel_for("score")[0], 0,
+                              list(range(n)), torch.from_numpy(x), K).numpy()
     assert np.array_equal(got, direct)
 
 
@@ -187,7 +187,8 @@ def test_padded_bucket_parity_encode_decode(tiny, op):
     prog = tprog.PROGRAMS[op][0]
     args = (torch.from_numpy(payload), K) if op == "encode" \
         else (torch.from_numpy(payload),)
-    direct = prog(eng._params, eng.cfg, 0, list(range(7)), *args).numpy()
+    direct = prog(eng._params, eng._kernel_for(op)[0], 0, list(range(7)),
+                  *args).numpy()
     assert np.array_equal(got, direct)
 
 
@@ -344,8 +345,15 @@ def _forbidden(name: str) -> bool:
         root == "iwae_replication_project_tpu"
 
 
+#: the card scripts that import the port alone (the others' JAX halves
+#: import JAX inside their own functions)
+PORT_SCRIPTS = ("scripts/torch_run_replication.py",
+                "scripts/torch_estimator_convergence.py")
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / s for s in PORT_SCRIPTS]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -363,14 +371,17 @@ def test_no_jax_import_in_port_sources(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    """Import every port module and chip_smoke.py in a fresh interpreter:
-    neither jax nor the JAX package may end up in sys.modules."""
+    """Import every port module, chip_smoke.py and the port's replication
+    scripts in a fresh interpreter: neither jax nor the JAX package may end
+    up in sys.modules."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import iwae_replication_project_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        + "".join(f"runpy.run_path({s!r}, run_name='not_main')\n"
+                  for s in PORT_SCRIPTS) +
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'iwae_replication_project_tpu')]\n"
         "assert not bad, bad\n"
