@@ -250,8 +250,24 @@ phases, one line per phase, and exits non-zero on the first failure:
    s their sd), the NLL falling at every stage, B1's and B2's launches
    equal to the steps and the eight evaluations' count; the phase's
    seconds and the host ms per step;
-19. prints the kernels' JSON record (launches of the serving and training
-   runs, of phase 14's int8 burst, and per path of phases 8-18 under
+19. the program auditor and the cost analyzer against the card (lines
+   ``audit_cost:``), at the flagship's full width (logits, bf16 operands):
+   (a) ``python -m ...analysis.audit`` and ``... .audit.cost`` as
+   subprocesses on this machine, which has no JAX, both exit 0 with no
+   findings; (b) ``train_step`` (k=50, B=100), ``eval_scorer_k5000`` (chunks
+   of k=250 at B=500) and ``serve_score`` (bucket 64, k=50) recorded with
+   fake tensors: their static matmul FLOPs equal ``utils/flops.py``'s (the
+   train step's with its stated correction), and the static live-range
+   peak over the inputs, with B1's and B2's scratch from
+   ``ops/_kernels.plan``, lies within ``PEAK_TOL`` of the card's
+   ``max_memory_allocated`` over one eager run net of the inputs; (c) the
+   64-row score's store entry and one train step's CUDA graph, each
+   replayed under ``torch.profiler`` (a first replay, then the annotated
+   one read): no host copy and no synchronize inside the replay, and the
+   replay's kernels per name (B1, B2, the row kernels) equal to the
+   graph's counted launches;
+20. prints the kernels' JSON record (launches of the serving and training
+   runs, of phase 14's int8 burst, and per path of phases 8-19 under
    ``launches_by_path``, ``eager_oracle`` 0 for every kernel) and, last,
    the contract line ``{"ok": true, "device": {...}}``.
 
@@ -262,6 +278,7 @@ non-zero and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import json
 import math
@@ -4816,6 +4833,351 @@ def replication_8stage(torch, np, hot_loop):
     return row["launches"], ok
 
 
+# --------------------------------------------------------------------------
+# phase 19: the program auditor and the cost analyzer against the card
+# --------------------------------------------------------------------------
+
+#: a measured peak (max_memory_allocated over one eager run, net of the
+#: inputs) within this share of the analyzer's static figure
+PEAK_TOL = 0.25
+#: phase 19's full-width shapes: the train step, the eval chunk, the score
+AUDIT_TRAIN = (TRAIN_K, TRAIN_B)
+AUDIT_EVAL = (500, 5000, 250)            # rows, k, chunk
+AUDIT_SERVE = (64, 50)                   # bucket, k
+#: the row-invariant kernels one flagship score dispatch launches (the
+#: encoder's and the first decoder block's 12 dense layers, 5 log-density
+#: sums; phase 12's replays, and the kernel regions the auditor records)
+SCORE_ROW_LAUNCHES = {"row_dense": 12, "row_sum": 5}
+#: the CUDA symbols of each counted kernel's main launch (a bf16 B1 call
+#: also launches its weight prep, a B2 call its prep, weight-gradient
+#: phase and reduction: one counted launch each)
+KERNEL_SYMBOLS = {"hot_loop_fwd": ("hot_loop_fwd_tc", "hot_loop_fwd_fp32"),
+                  "hot_loop_bwd": ("hot_loop_bwd_rows", "hot_loop_bwd_fp32"),
+                  "row_dense": ("row_dense_kernel",),
+                  "row_dense_int8": ("row_dense_int8_kernel",),
+                  "row_sum": ("row_sum_rows", "row_sum_outer")}
+
+
+#: runs a module as ``python -m`` does, with ``import jax`` and any import
+#: of the JAX package made to fail first
+_NO_JAX = ("import runpy, sys; sys.modules['jax'] = None; "
+           "sys.modules['iwae_replication_project_tpu'] = None; "
+           "runpy.run_module(sys.argv.pop(1), run_name='__main__', "
+           "alter_sys=True)")
+
+
+#: phase 19a's two tools
+AUDIT_TOOLS = {"audit": "iwae_replication_project_tpu_torch.analysis.audit"}
+AUDIT_TOOLS["cost"] = AUDIT_TOOLS["audit"] + ".cost"
+
+
+def start_audit_tools(here) -> dict:
+    """Phase 19a, started: the auditor and the analyzer as subprocesses
+    (on the host's cores, beside 19b and 19c on the card), each with JAX
+    and the JAX package unimportable."""
+    return {name: subprocess.Popen(
+        [sys.executable, "-c", _NO_JAX, mod, "--format", "json"], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, mod in AUDIT_TOOLS.items()}
+
+
+def audit_tools(procs: dict, t0: float) -> bool:
+    """Phase 19a, finished: both tools exit 0 with no findings."""
+    import importlib.util
+
+    jax_here = importlib.util.find_spec("jax") is not None
+    mods = AUDIT_TOOLS
+    ok = True
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            print(f"FAIL: audit_cost: {name} timed out", flush=True)
+            ok = False
+            continue
+        try:
+            payload = json.loads(out)
+        except ValueError:
+            payload = {"total": None, "programs": {}}
+        clean = proc.returncode == 0 and payload["total"] == 0
+        ok = ok and clean
+        print(f"audit_cost: {mods[name]} rc={proc.returncode} findings="
+              f"{payload['total']} programs={len(payload['programs'])} "
+              f"({time.perf_counter() - t0:.1f}s)"
+              + ("" if clean else f"; stderr {err[-2000:]}"), flush=True)
+    print(f"audit_cost: both run with jax and the JAX package blocked "
+          f"(jax installed on this machine: {jax_here})", flush=True)
+    return ok
+
+
+def _measured_peak(torch, fn) -> int:
+    """Bytes ``fn()`` allocates at its peak over what was allocated before
+    (``max_memory_allocated``: the allocator's 512-byte blocks), after one
+    warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def static_against_card(torch, np, hot_loop, _kernels) -> bool:
+    """Phase 19b: static FLOPs and live-range peak of three full-width
+    programs, recorded with fake tensors, against one eager run each."""
+    from iwae_replication_project_tpu_torch.analysis.audit import (
+        programs as P)
+    from iwae_replication_project_tpu_torch.analysis.audit.cost import (
+        CostAnalyzer)
+    from iwae_replication_project_tpu_torch.evaluation.metrics import (
+        streaming_log_px)
+    from iwae_replication_project_tpu_torch.models import iwae as model
+    from iwae_replication_project_tpu_torch.objectives import ObjectiveSpec
+    from iwae_replication_project_tpu_torch.serving.programs import (
+        draw_noise, score_rows)
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+    from iwae_replication_project_tpu_torch.utils import flops as F
+
+    cfg = P.flagship()
+    h1, hid, d = hot_loop.block_widths(cfg)[0], cfg.n_hidden_dec[-1], \
+        cfg.x_dim
+    k, b = AUDIT_TRAIN
+    rows_e, k_e, chunk = AUDIT_EVAL
+    bucket, k_s = AUDIT_SERVE
+    scratch = {
+        hot_loop.KERNEL: int(_kernels.plan(hot_loop.KERNEL, (h1, hid, 1),
+                                           (h1, hid, d, 1))[1]),
+        hot_loop.KERNEL_BWD: int(_kernels.plan(
+            hot_loop.KERNEL_BWD, (h1, hid, 1), (k * b, h1, hid, d, 1))[1])}
+    out_macs = F.output_block_macs(h1, hid, d)
+    # the traced step recomputes the output block in B2 and takes no
+    # gradient of the batch: train_step_flops + 2 k B out_macs - 2 B x h0
+    correction = 2.0 * k * b * out_macs - 2.0 * b * cfg.x_dim \
+        * cfg.n_hidden_enc[0]
+    want_flops = {"train_step": F.train_step_flops(cfg, b, k) + correction,
+                  "eval_scorer_k5000": (k_e // chunk)
+                  * F.forward_flops(cfg, rows_e, chunk),
+                  "serve_score": F.forward_flops(cfg, bucket, k_s)}
+    analyzer = CostAnalyzer(scratch=scratch)
+    t0 = time.perf_counter()
+    progs = {"train_step": P.build_train_step(k=k, batch=b, mode="fake"),
+             "eval_scorer_k5000": P.build_eval_scorer(
+                 batch=rows_e, k=k_e, chunk=chunk, mode="fake"),
+             "serve_score": P.build_serving("score", bucket=bucket,
+                                            real=bucket, k=k_s,
+                                            mode="fake")}
+    records = {name: analyzer.analyze(p)[0] for name, p in progs.items()}
+    print(f"audit_cost: three full-width programs recorded with fake "
+          f"tensors and analyzed in {time.perf_counter() - t0:.1f}s; "
+          f"scratch from ops/_kernels.plan {scratch}", flush=True)
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(19)
+
+    def binary(rows):
+        return torch.from_numpy((rng.rand(rows, d) > 0.5)
+                                .astype(np.float32)).to(dev)
+
+    mcfg = dataclasses.replace(cfg, fused_likelihood=True)
+    state = ts.create_train_state(0, mcfg, device=dev)
+    step = ts.make_train_step(ObjectiveSpec(name="IWAE", k=k),
+                              mcfg).__wrapped__
+    x_train = binary(b)
+    host = model.init_params(torch.Generator().manual_seed(0), mcfg)
+    params = model.to_device(host, dev)
+    x_eval = binary(rows_e)
+    gen = torch.Generator(device=dev)
+    cfg_s, _ = hot_loop.serving_dispatch_config(mcfg, k_s, bucket,
+                                                device=dev)
+    seeds = list(range(bucket))
+    x_serve = binary(bucket)
+    noise = [t.to(dev) for t in draw_noise(cfg_s, "score", 0, seeds, k_s)]
+    runs = {
+        "train_step": lambda: step(state, x_train)[1]["loss"],
+        "eval_scorer_k5000": lambda: streaming_log_px(
+            params, mcfg, x_eval, k=k_e, chunk=chunk, generator=gen),
+        "serve_score": lambda: score_rows(params, cfg_s, 0, seeds, x_serve,
+                                          k_s, noise=noise)}
+    ok = True
+    for name, run in runs.items():
+        rec = records[name]
+        static = rec.peak_bytes - rec.resident_bytes
+        measured = _measured_peak(torch, run)
+        miss = abs(measured - static) / static
+        flops_ok = rec.matmul_flops == want_flops[name]
+        fine = flops_ok and miss <= PEAK_TOL
+        ok = ok and fine
+        print(f"audit_cost: {name}: static matmul FLOPs "
+              f"{rec.matmul_flops:.0f} (utils/flops.py "
+              f"{want_flops[name]:.0f}, equal {flops_ok}); static peak "
+              f"{static} bytes over the {rec.resident_bytes} resident "
+              f"(kernel scratch {rec.scratch_bytes}; every storage as the "
+              f"CPU plain versions hold them "
+              f"{rec.peak_bytes_plain - rec.input_bytes}); card "
+              f"max_memory_allocated {measured} bytes over its inputs: "
+              f"{measured / static:.3f}x the static figure, within "
+              f"{PEAK_TOL:.0%}: {miss <= PEAK_TOL}", flush=True)
+    return ok
+
+
+def _replay_profile(torch, fn, tmp) -> dict:
+    """Kernel launches per counted kernel, host copies and synchronizes of
+    one ``fn()`` (a replay) under ``torch.profiler``."""
+    from iwae_replication_project_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with profiling.trace(tmp) as tr:
+        # a first replay, not read: late in a process that profiled
+        # before, the tracer has lost the first kernel records of a
+        # session's first graph launch; the annotated replay is read
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("audit_cost/replay"):
+            fn()
+        torch.cuda.synchronize()
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    win = [e for e in events if e.get("name") == "audit_cost/replay"
+           and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    # the annotation spans the host's enqueue; the replay's kernels run
+    # after its start (the first replay finished before it) and may end
+    # after it ends
+    lo = min(e["ts"] for e in win) if win else -math.inf
+    hi = max(e["ts"] + e["dur"] for e in win) if win else math.inf
+    every = [e for e in events if e.get("cat") == "kernel"]
+    kernels = [e for e in every if e.get("ts", -math.inf) >= lo]
+    counts = {}
+    for name, syms in KERNEL_SYMBOLS.items():
+        n = sum(1 for e in kernels if any(s in e["name"] for s in syms))
+        if n:
+            counts[name] = n
+    copies = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
+              and e.get("ts", -math.inf) >= lo
+              and ("HtoD" in e["name"] or "DtoH" in e["name"])]
+    syncs = [e["name"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "ynchronize" in e.get("name", "")
+             and lo <= e.get("ts", lo) <= hi]
+    t0 = min((e["ts"] for e in events if "ts" in e), default=0.0)
+    span = [round(f(e["ts"] for e in kernels) - t0, 1)
+            for f in (min, max)] if kernels else None
+    return {"kernels": len(kernels), "counts": counts, "copies": copies,
+            "syncs": syncs, "kernel_us": span,
+            "replay_us": [round(lo - t0, 1), round(hi - t0, 1)],
+            "first_replay_kernels": len(every) - len(kernels)}
+
+
+def replay_launch_lists(torch, np, zoo, hot_loop, _kernels) -> bool:
+    """Phase 19c: the 64-row score's store entry and the train step's CUDA
+    graph as ``training/epoch.make_epoch_fn`` captures it (one pass of one
+    batch: its eager warm-up step and the capture), each replayed under
+    the profiler (a first replay, then the one read: ``_replay_profile``)."""
+    from iwae_replication_project_tpu_torch.analysis.audit import (
+        programs as P)
+    from iwae_replication_project_tpu_torch.objectives import ObjectiveSpec
+    from iwae_replication_project_tpu_torch.training import train_step as ts
+    from iwae_replication_project_tpu_torch.training.epoch import (
+        make_epoch_fn)
+    from iwae_replication_project_tpu_torch.utils import compile_cache as cc
+
+    bucket, k = AUDIT_SERVE
+    eng = zoo.serving_engine(PRESET, seed=0, timeout_s=None)
+    rng = np.random.RandomState(191)
+    payload = (rng.rand(bucket, 784) > 0.5).astype(np.float32)
+    program = eng._program_for("score", k, bucket)
+    with eng._launch_context():
+        args, kwargs = eng._dispatch_args("score", k, bucket, payload,
+                                          list(range(bucket)))
+        fn, tensors, _, _, graph = eng._entry("score", k, bucket, program,
+                                              args, kwargs)
+    exe = cc.GraphProgram(fn, tensors)
+    serve_launches = dict(exe.launches)
+
+    cfg = dataclasses.replace(P.flagship(), fused_likelihood=True)
+    k_t, b_t = AUDIT_TRAIN
+    dev = torch.device("cuda")
+    state = ts.create_train_state(0, cfg, device=dev)
+    epoch = make_epoch_fn(ObjectiveSpec(name="IWAE", k=k_t), cfg,
+                          n_train=b_t, batch_size=b_t)
+    x = torch.from_numpy((rng.rand(b_t, 784) > 0.5).astype(np.float32)) \
+        .to(dev)
+    state, _ = epoch(state, x)
+    (entry,) = state.graphs.values()
+    train_launches = dict(entry.steps[False].launches)
+
+    def train_replay():
+        # a pass's first step, as the epoch starts one: its step counter
+        # and loss position back at 0 on the device
+        entry.bufs.i.zero_()
+        entry.bufs.pos.zero_()
+        entry.replay(state, False)
+
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run, launches, must in (
+                ("serve_score b64", lambda: exe(*tensors), serve_launches,
+                 (hot_loop.KERNEL,)),
+                ("train_step", train_replay, train_launches,
+                 (hot_loop.KERNEL, hot_loop.KERNEL_BWD))):
+            prof = _replay_profile(torch, run, tmp)
+            if not prof["kernels"]:
+                print(f"FAIL: audit_cost: {name}: the profile of the replay "
+                      f"holds no kernel events", flush=True)
+                ok = False
+                continue
+            equal = prof["counts"] == launches
+            fine = equal and not prof["copies"] and not prof["syncs"] \
+                and all(m in prof["counts"] for m in must)
+            ok = ok and fine
+            print(f"audit_cost: {name} replay: {prof['kernels']} kernels, "
+                  f"counted kernels {prof['counts']} against the graph's "
+                  f"launches {launches} (equal {equal}); host copies "
+                  f"{prof['copies']}, synchronizes {prof['syncs']}"
+                  + ("" if equal else f"; kernels at {prof['kernel_us']} us, "
+                     f"the replay's annotation at {prof['replay_us']} us "
+                     f"into the trace, the first replay's "
+                     f"{prof['first_replay_kernels']} kernels before it"),
+                  flush=True)
+    exe.release()
+    return ok
+
+
+def audit_cost(torch, np, zoo, hot_loop, _kernels) -> tuple:
+    """Phase 19. Returns ({kernel: launches over the phase}, ok)."""
+    t0 = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    _kernels.reset_launch_counts(_kernels.COUNTERS)
+    procs = start_audit_tools(here)
+    ok = False
+    try:
+        ok = static_against_card(torch, np, hot_loop, _kernels)
+        ok = replay_launch_lists(torch, np, zoo, hot_loop, _kernels) and ok
+    finally:
+        ok = audit_tools(procs, t0) and ok
+    launches = _kernels.launch_counts(_kernels.COUNTERS)
+    # derived: 19b's warm-up and measured runs (train B1 2 / B2 2, eval
+    # 2 x 20, score 2), 19c's store entry (its warm-up run and two
+    # replays) and train graph (its warm-up step and two replays); each
+    # score dispatch (row_invariant) launches SCORE_ROW_LAUNCHES
+    rows_e, k_e, chunk = AUDIT_EVAL
+    scores = 2 + 3
+    want = dict.fromkeys(_kernels.COUNTERS, 0)
+    want.update({hot_loop.KERNEL: 2 + 2 * (k_e // chunk) + scores + 3,
+                 hot_loop.KERNEL_BWD: 2 + 3})
+    for name, n in SCORE_ROW_LAUNCHES.items():
+        want[name] = scores * n
+    ok = ok and launches == want
+    print(f"audit_cost: launches over the phase {launches} (expected "
+          f"{want}); phase 19 {time.perf_counter() - t0:.1f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return launches, ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4974,6 +5336,10 @@ def main() -> int:
     repl_launches, ok = replication_8stage(torch, np, hot_loop)
     if not ok:
         return fail("the 8-stage replication run missed its bound")
+    audit_launches, ok = audit_cost(torch, np, zoo, hot_loop, _kernels)
+    if not ok:
+        return fail("the program auditor or the cost analyzer missed the "
+                    "card")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -4997,6 +5363,7 @@ def main() -> int:
         paths["race_tier"] = race_launches.get(rec["name"], 0)
         paths["eager_oracle"] = oracle_launches.get(rec["name"], 0)
         paths["replication_8stage"] = repl_launches.get(rec["name"], 0)
+        paths["audit_cost"] = audit_launches[rec["name"]]
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records

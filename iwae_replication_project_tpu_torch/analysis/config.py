@@ -59,10 +59,12 @@ def _default_cache_owners() -> List[str]:
 def _default_import_shims() -> List[str]:
     # the modules allowed to import private or version-moving torch modules
     # (fragile-import): the kernel loader and launcher, the executable
-    # store that reads the caching allocator's snapshot, and the profiling
-    # helpers' dispatch-mode tracer (torch.utils._python_dispatch)
+    # store that reads the caching allocator's snapshot, the profiling
+    # helpers' dispatch-mode tracer (torch.utils._python_dispatch), and the
+    # program auditor's recorder (make_fx's proxy mode, a dispatch mode)
     return [f"{_PKG}/ops/_kernels.py", f"{_PKG}/utils/compile_cache.py",
-            f"{_PKG}/utils/profiling.py"]
+            f"{_PKG}/utils/profiling.py",
+            f"{_PKG}/analysis/audit/graphs.py"]
 
 
 def _default_fragile_imports() -> List[str]:

@@ -119,6 +119,26 @@ _launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 
 _tls = threading.local()
 
+#: set by the program auditor while it records a graph
+#: (``analysis/audit/graphs.trace``): ``hook(name, meta)`` is a context
+#: manager around each wrapper's plain version, which marks the ops
+#: recorded inside it as kernel `name`'s. None otherwise.
+_region_hook = None
+
+
+@contextlib.contextmanager
+def plain_region(name: str, **meta):
+    """Around a wrapper's plain version on CPU tensors: nothing, unless the
+    program auditor is recording, which then marks the recorded ops as
+    kernel `name`'s, with `meta` (``flops``: the matmul FLOPs the kernel
+    does where its plain version does them as elementwise ops)."""
+    hook = _region_hook
+    if hook is None:
+        yield
+        return
+    with hook(name, meta):
+        yield
+
 
 def count(name: str) -> None:
     """Count one launch of kernel `name`; each wrapper calls it where it

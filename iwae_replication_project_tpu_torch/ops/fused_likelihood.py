@@ -118,7 +118,8 @@ def fused_ll_forward(h1, w, bias, x) -> torch.Tensor:
     """
     if h1.device.type == "cpu":
         _check_fp32(h1=h1, w=w, bias=bias, x=x)
-        return _reference_impl(h1, w, bias, x)
+        with _kernels.plain_region(KERNEL_FWD):
+            return _reference_impl(h1, w, bias, x)
     k, b, h, d = _check_inputs(h1, w, bias, x)
     dev = h1.device
     if k * b == 0:
@@ -151,7 +152,8 @@ def fused_ll_backward(h1, w, bias, x, g) -> tuple:
     """
     if h1.device.type == "cpu":
         _check_fp32(h1=h1, w=w, bias=bias, x=x, g=g)
-        return _bwd_plain(h1, w, bias, x, g)
+        with _kernels.plain_region(KERNEL_BWD):
+            return _bwd_plain(h1, w, bias, x, g)
     k, b, h, d = _check_inputs(h1, w, bias, x, g)
     dev = h1.device
     if k * b == 0:

@@ -501,7 +501,9 @@ def fused_forward(h1, w1, b1, w2, b2, w3, b3, x,
         raise ValueError("the fp32 kernel has no row groups to pin; pass "
                          "groups=0")
     if h1.device.type == "cpu":
-        return _reference_impl(h1, w1, b1, w2, b2, w3, b3, x, compute_dtype)
+        with _kernels.plain_region(KERNEL):
+            return _reference_impl(h1, w1, b1, w2, b2, w3, b3, x,
+                                   compute_dtype)
     k, b, h1_dim, hid, d = _check_block(h1, w1, b1, w2, b2, w3, b3, x)
     dev = h1.device
     if k * b == 0:
@@ -540,7 +542,9 @@ def fused_backward(h1, w1, b1, w2, b2, w3, b3, x, g,
     """
     _check_dtype(compute_dtype)
     if h1.device.type == "cpu":
-        return _bwd_plain(h1, w1, b1, w2, b2, w3, b3, x, g, compute_dtype)
+        with _kernels.plain_region(KERNEL_BWD):
+            return _bwd_plain(h1, w1, b1, w2, b2, w3, b3, x, g,
+                              compute_dtype)
     k, b, h1_dim, hid, d = _check_block(h1, w1, b1, w2, b2, w3, b3, x, g)
     dev = h1.device
     shapes = ((h1_dim, hid), (hid,), (hid, hid), (hid,), (hid, d), (d,))

@@ -241,7 +241,10 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"{compute_dtype!r}")
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return dense_in_slabs(x, w, b, compute_dtype, tanh)
+            with _kernels.plain_region(
+                    KERNEL_DENSE,
+                    flops=2 * math.prod(x.shape[:-1]) * w.numel()):
+                return dense_in_slabs(x, w, b, compute_dtype, tanh)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x, w, b)
     if x.dim() < 1 or w.dim() != 2:
@@ -295,7 +298,11 @@ def dense_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     fixed order."""
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return dense_int8_plain(x, w_q, scale, b, tanh, in_slabs=True)
+            with _kernels.plain_region(
+                    KERNEL_DENSE_INT8,
+                    flops=2 * math.prod(x.shape[:-1]) * w_q.numel()):
+                return dense_int8_plain(x, w_q, scale, b, tanh,
+                                        in_slabs=True)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x, scale, b)
     if x.dim() < 1 or w_q.dim() != 2:
@@ -366,7 +373,8 @@ def fixed_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     take); on CPU tensors it is :func:`sum_in_slabs`."""
     if not x.is_cuda:
         if x.device.type == "cpu":
-            return sum_in_slabs(x, dim)
+            with _kernels.plain_region(KERNEL_SUM):
+                return sum_in_slabs(x, dim)
         raise ValueError(f"unsupported device {x.device}")
     _check_no_grad(x)
     if x.dim() == 0:

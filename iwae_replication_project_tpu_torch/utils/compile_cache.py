@@ -347,7 +347,10 @@ class ExecutableStore:
         self._resident = 0
         self._counters = {n: 0 for n in self.COUNTER_NAMES}
         self._per_model: Dict[str, Dict[str, int]] = {}
+        #: the telemetry counters ``_count`` mirrors into, and the registry
+        #: they belong to (a swapped process registry gets its own)
         self._tel_counters: Dict[str, Any] = {}
+        self._tel_registry = None
 
     # -- accounting ----------------------------------------------------------
 
@@ -358,12 +361,14 @@ class ExecutableStore:
         per = self._per_model.setdefault(
             model, {k: 0 for k in self.COUNTER_NAMES})
         per[name] += n
+        from iwae_replication_project_tpu_torch.telemetry.registry import (
+            get_registry)
+        reg = get_registry()
+        if reg is not self._tel_registry:
+            self._tel_registry, self._tel_counters = reg, {}
         handle = self._tel_counters.get(name)
         if handle is None:
-            from iwae_replication_project_tpu_torch.telemetry.registry import (
-                get_registry)
-            handle = self._tel_counters.setdefault(
-                name, get_registry().counter(f"store/{name}"))
+            handle = self._tel_counters[name] = reg.counter(f"store/{name}")
         handle.inc(n)
 
     def _publish_resident(self) -> None:

@@ -186,6 +186,20 @@ class TestExecutableStore:
             assert reg.counter("store/misses").value == before + 1
             assert reg.gauge("store/entries").value == 1
 
+    def test_counters_follow_a_swapped_registry(self, monkeypatch):
+        # a count made while another process registry was installed does
+        # not keep later counts away from the one restored after it
+        from iwae_replication_project_tpu_torch.telemetry import registry
+
+        reg = registry.get_registry()
+        with cc.isolated_aot_registry(budget_bytes=None):
+            with monkeypatch.context() as m:
+                m.setattr(registry, "_DEFAULT", registry.MetricRegistry())
+                _fill([("p0", "a")])
+            before = reg.counter("store/misses").value
+            _fill([("p1", "a")])
+            assert reg.counter("store/misses").value == before + 1
+
     def test_isolated_registry_budget_restored(self):
         before = cc.executable_store().budget_bytes
         with cc.isolated_aot_registry(budget_bytes=12345):
