@@ -23,11 +23,12 @@ phases, one line per phase, and exits non-zero on the first failure:
    B2's scratch bytes as its library states them: the hot-loop forward
    (``hot_loop_fwd``,
    B1) in fp32 and bf16 at the serving shapes (k=50 x B in {1, 7, 64}), the
-   train shape (k=50, B=100), an odd shape and the eval chunk (k=250,
-   B=500); the hot-loop backward (``hot_loop_bwd``, B2), per output, at the
-   train shape, the eval chunk, an odd shape and odd widths, and bitwise
-   across two launches; the fused Bernoulli log-likelihood's forward and
-   backward (``fused_ll_fwd``, B3; ``fused_ll_bwd``, B4; 3xTF32 on the
+   train shape (k=50, B=100), an odd shape and the eval chunks (k=250,
+   B=500, and B=269 on Omniglot's test set); the hot-loop backward
+   (``hot_loop_bwd``, B2), per output, at the train shape, the eval
+   chunk, an odd shape and odd widths, and bitwise across two launches;
+   the fused Bernoulli log-likelihood's forward and backward
+   (``fused_ll_fwd``, B3; ``fused_ll_bwd``, B4; 3xTF32 on the
    tensor cores) in fp32 at the flagship's last layer (H=200, D=784) at the
    train shape and the eval chunk and at an odd shape (k=13, B=17, D=130),
    dW and db bitwise across two launches, each timed line with both bounds
@@ -266,8 +267,18 @@ phases, one line per phase, and exits non-zero on the first failure:
    one read): no host copy and no synchronize inside the replay, and the
    replay's kernels per name (B1, B2, the row kernels) equal to the
    graph's counted launches;
-20. prints the kernels' JSON record (launches of the serving and training
-   runs, of phase 14's int8 burst, and per path of phases 8-19 under
+20. the production protocol at real data size (lines ``protocol:``):
+   ``scripts/torch_dress_rehearsal.py``'s own run on Omniglot, its
+   real-size ``chardata.mat`` (24,345 / 8,070 rows, ~100 MB) written into a
+   temporary directory and read back with the synthetic fallback off, the
+   flagship for 2 stages (4 passes, 972 steps, binarized on the device every
+   pass) with a checkpoint inside stage 2, the full 8,070-row suite at
+   k=5000 after each stage: the files found, the eval batch clamped to 269
+   (B1 at 250 x 269, also held in phase 3), the steps and B1's and B2's
+   launches equal to the counts derived from the config, the NLL finite and
+   falling; the per-stage NLL printed beside JAX's committed run;
+21. prints the kernels' JSON record (launches of the serving and training
+   runs, of phase 14's int8 burst, and per path of phases 8-20 under
    ``launches_by_path``, ``eager_oracle`` 0 for every kernel) and, last,
    the contract line ``{"ok": true, "device": {...}}``.
 
@@ -522,7 +533,8 @@ def check_hot_loop(torch, hot_loop):
               ("serve", 50, 64, FLAGSHIP), ("train", TRAIN_K, TRAIN_B, FLAGSHIP),
               ("odd", 13, 17, FLAGSHIP),
               ("odd-widths", 3, 5, dict(h1=37, hid=70, d=130)),
-              ("eval", 250, 500, FLAGSHIP)] + RANK_SHAPES_FWD \
+              ("eval", 250, 500, FLAGSHIP),
+              ("eval", 250, PROTOCOL_EVAL_BATCH, FLAGSHIP)] + RANK_SHAPES_FWD \
         + SHARDED_SHAPES_FWD
     ok = True
     worst = 0.0
@@ -5178,6 +5190,88 @@ def audit_cost(torch, np, zoo, hot_loop, _kernels) -> tuple:
     return launches, ok
 
 
+# phase 20: the production protocol at real data size
+# --------------------------------------------------------------------------
+
+#: phase 20's run: the rehearsal's Omniglot pipeline (the real-size
+#: chardata.mat, binarized on the device every pass, the 269-row eval
+#: batch) cut to its first 2 stages, with a checkpoint inside stage 2
+PROTOCOL_DATASET, PROTOCOL_STAGES, PROTOCOL_CKPT_EVERY = "omniglot", 2, 2
+#: the eval batch Omniglot's 8,070 test rows clamp to (largest divisor of
+#: 8,070 up to 500)
+PROTOCOL_EVAL_BATCH = 269
+
+
+def production_protocol(torch, np, hot_loop, _kernels, b1_times) -> tuple:
+    """Phase 20: ``scripts/torch_dress_rehearsal.run`` on Omniglot at its
+    real size (its fixture written into a temporary directory and read back
+    with the synthetic fallback off), ``PROTOCOL_STAGES`` stages with a
+    mid-stage checkpoint, the full 8,070-row suite at k=5000 after each.
+    Holds: the loader found the files, the eval batch 269, the steps and
+    B1/B2's launches equal to the counts derived from the config (no other
+    kernel), the NLL finite and falling, a mid-stage save. Prints the
+    per-stage NLL beside JAX's (not held). Returns ({kernel: launches},
+    ok)."""
+    import io
+
+    from iwae_replication_project_tpu_torch.training.schedule import (
+        burda_stages)
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import torch_dress_rehearsal as reh
+
+    overrides = dict(n_stages=PROTOCOL_STAGES)
+    cfg = reh.rehearsal_config(PROTOCOL_DATASET, overrides=overrides)
+    n_train, n_test = reh.SIZES[PROTOCOL_DATASET]
+    steps = sum(p for _, _, p in burda_stages(cfg.n_stages,
+                                              cfg.passes_scale)) \
+        * (n_train // cfg.batch_size)
+    per_eval = eval_b1_launches(cfg, n_test, diagnostics=cfg.diagnostics)
+    want = dict.fromkeys(_kernels.COUNTERS, 0)
+    want.update({hot_loop.KERNEL: steps + cfg.n_stages * per_eval,
+                 hot_loop.KERNEL_BWD: steps})
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        _kernels.reset_launch_counts(_kernels.COUNTERS)
+        with contextlib.redirect_stdout(buf):
+            summary, _ = reh.run(
+                PROTOCOL_DATASET, data_dir=os.path.join(tmp, "data"),
+                checkpoint_every_passes=PROTOCOL_CKPT_EVERY, fresh=True,
+                root=tmp, overrides=overrides)
+        launches = _kernels.launch_counts(_kernels.COUNTERS)
+        mat_bytes = os.path.getsize(os.path.join(tmp, "data", "chardata.mat"))
+    for ln in buf.getvalue().splitlines():
+        if ln.strip() and not ln.startswith("{"):  # the summary: below
+            print(f"protocol: {ln}", flush=True)
+    rows = summary["stages"]
+    nll = [r["NLL"] for r in rows]
+    finite = bool(np.isfinite(nll).all()) and len(nll) == cfg.n_stages
+    falls = finite and all(b < a for a, b in zip(nll, nll[1:]))
+    mid_save = len(rows) == cfg.n_stages and rows[-1]["checkpoint_seconds"] > 0
+    ok = (finite and falls and mid_save and not summary["synthetic_data"]
+          and summary["eval_batch_used"] == PROTOCOL_EVAL_BATCH
+          and summary["steps"] == steps and launches == want)
+    print(f"protocol: {PROTOCOL_DATASET} {n_train}/{n_test} rows from a "
+          f"{mat_bytes} byte chardata.mat (synthetic_data "
+          f"{summary['synthetic_data']}), load {summary['data_load_seconds']}"
+          f" s, fixture {summary['fixture_generation_seconds']} s; eval batch "
+          f"{summary['eval_batch_used']} (want {PROTOCOL_EVAL_BATCH}); steps "
+          f"{summary['steps']} (want {steps}); NLL by stage {nll} (JAX's "
+          f"committed run: {summary['jax_NLL_by_stage']}, printed, not "
+          f"held), falls {falls}; mid-stage save {mid_save}", flush=True)
+    ev = [r["eval_seconds"] for r in rows]
+    print(f"protocol: train ms per step by stage "
+          f"{[r['ms_per_step'] for r in rows]}; eval seconds {ev} (B1 at "
+          f"250 x {PROTOCOL_EVAL_BATCH}, phase 3: "
+          f"{b1_times[('bf16', 'eval', PROTOCOL_EVAL_BATCH)]:.4f} ms a "
+          f"chunk); launches {launches} (expected {want}: {steps} steps, "
+          f"{cfg.n_stages} evaluations of {per_eval}); phase 20 "
+          f"{time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return launches, ok
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5340,6 +5434,10 @@ def main() -> int:
     if not ok:
         return fail("the program auditor or the cost analyzer missed the "
                     "card")
+    protocol_launches, ok = production_protocol(torch, np, hot_loop,
+                                                _kernels, b1_times)
+    if not ok:
+        return fail("the production protocol at real data size failed")
     sharded_launches = {hot_loop.KERNEL: sharded_b1}
     for rec in (record, record_bwd):
         rec["launches_by_path"] = {
@@ -5364,6 +5462,7 @@ def main() -> int:
         paths["eager_oracle"] = oracle_launches.get(rec["name"], 0)
         paths["replication_8stage"] = repl_launches.get(rec["name"], 0)
         paths["audit_cost"] = audit_launches[rec["name"]]
+        paths["production_protocol"] = protocol_launches[rec["name"]]
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records

@@ -298,6 +298,12 @@ def _intact_steps(directory: str):
         yield step, os.path.isfile(_manifest_path(directory, step))
 
 
+def latest_step(directory: str) -> Optional[int]:
+    """The newest intact retained step under `directory`, or None (JAX
+    :287-293): the step :func:`restore_latest` would resume from."""
+    return next((step for step, _ in _intact_steps(directory)), None)
+
+
 def restore_latest(directory: str, template: TrainState, *,
                    expect_config_json: Optional[str] = None, mesh=None
                    ) -> Optional[Tuple[int, TrainState, int, Optional[int]]]:

@@ -348,7 +348,9 @@ def _forbidden(name: str) -> bool:
 #: the card scripts that import the port alone (the others' JAX halves
 #: import JAX inside their own functions)
 PORT_SCRIPTS = ("scripts/torch_run_replication.py",
-                "scripts/torch_estimator_convergence.py")
+                "scripts/torch_estimator_convergence.py",
+                "scripts/torch_dress_rehearsal.py",
+                "scripts/torch_prepare_data.py")
 
 
 def _port_files():
@@ -371,9 +373,9 @@ def test_no_jax_import_in_port_sources(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    """Import every port module, chip_smoke.py and the port's replication
-    scripts in a fresh interpreter: neither jax nor the JAX package may end
-    up in sys.modules."""
+    """Import every port module, chip_smoke.py and the port's card scripts
+    (``PORT_SCRIPTS``) in a fresh interpreter: neither jax nor the JAX
+    package may end up in sys.modules."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import iwae_replication_project_tpu_torch as p\n"
