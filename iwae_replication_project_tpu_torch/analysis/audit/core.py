@@ -16,9 +16,9 @@ It mirrors ``analysis/core.py``:
 * **waivers** are a program's suppressions, ``waivers={"pass-name": "why
   this is safe"}``; a waiver with an empty justification is itself a
   finding (``bare-waiver``), as the lint suite's mandatory ``-- why``;
-* the **runner** (:func:`run_audit`) times every pass under the span
-  ``audit/<pass>`` and counts ``audit/<pass>/{findings,waived,runs}`` on
-  the port's telemetry registry (JAX ``core.py:150-193``).
+* the **runner** (:func:`run_audit`) runs every pass over every program
+  (JAX ``core.py:150-193``, without its telemetry: the CLIs report the
+  findings and their counts themselves).
 """
 
 from __future__ import annotations
@@ -157,16 +157,11 @@ def run_audit(programs: Sequence[AuditProgram],
               ) -> List[AuditFinding]:
     """Run every pass over every program; returns sorted findings.
 
-    Waived findings are dropped (and counted as ``audit/<pass>/waived``);
-    a waiver with no justification adds a ``bare-waiver`` finding instead.
+    Waived findings are dropped; a waiver with no justification adds a
+    ``bare-waiver`` finding instead.
     """
-    from iwae_replication_project_tpu_torch.telemetry.registry import (
-        get_registry)
-    from iwae_replication_project_tpu_torch.telemetry.spans import span
-
     passes = passes if passes is not None else all_passes()
     env = env or AuditEnv.current()
-    reg = get_registry()
     findings: List[AuditFinding] = []
 
     for prog in programs:
@@ -181,20 +176,12 @@ def run_audit(programs: Sequence[AuditProgram],
     for pname, p in passes.items():
         if progress:
             progress(pname)
-        with span(f"audit/{pname}"):
-            for prog in programs:
-                got = list(p.check(prog, env))
-                if pname in prog.waivers and \
-                        (prog.waivers[pname] or "").strip():
-                    reg.counter(f"audit/{pname}/waived").inc(len(got))
-                    continue
+        for prog in programs:
+            got = list(p.check(prog, env))
+            if not (prog.waivers.get(pname) or "").strip():
                 findings.extend(got)
-                reg.counter(f"audit/{pname}/findings").inc(len(got))
-            # state across programs: once per pass, unwaivable per program
-            env_got = list(p.check_env(env))
-            findings.extend(env_got)
-            reg.counter(f"audit/{pname}/findings").inc(len(env_got))
-        reg.counter(f"audit/{pname}/runs").inc()
+        # state across programs: once per pass, unwaivable per program
+        findings.extend(p.check_env(env))
 
     return sorted(set(findings))
 

@@ -614,14 +614,12 @@ def analyze_programs(include: Optional[List[str]] = None,
     unknown names raise the suite's ValueError listing the valid ones)."""
     from iwae_replication_project_tpu_torch.analysis.audit.programs import (
         build_programs)
-    from iwae_replication_project_tpu_torch.telemetry.spans import span
 
     analyzer = CostAnalyzer(blowup_factor=blowup_factor)
     records: Dict[str, CostRecord] = {}
     findings: List[AuditFinding] = []
     for prog in build_programs(include):
-        with span(f"cost/{prog.name}"):
-            rec, got = analyzer.analyze(prog)
+        rec, got = analyzer.analyze(prog)
         records[prog.name] = rec
         findings.extend(got)
     return records, findings

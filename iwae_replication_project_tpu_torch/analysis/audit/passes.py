@@ -167,9 +167,6 @@ class PaddingTaintPass(AuditPass):
 
     def check(self, prog: AuditProgram, env: AuditEnv
               ) -> Iterator[AuditFinding]:
-        from iwae_replication_project_tpu_torch.telemetry.registry import (
-            get_registry)
-
         if prog.graph is None:
             return
         findings: List[AuditFinding] = []
@@ -177,13 +174,6 @@ class PaddingTaintPass(AuditPass):
             AuditFinding(program=prog.name, rule=self.name, location=loc,
                          message=msg)))
         engine.run(prog.graph, prog.taints, root=prog.name)
-        reg = get_registry()
-        if engine.stats.default_propagation:
-            reg.counter("audit/padding-taint/default-propagation").inc(
-                engine.stats.default_propagation)
-        if engine.stats.unverified_mask_discharges:
-            reg.counter("audit/padding-taint/unverified-mask-discharges").inc(
-                engine.stats.unverified_mask_discharges)
         yield from findings
 
 

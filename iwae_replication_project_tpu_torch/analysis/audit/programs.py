@@ -357,10 +357,7 @@ BUILDERS: Dict[str, Callable[..., AuditProgram]] = {
 
 @functools.lru_cache(maxsize=None)
 def _built(name: str) -> AuditProgram:
-    from iwae_replication_project_tpu_torch.telemetry.spans import span
-
-    with span(f"audit/trace/{name}"):
-        return BUILDERS[name]()
+    return BUILDERS[name]()
 
 
 def build_programs(include: Optional[Sequence[str]] = None

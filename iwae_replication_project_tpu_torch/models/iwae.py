@@ -17,6 +17,7 @@ import torch
 from iwae_replication_project_tpu_torch.models import mlp
 from iwae_replication_project_tpu_torch.ops import distributions as dist
 from iwae_replication_project_tpu_torch.ops import row_invariant as ri_ops
+from iwae_replication_project_tpu_torch.telemetry.spans import REC
 
 Params = Dict[str, Any]
 
@@ -320,11 +321,21 @@ def log_weights_and_aux(params: Params, cfg: ModelConfig, x: torch.Tensor,
                         eps: Optional[Sequence[torch.Tensor]] = None,
                         stop_q_score: bool = False):
     """One encoder+decoder pass -> ``[k, B]`` log importance weights plus the
-    intermediates: ``log w = (log p(h) + log p(x|h)) - log q(h|x)``."""
+    intermediates: ``log w = (log p(h) + log p(x|h)) - log q(h|x)``.
+
+    While the span recorder is on, the encoder runs under ``model/encode``
+    and the decoder's two terms under ``model/decode`` (not recorded inside
+    a CUDA-graph capture)."""
+    sp = REC.begin("model/encode") if REC.on else None
     h, log_q, q_last = encode(params, cfg, x, k, generator=generator,
                               eps=eps, stop_q_score=stop_q_score)
+    if sp is not None:
+        REC.end(sp)
+        sp = REC.begin("model/decode")
     log_pxh_cond = log_px_given_h(params, cfg, x, h[0])
     log_ph = log_prior(params, cfg, h)
+    if sp is not None:
+        REC.end(sp)
     log_w = log_ph + log_pxh_cond - log_q
     aux = {"h": h, "log_q": log_q, "log_px_given_h": log_pxh_cond,
            "log_prior": log_ph, "q_last": q_last}

@@ -77,6 +77,7 @@ from iwae_replication_project_tpu_torch.ops import _kernels
 from iwae_replication_project_tpu_torch.ops import row_invariant as ri_ops
 from iwae_replication_project_tpu_torch.ops.distributions import softplus
 from iwae_replication_project_tpu_torch.telemetry.registry import get_registry
+from iwae_replication_project_tpu_torch.telemetry.spans import REC
 from iwae_replication_project_tpu_torch.utils.sizes import (
     largest_divisor_leq,
 )
@@ -626,8 +627,13 @@ def decoder_score(out_params, x, h1, *,
     if path == "kernel":
         groups = force_tile if force_tile is not None else _winner_groups(
             "fwd", (k, b, d), widths, h1.device)
-        return FusedBlockLL.apply(h1.contiguous(), w1, b1, w2, b2, w3, b3,
-                                  x.contiguous(), compute_dtype, groups or 0)
+        # B1's host call, while the span recorder is on
+        sp = REC.begin("hot_loop/b1") if REC.on else None
+        out = FusedBlockLL.apply(h1.contiguous(), w1, b1, w2, b2, w3, b3,
+                                 x.contiguous(), compute_dtype, groups or 0)
+        if sp is not None:
+            REC.end(sp)
+        return out
     if path == "blocked_scan":
         return _blocked_scan_impl(
             h1, w1, b1, w2, b2, w3, b3, x,

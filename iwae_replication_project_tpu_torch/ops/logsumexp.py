@@ -9,6 +9,14 @@ column finalizes to ``-inf`` and :func:`lse_var_stats` gives it ess 0 and se
 the host. ``fixed_order=True`` (the serving programs) takes every
 sum through ``ops/row_invariant.fixed_sum``, whose outputs do not depend on
 the batch; maxima are exact in any order.
+
+While the span recorder is on (``telemetry/spans.REC``), a call of
+:func:`streaming_logmeanexp` records ``eval/batch`` (attr ``batch``, the
+call's sequence number) around its carry, its chunks and its end; per chunk
+``eval/chunk`` (with the CUDA event pair: the chunk's device time; attrs
+``batch`` and ``chunk``) and its children ``eval/log_weights`` and
+``eval/lse_update``; then ``eval/finalize``; and counts ``eval/chunks``.
+Off, a chunk pays one flag test.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 from iwae_replication_project_tpu_torch.ops.row_invariant import (
     sum_over as _sum,
 )
+from iwae_replication_project_tpu_torch.telemetry.spans import REC
 
 
 def logsumexp(log_w: torch.Tensor, dim: int = 0,
@@ -179,9 +188,36 @@ def streaming_logmeanexp(log_w_fn: Callable[[int], torch.Tensor], k: int,
     if k % chunk != 0:
         raise ValueError(f"k={k} is not divisible by chunk={chunk}: "
                          f"the chunk must divide k")
-    state = online_logsumexp_init(shape, dtype, device)
-    for i in range(k // chunk):
-        state = online_logsumexp_update(state, log_w_fn(i), dim=0)
-    if merge is not None:
-        state = merge(state)
-    return online_logsumexp_finalize(state, mean=True)
+    batch = REC.next_seq("eval/batch") if REC.on else None
+    outer = REC.begin("eval/batch", {"batch": batch}) if REC.on else None
+    try:
+        state = online_logsumexp_init(shape, dtype, device)
+        for i in range(k // chunk):
+            if outer is not None:
+                state = _recorded_chunk(state, log_w_fn, i, batch, device)
+            else:
+                state = online_logsumexp_update(state, log_w_fn(i), dim=0)
+        with REC.section("eval/finalize"):
+            if merge is not None:
+                state = merge(state)
+            return online_logsumexp_finalize(state, mean=True)
+    finally:
+        if outer is not None:
+            REC.end(outer)
+
+
+def _recorded_chunk(state: OnlineLSE, log_w_fn, i: int, batch: int,
+                    device) -> OnlineLSE:
+    """One chunk of :func:`streaming_logmeanexp` under its spans."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    sp = REC.begin("eval/chunk", {"batch": batch, "chunk": i},
+                   device=on_card)
+    try:
+        with REC.section("eval/log_weights"):
+            log_w = log_w_fn(i)
+        with REC.section("eval/lse_update"):
+            state = online_logsumexp_update(state, log_w, dim=0)
+    finally:
+        REC.end(sp)
+    REC.count("eval/chunks")
+    return state

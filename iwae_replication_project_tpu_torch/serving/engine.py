@@ -77,11 +77,10 @@ one ``observe`` per dispatch at completion, with the dispatch's device
 interval, its FLOPs (:meth:`_prof_flops`, or :meth:`_prof_adaptive`'s at
 each row's ``k_used``) and its static cost record
 (``serving/programs.static_cost``). On the card the interval is
-``start.elapsed_time(end)`` of two timing events on the engine's stream:
-``start`` right before the store call (the arguments staged), ``end`` the
-event the fetch waits on. A store entry shared with another engine first
-waits for that engine's previous replay of it, and that wait falls inside
-the interval; this engine's own earlier work on its stream does not. On the
+``start.elapsed_time(end)`` of two timing events on the engine's stream,
+recorded by the store entry right around the program alone: a captured
+graph's replay (not the copies of its inputs and output, not the store's
+host work), or an eager program's call. On the
 CPU the interval is the host's, from the store call to the fetched result.
 Profiling never touches seeds, payloads or programs. The spans
 ``serve/dispatch/<op>`` (the launch, on the engine's registry; the store's
@@ -176,9 +175,9 @@ class _InFlight:
     inputs: tuple = ()
     #: the executable-store pin held until the batch completes
     pin: Optional[Any] = None
-    #: the profiler's timing event recorded before the program's call (on
-    #: the card, with profiling on)
-    start: Optional[Any] = None
+    #: the profiler's two timing events around the program alone (on the
+    #: card, with profiling on)
+    timing: Optional[tuple] = None
     #: trace-stage clock readings: the launch began, the rows were padded,
     #: the program's arguments were staged
     t_launch0: float = 0.0
@@ -671,11 +670,13 @@ class ServingEngine:
         return fn, tensors, {}, tensors, self._graphs
 
     def _store_call(self, op: str, k: int, bucket: int, program,
-                    args: tuple, kwargs: dict, warm: bool = False):
+                    args: tuple, kwargs: dict, warm: bool = False,
+                    events: Optional[tuple] = None):
         """The dispatch's program through the executable store: ``(output,
         hit)``; with ``warm`` the entry is admitted (a captured graph runs
         its first admission's warm-up; an eager entry runs once) and
-        ``(None, hit)`` returned."""
+        ``(None, hit)`` returned. `events` time the program alone
+        (``compile_cache.aot_call_async``)."""
         fn, call_args, fn_kwargs, sig_args, graph = self._entry(
             op, k, bucket, program, args, kwargs)
         kw = dict(build_key=self._build_key(op, k, bucket),
@@ -692,7 +693,7 @@ class ServingEngine:
                     exe(*call_args, **fn_kwargs)
             return None, hit
         return cc.aot_call_async(self._aot_name(op), fn, call_args,
-                                 fn_kwargs, **kw)
+                                 fn_kwargs, events=events, **kw)
 
     def _launch_context(self):
         """The card and the engine's side stream (nothing on the CPU)."""
@@ -707,27 +708,27 @@ class ServingEngine:
              seeds: List[int], targets: Optional[Tuple[float, float]] = None,
              n_real: Optional[int] = None):
         """Launch one program on the device without waiting; returns
-        ``(out, event, inputs, t_args, hit, start)``, ``t_args`` the clock
+        ``(out, event, inputs, t_args, hit, timing)``, ``t_args`` the clock
         once the arguments were staged (the trace's noise/launch boundary),
-        ``hit`` whether the store had the program, ``start`` the profiler's
-        timing event before the program's call (None off the card or with
-        profiling off)."""
+        ``hit`` whether the store had the program, ``timing`` the
+        profiler's two events around the program alone (None off the card
+        or with profiling off)."""
         program = self._program_for(op, k, bucket)
-        timed = self.profiler is not None and self._stream is not None
+        timing = None
+        if self.profiler is not None and self._stream is not None:
+            timing = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
         with self._launch_context():
             args, kwargs = self._dispatch_args(op, k, bucket, payload, seeds,
                                                targets, n_real)
             t_args = self._clock()
-            start = None
-            if timed:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record(self._stream)
-            out, hit = self._store_call(op, k, bucket, program, args, kwargs)
+            out, hit = self._store_call(op, k, bucket, program, args, kwargs,
+                                        events=timing)
             if self._stream is None:
                 return out, None, (), t_args, hit, None
-            event = torch.cuda.Event(enable_timing=timed)
+            event = torch.cuda.Event()
             event.record(self._stream)
-        return out, event, (args, kwargs), t_args, hit, start
+        return out, event, (args, kwargs), t_args, hit, timing
 
     def _launch(self, batch: List[Request]) -> _InFlight:
         """Stage one: pad, launch. Returns the in-flight handle without
@@ -758,7 +759,7 @@ class ServingEngine:
                                                                   bucket))
         try:
             with span(f"serve/dispatch/{op}", registry=self.metrics.registry):
-                out, event, inputs, t_args, hit, start = self._run(
+                out, event, inputs, t_args, hit, timing = self._run(
                     op, k, bucket, payload, seeds, targets, n)
         except BaseException:
             pin.release()
@@ -772,7 +773,7 @@ class ServingEngine:
         self.metrics.count("aot_hits" if hit else "aot_misses")
         self.metrics.count("recompiles", cc.kernel_builds() - builds)
         return _InFlight(batch=batch, op=op, k=k, bucket=bucket, out=out,
-                         event=event, inputs=inputs, pin=pin, start=start,
+                         event=event, inputs=inputs, pin=pin, timing=timing,
                          t_launch0=t_launch0, t_pad=t_pad, t_args=t_args)
 
     def _launch_routed(self, batch: List[Request]) -> Optional[_InFlight]:
@@ -824,8 +825,8 @@ class ServingEngine:
         """The dispatch's device interval (module docstring): the timing
         events' on the card, else the host's from the store call to the
         fetched result."""
-        if inf.start is not None:
-            return inf.start.elapsed_time(inf.event) / 1e3
+        if inf.timing is not None:
+            return inf.timing[0].elapsed_time(inf.timing[1]) / 1e3
         return now - inf.t_args
 
     def _profile_dispatch(self, inf: _InFlight, now: float,

@@ -26,8 +26,9 @@ mode records nothing):
 
 The serving engines attach one per engine (serving/engine.py
 ``profiling=``, on by default). On the card the interval is the time
-between two CUDA timing events around the program's call on the engine's
-stream; on the CPU it is the host interval, as in JAX. The snapshot is
+between two CUDA timing events around the program alone on the engine's
+stream (a captured graph's replay, not the store's host work or the input
+copies); on the CPU it is the host interval, as in JAX. The snapshot is
 served at ``/prof`` by the metrics server (telemetry/exporters.py).
 """
 

@@ -36,6 +36,15 @@ work whatever step it is, and on CUDA it is captured once as a CUDA graph
   steps captured before as a hit (``utils/compile_cache.note_capture``,
   ``note_replay``): the driver's stage rows report them as ``aot_*``.
 
+While the span recorder (``telemetry/spans.REC``) is on, a call records
+``train/pass`` per pass (with the CUDA event pair: the pass's device time),
+``train/shuffle`` (the ``randperm`` and the index copy), ``train/replay``
+per replayed step, ``train/capture`` per capture with its warm-up step and
+the child ``train/capture/graph`` around the capture block alone, and
+``train/snr_summary`` and ``train/loss_clone`` at the call's end; its
+counters ``train/replays``, ``train/captures`` and ``train/eager_steps``
+count them. Off, a replay pays one flag test.
+
 A rank of a ``(dp, sp)`` mesh runs this same machinery
 (``parallel/dp.make_parallel_epoch_fn``) through two arguments: its
 value-and-grad, which reduces the gradients over the ranks before Adam
@@ -56,7 +65,6 @@ the diagnostics.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -70,7 +78,7 @@ from iwae_replication_project_tpu_torch.telemetry.diagnostics import (
     grad_accum_update,
     grad_snr_summary,
 )
-from iwae_replication_project_tpu_torch.telemetry.spans import spanned
+from iwae_replication_project_tpu_torch.telemetry.spans import REC, spanned
 from iwae_replication_project_tpu_torch.training.train_step import (
     make_train_step,
 )
@@ -129,9 +137,14 @@ class _StepGraphs:
 
     def replay(self, state, accumulate: bool) -> None:
         step = self.steps[accumulate]
+        sp = REC.begin("train/replay", {"step": state.step}) if REC.on \
+            else None
         step.graph.replay()
         state.step += 1
         _kernels.add_launches(step.launches)
+        if sp is not None:
+            REC.end(sp)
+            REC.count("train/replays")
 
 
 def _binarize_generator(state) -> torch.Generator:
@@ -210,7 +223,10 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
         warm-up), then capture the next such step's work without running
         it; the pair counts as one missed resolution of the process's
         compile-cache counters (``utils/compile_cache.note_capture``)."""
-        t0 = time.perf_counter()
+        sp = REC.begin("train/capture", {"accumulate": int(accumulate)})
+        if REC.on:
+            REC.count("train/captures")
+            REC.count("train/eager_steps")
         dev = b.x.device
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -225,15 +241,18 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
                 _binarize_generator(state) is not state.generator:
             graph.register_generator_state(_binarize_generator(state))
         before, steps = _kernels.all_launch_counts(), state.step
+        inner = REC.begin("train/capture/graph") if REC.on else None
         with torch.cuda.graph(graph):
             run_step(state, b, accumulate)
+        if inner is not None:
+            REC.end(inner)
         state.step = steps  # the capture ran nothing
         after = _kernels.all_launch_counts()
         launches = {n: after[n] - before[n] for n in after
                     if after[n] != before[n]}
         _kernels.add_launches(launches, -1)
         entry.steps[accumulate] = _Captured(graph, launches)
-        compile_cache.note_capture(time.perf_counter() - t0)
+        compile_cache.note_capture(REC.end(sp))
         return entry
 
     def epoch(state, x_train: torch.Tensor, *,
@@ -255,7 +274,11 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
             state, x_train, n_batches, hi - lo, n_losses, diag_on)
         b.pos.zero_()
         captured = False
+        on_card = dev.type == "cuda"
         for _ in range(epochs_per_call):
+            sp = REC.begin("train/pass", {"pass": REC.next_seq("train/pass")},
+                           device=on_card) if REC.on else None
+            shuffling = REC.begin("train/shuffle") if REC.on else None
             if perm is None:
                 perm_e = (torch.randperm(n_train, generator=gen, device=dev)
                           if shuffle else torch.arange(n_train, device=dev))
@@ -263,6 +286,8 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
                 perm_e = perm.to(dev)
             b.idx.copy_(perm_e[: n_batches * batch_size]
                         .view(n_batches, batch_size)[:, lo:hi])
+            if shuffling is not None:
+                REC.end(shuffling)
             b.i.zero_()
             if diag_on:
                 torch._foreach_zero_(tree_leaves(b.acc))
@@ -275,15 +300,22 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
                                                           entry)
                     captured = True
                 else:
+                    if REC.on:
+                        REC.count("train/eager_steps")
                     run_step(state, b, acc,
                              eps=None if noise is None else noise[j],
                              u=None if uniforms is None else uniforms[j])
+            if sp is not None:
+                REC.end(sp)
         if use_graph and not captured:
             compile_cache.note_replay()  # a dispatch of captured steps only
-        losses = b.losses.clone() if use_graph else b.losses
+        with REC.section("train/loss_clone"):
+            losses = b.losses.clone() if use_graph else b.losses
         if not diag_on:
             return state, losses
-        return state, (losses, grad_snr_summary(*b.acc, window))
+        with REC.section("train/snr_summary"):
+            summary = grad_snr_summary(*b.acc, window)
+        return state, (losses, summary)
 
     name = f"epoch_{spec.name}_k{spec.k}" if epochs_per_call == 1 \
         else f"epoch_block{epochs_per_call}_{spec.name}_k{spec.k}"

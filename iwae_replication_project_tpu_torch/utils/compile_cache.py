@@ -141,6 +141,14 @@ class EagerProgram:
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)
 
+    def timed(self, events, args: tuple, kwargs: dict):
+        """The call between the two timing `events`, recorded on the
+        current stream."""
+        events[0].record()
+        out = self.fn(*args, **kwargs)
+        events[1].record()
+        return out
+
     def release(self) -> None:
         self.fn = None
 
@@ -182,7 +190,14 @@ class GraphProgram:
         return sum(t.numel() * t.element_size()
                    for t in self._static + [self._out])
 
-    def __call__(self, *tensors):
+    def timed(self, events, tensors: tuple, kwargs: dict):
+        """The call with the two timing `events`."""
+        return self(*tensors, events=events)
+
+    def __call__(self, *tensors, events=None):
+        """`events` (two CUDA timing events, or None) are recorded on the
+        current stream right around the graph's replay: neither the input
+        copies nor the output's clone fall between them."""
         from iwae_replication_project_tpu_torch.ops import _kernels
 
         cur = torch.cuda.current_stream(self.device)
@@ -193,7 +208,11 @@ class GraphProgram:
                 cur.wait_event(self._done)
             for s, t in zip(self._static, tensors):
                 s.copy_(t, non_blocking=True)
+            if events is not None:
+                events[0].record(cur)
             self._graph.replay()
+            if events is not None:
+                events[1].record(cur)
             out = self._out.clone()
             self._done = torch.cuda.Event()
             self._done.record(cur)
@@ -715,7 +734,8 @@ def aot_call_async(name: str, fn: Callable, args: Tuple = (),
                    kwargs: Optional[dict] = None, *,
                    build_key: Tuple = (), model: Optional[str] = None,
                    nbytes: Optional[int] = None, graph: bool = False,
-                   sig: Optional[Tuple] = None) -> Tuple[Any, bool]:
+                   sig: Optional[Tuple] = None,
+                   events: Optional[Tuple] = None) -> Tuple[Any, bool]:
     """``fn(*args, **kwargs)`` through the store, without waiting for the
     device; returns ``(output, hit)``.
 
@@ -728,7 +748,9 @@ def aot_call_async(name: str, fn: Callable, args: Tuple = (),
     ``build_key`` must hold everything `fn` bakes in, the weights' identity
     included: two programs must never share a slot. `sig` replaces the
     signature of the arguments (a caller whose arguments carry per-request
-    values keys on their shapes alone)."""
+    values keys on their shapes alone). `events`, two CUDA timing events,
+    are recorded around the program alone: a graph's replay, or an eager
+    program's call (``timed`` of the entry)."""
     kwargs = kwargs or {}
     with _store.pinned(model, name, build_key):
         exe, hit = _resolve(name, fn, args, kwargs, build_key, model,
@@ -738,7 +760,9 @@ def aot_call_async(name: str, fn: Callable, args: Tuple = (),
         # of them, in the process registry (the host time of the enqueue or
         # the graph's replay, not the device's completion)
         with span(f"aot/{name}"):
-            return exe(*args, **kwargs), hit
+            if events is None:
+                return exe(*args, **kwargs), hit
+            return exe.timed(events, args, kwargs), hit
 
 
 def aot_call(name: str, fn: Callable, args: Tuple = (),
