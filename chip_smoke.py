@@ -8,7 +8,7 @@ phases, one line per phase, and exits non-zero on the first failure:
 
 1. the card's name and power limit (nvidia-smi), torch/CUDA versions and the
    TF32 flags (both set False: the plain versions must run in full fp32);
-2. builds all six CUDA kernels from ``csrc/`` (one ``nvcc`` per source, all
+2. builds all seven CUDA kernels from ``csrc/`` (one ``nvcc`` per source, all
    started together) and prints the build times and ptxas's
    register/shared-memory report;
 3. holds each kernel against its plain PyTorch version on the card, within
@@ -40,7 +40,13 @@ phases, one line per phase, and exits non-zero on the first failure:
    block) and against B2's dW3 and db3 for the same cotangent; then the
    serving programs' row-invariant kernels (``row_dense``, ``row_sum``)
    against their plain versions at the flagship's serving shapes, timed
-   beside ``torch.addmm`` and ``torch.sum``;
+   beside ``torch.addmm`` and ``torch.sum``; then (3e) the fused
+   sample-level stochastic block (``latent_block``) in its sample mode
+   (q(h2|h1): h2 and log q) and its density mode (p(h1|h2)) against its
+   plain bf16 version at the eval chunks (250 x 500, 250 x 269) and an odd
+   shape, within half the plain bf16 path's own distance from fp32 at the
+   median, the 99th percentile and the largest error, one counted launch
+   a call, each mode timed beside its bytes bound;
 4. serves the flagship preset ``northstar-iwae-2l-k50`` at full width (fresh
    weights from the preset's seed, synthetic binary rows from a seed) through
    the pipelined engine: warmup, then a ragged stream of score requests plus
@@ -69,8 +75,9 @@ phases, one line per phase, and exits non-zero on the first failure:
    estimator diagnostics on 1000 synthetic test rows made from a seed:
    the seven scalars (finite, NLL <= -IWAE(k=50) up to noise), active
    units, seconds for the suite, ms per k=5000 NLL batch with B1's share,
-   B1's launches (equal to the count derived from the config; B2 none), and
-   one batch's NLL against a ``hot_loop_path="reference"`` model on the same
+   B1's and the latent block's launches over the suite (equal to the
+   counts derived from the config; B2 none), the latent block's over
+   three k=5000 NLL batches (two a chunk), and one batch's NLL against a ``hot_loop_path="reference"`` model on the same
    generator seed;
 7. runs the staged driver, ``run_experiment`` of the flagship with its
    checkpoints under a temporary directory and ``PASS_BLOCK`` set to 3: an
@@ -259,14 +266,15 @@ phases, one line per phase, and exits non-zero on the first failure:
    of k=250 at B=500) and ``serve_score`` (bucket 64, k=50) recorded with
    fake tensors: their static matmul FLOPs equal ``utils/flops.py``'s (the
    train step's with its stated correction), and the static live-range
-   peak over the inputs, with B1's and B2's scratch from
-   ``ops/_kernels.plan``, lies within ``PEAK_TOL`` of the card's
+   peak over the inputs, with B1's, B2's and the latent block's scratch
+   from ``ops/_kernels.plan``, lies within ``PEAK_TOL`` of the card's
    ``max_memory_allocated`` over one eager run net of the inputs; (c) the
    64-row score's store entry and one train step's CUDA graph, each
    replayed under ``torch.profiler`` (a first replay, then the annotated
    one read): no host copy and no synchronize inside the replay, and the
    replay's kernels per name (B1, B2, the row kernels) equal to the
-   graph's counted launches;
+   graph's counted launches; the phase's launches per kernel equal to the
+   derived counts (the latent block two a k=5000 chunk);
 20. the production protocol at real data size (lines ``protocol:``):
    ``scripts/torch_dress_rehearsal.py``'s own run on Omniglot, its
    real-size ``chardata.mat`` (24,345 / 8,070 rows, ~100 MB) written into a
@@ -274,8 +282,8 @@ phases, one line per phase, and exits non-zero on the first failure:
    flagship for 2 stages (4 passes, 972 steps, binarized on the device every
    pass) with a checkpoint inside stage 2, the full 8,070-row suite at
    k=5000 after each stage: the files found, the eval batch clamped to 269
-   (B1 at 250 x 269, also held in phase 3), the steps and B1's and B2's
-   launches equal to the counts derived from the config, the NLL finite and
+   (B1 at 250 x 269, also held in phase 3), the steps and B1's, B2's and
+   the latent block's launches equal to the counts derived from the config, the NLL finite and
    falling; the per-stage NLL printed beside JAX's committed run;
 21. prints the kernels' JSON record (launches of the serving and training
    runs, of phase 14's int8 burst, and per path of phases 8-20 under
@@ -999,6 +1007,139 @@ def fused_ll_path(torch, fl, hot_loop):
     return launches, fwd_ok and bwd_ok and launch_ok
 
 
+#: phase 3e's shapes of the fused stochastic block (k x B sample rows at
+#: the flagship's widths): the eval chunk, Omniglot's eval chunk, odd
+LATENT_SHAPES = [(250, 500), (250, 269), (13, 37)]
+#: the latent block's tolerance: at each quantile of |error| the kernel's
+#: distance from the plain bf16 version is at most this share of the plain
+#: bf16 version's own distance from fp32 (tests/test_torch_latent_block_
+#: cuda.py's rule)
+LATENT_SHARE, LATENT_QUANTILES = 0.5, (0.5, 0.99, 1.0)
+
+
+def latent_block_bound_ms(rows, in_dim, hid, latent, sample) -> tuple:
+    """(bound_ms, bound_by) of one latent block call: its products over
+    bf16's peak, or the bytes that must move (the input rows, the noise or
+    target, h in the sample mode, one log-density a row) over HBM
+    bandwidth."""
+    flops = 2.0 * rows * (in_dim * hid + hid * hid + 2 * hid * latent)
+    nbytes = 4.0 * rows * (in_dim + latent * (2 if sample else 1) + 1)
+    t_ops, t_bytes = flops / PEAK_FLOPS["bf16"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _abs_quantiles(torch, t) -> list:
+    v = t.abs().flatten().double().sort().values
+    return [float(v[min(v.numel() - 1, round(q * (v.numel() - 1)))])
+            for q in LATENT_QUANTILES]
+
+
+def check_latent_block(torch, lb):
+    """Phase 3e: ``latent_block`` in both modes against its plain version
+    on the card at the flagship's widths, on h1 drawn through q(h1|x) of
+    binary rows (initial weights): the sample mode (q(h2|h1): h2 and log q)
+    and the density mode (p(h1|h2)), within the share of the plain bf16
+    path's own distance from fp32, one counted launch a call; timed at
+    each shape beside the bytes bound. Returns (record, ok)."""
+    from iwae_replication_project_tpu_torch.models import iwae as model
+    from iwae_replication_project_tpu_torch.ops import distributions as dist
+
+    cfg = model.ModelConfig.two_layer(likelihood="logits",
+                                      compute_dtype="bfloat16")
+    bf16, floor = torch.bfloat16, cfg.std_floor
+    p = model.to_device(model.init_params(torch.Generator().manual_seed(0),
+                                          cfg), "cuda")
+    q_blk, p_blk = p["enc"][1], p["dec"][0]
+    ok, main, worst = True, None, 0.0
+    for i, (k, b) in enumerate(LATENT_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        x = (torch.rand((b, 784), generator=gen, device="cuda") > 0.5).float()
+        with torch.no_grad():
+            mu, std = lb.mu_std(p["enc"][0], x, floor, bf16)
+            h1 = dist.normal_sample(mu, std, (k,), generator=gen)
+            eps = torch.randn((k, b, q_blk["mu"]["w"].shape[1]),
+                              generator=gen, device="cuda")
+            h2 = lb.sample_plain(q_blk, h1, eps, floor)[0]
+            lb.reset_launch_counts()
+            got_h, got_q = lb.sample(q_blk, h1, floor, bf16, eps=eps)
+            got_p = lb.density(p_blk, h2, h1, floor, bf16)
+            torch.cuda.synchronize()
+            launches = lb.launch_counts()[lb.KERNEL]
+            h16, q16 = lb.sample_plain(q_blk, h1, eps, floor, bf16)
+            h32, q32 = lb.sample_plain(q_blk, h1, eps, floor, None)
+            p16 = lb.density_plain(p_blk, h2, h1, floor, bf16)
+            p32 = lb.density_plain(p_blk, h2, h1, floor, None)
+        parts = []
+        for what, got, w16, w32 in (("h2", got_h, h16, h32),
+                                    ("log_q", got_q, q16, q32),
+                                    ("log_p", got_p, p16, p32)):
+            err = _abs_quantiles(torch, got - w16)
+            spread = _abs_quantiles(torch, w16 - w32)
+            fine = all(e <= LATENT_SHARE * sp for e, sp in zip(err, spread)) \
+                and bool(torch.isfinite(got).all())
+            ok &= fine
+            worst = max(worst, err[-1])
+            parts.append(f"{what} |err| p50/p99/max "
+                         + "/".join(f"{e:.2e}" for e in err)
+                         + " vs plain bf16 from fp32 "
+                         + "/".join(f"{sp:.2e}" for sp in spread)
+                         + f" {'ok' if fine else 'OUT OF TOLERANCE'}")
+        ok &= launches == 2
+        print(f"kernel latent_block bf16 k={k} B={b} (q: 100->100->2x50, p: "
+              f"50->100->2x100): launches {launches} (expected 2); "
+              + "; ".join(parts) + f" (tol: {LATENT_SHARE:g} x the plain "
+              f"path's spread at each quantile)", flush=True)
+        for mode, fn, plain, widths in (
+                ("sample", lambda: lb.sample(q_blk, h1, floor, bf16, eps=eps),
+                 lambda: lb.sample_plain(q_blk, h1, eps, floor, bf16),
+                 (100, 100, 50)),
+                ("density", lambda: lb.density(p_blk, h2, h1, floor, bf16),
+                 lambda: lb.density_plain(p_blk, h2, h1, floor, bf16),
+                 (50, 100, 100))):
+            with torch.no_grad():
+                t = timings(fn, plain, torch)
+            bound, by = latent_block_bound_ms(k * b, *widths,
+                                              mode == "sample")
+            flops = 2.0 * k * b * (widths[0] * widths[1] + widths[1] ** 2
+                                   + 2 * widths[1] * widths[2])
+            print(f"kernel latent_block bf16 {mode} k={k} B={b}"
+                  + timing_text(t, bound, by, flops), flush=True)
+            if (k, b) == LATENT_SHAPES[0] and mode == "sample":
+                main = dict(t, bound_ms=bound, bound_by=by)
+    record = {"name": lb.KERNEL, "route": "cuda",
+              "source": "iwae_replication_project_tpu_torch/csrc/"
+                        "latent_block.cu",
+              "replaces": None, "launches": None, "max_abs_err": worst,
+              **main, "library_ms": None,
+              "bound_share": main["bound_ms"] / main["ms"]}
+    return record, ok
+
+
+def eval_latent_launches(cfg, n_test: int, diagnostics: bool) -> int:
+    """``latent_block``'s launches in the run :func:`eval_b1_launches`
+    counts, derived from the config: its sample-level blocks (L - 1 in the
+    encoder, L - 1 in the prior chain) each launch once a pass where the
+    kernel takes them (no gradient, bf16, not row-invariant). Every pass
+    that reaches B1 runs both chains, except the pruned NLL's, whose masked
+    encoder stays unfused (the prior chain only); besides, the
+    reconstruction loss encodes once a batch and the activity estimate
+    once per sample chunk of 10."""
+    from iwae_replication_project_tpu_torch.utils.sizes import (
+        largest_divisor_leq)
+    mc = cfg.model_config("cpu")
+    if mc.compute_dtype != "bfloat16" or mc.row_invariant:
+        return 0
+    depth = mc.n_stochastic - 1
+    batch = largest_divisor_leq(n_test, min(cfg.eval_batch_size, n_test))
+    chunks = cfg.nll_k // largest_divisor_leq(cfg.nll_k, cfg.nll_chunk)
+    n_batches = n_test // batch
+    activity = cfg.activity_samples // largest_divisor_leq(
+        cfg.activity_samples, 10)
+    passes = n_batches * (1 + chunks) + (n_batches if diagnostics else 0)
+    return depth * (2 * passes + chunks + n_batches + activity)
+
+
 def eval_b1_launches(cfg, n_test: int, diagnostics: bool) -> int:
     """B1 launches of one ``training_statistics`` run on `n_test` rows (and
     of the estimator diagnostics), derived from the config: per eval batch
@@ -1399,11 +1540,13 @@ def driver(torch, np, zoo, hot_loop, tmp):
 
 
 def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
-    """Phase 6: the trained flagship evaluated at full width. Returns ok."""
+    """Phase 6: the trained flagship evaluated at full width. Returns
+    ({kernel: launches of the suite}, ok)."""
     import dataclasses
 
     from iwae_replication_project_tpu_torch.data import load_dataset
     from iwae_replication_project_tpu_torch.evaluation import metrics as em
+    from iwae_replication_project_tpu_torch.ops import latent_block as lb
     from iwae_replication_project_tpu_torch.telemetry.diagnostics import (
         estimator_diagnostics)
 
@@ -1415,6 +1558,7 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
     x = torch.as_tensor(ds.x_test[:EVAL_ROWS].reshape(EVAL_ROWS, -1),
                         dtype=torch.float32).cuda()
     hot_loop.reset_launch_counts()
+    lb.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, res2 = em.training_statistics(
@@ -1432,7 +1576,9 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
     diag = {key: float(v) for key, v in diag.items()}
     diag_s = time.perf_counter() - t0
     launches = hot_loop.launch_counts()
+    latent = lb.launch_counts()[lb.KERNEL]
     want_b1 = eval_b1_launches(cfg, EVAL_ROWS, diagnostics=True)
+    want_latent = eval_latent_launches(cfg, EVAL_ROWS, diagnostics=True)
     print(f"eval: training_statistics on {EVAL_ROWS} synthetic test rows, "
           f"eval_k={cfg.eval_k} nll_k={cfg.nll_k} nll_chunk="
           f"{res['nll_chunk']:g} eval_batch={batch} activity_samples="
@@ -1449,12 +1595,15 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
     # noise of two independent estimates over 1000 rows
     tighter = res["NLL"] <= -res["IWAE"] + 0.5
     launch_ok = launches == {hot_loop.KERNEL: want_b1,
-                             hot_loop.KERNEL_BWD: 0}
+                             hot_loop.KERNEL_BWD: 0} and latent == want_latent
     print(f"eval: scalars finite={finite} NLL<=-IWAE(k=50)+0.5: {tighter}; "
           f"launches {launches} (B1 expected {EVAL_ROWS // batch} batches x "
           f"(1 + {cfg.nll_k // int(res['nll_chunk'])}) + "
           f"{cfg.nll_k // int(res['nll_chunk'])} pruned + "
-          f"{EVAL_ROWS // batch} diagnostics = {want_b1}; B2 expected 0) "
+          f"{EVAL_ROWS // batch} diagnostics = {want_b1}; B2 expected 0), "
+          f"latent_block {latent} (expected {want_latent}: q(h2|h1) and "
+          f"p(h1|h2) per pass that reaches B1, p alone in the pruned NLL, "
+          f"q in the reconstruction and activity passes) "
           f"{'ok' if launch_ok else 'FAIL'}", flush=True)
     ok &= finite and tighter and launch_ok
 
@@ -1462,6 +1611,7 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
     xb = x[:batch]
     chunk = int(res["nll_chunk"])
     times = []
+    lb.reset_launch_counts()
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1471,6 +1621,13 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
         times.append(time.perf_counter() - t0)
     batch_ms = float(np.median(times)) * 1e3
     b1_share = (cfg.nll_k // chunk) * b1_eval_ms / batch_ms
+    latent = lb.launch_counts()[lb.KERNEL]
+    latent_ok = latent == 3 * 2 * (cfg.nll_k // chunk)
+    print(f"eval: latent_block launches over the 3 NLL batches {latent} "
+          f"(expected 3 x 2 per chunk x {cfg.nll_k // chunk} chunks = "
+          f"{3 * 2 * (cfg.nll_k // chunk)}) {'ok' if latent_ok else 'FAIL'}",
+          flush=True)
+    ok &= latent_ok
     print(f"eval: whole suite {suite_s:.3f}s + estimator diagnostics "
           f"{diag_s:.3f}s (host clock, each ending in its one fetch); one "
           f"k={cfg.nll_k} NLL batch of {batch} rows = {batch_ms:.3f} ms "
@@ -1489,7 +1646,7 @@ def evaluate(torch, np, zoo, hot_loop, state, b1_eval_ms):
           f"seed: |diff|={abs(nll - nll_ref):.3e} tol=({atol:g} + "
           f"{rtol:g}*|ref|) {'ok' if within else 'OUT OF TOLERANCE'}",
           flush=True)
-    return ok and within
+    return {**launches, lb.KERNEL: want_latent}, ok and within
 
 
 def _state_tensors(state):
@@ -4852,6 +5009,8 @@ def replication_8stage(torch, np, hot_loop):
 #: a measured peak (max_memory_allocated over one eager run, net of the
 #: inputs) within this share of the analyzer's static figure
 PEAK_TOL = 0.25
+#: the fused stochastic block's counter (``ops/latent_block.KERNEL``)
+LATENT_KERNEL = "latent_block"
 #: phase 19's full-width shapes: the train step, the eval chunk, the score
 AUDIT_TRAIN = (TRAIN_K, TRAIN_B)
 AUDIT_EVAL = (500, 5000, 250)            # rows, k, chunk
@@ -4961,11 +5120,16 @@ def static_against_card(torch, np, hot_loop, _kernels) -> bool:
     k, b = AUDIT_TRAIN
     rows_e, k_e, chunk = AUDIT_EVAL
     bucket, k_s = AUDIT_SERVE
+    # the latent block's widths: q(h2|h1) and p(h1|h2) (IN, hidden, L)
+    blocks = ((cfg.n_latent_enc[0], cfg.n_hidden_enc[1], cfg.n_latent_enc[1]),
+              (cfg.n_latent_enc[1], cfg.n_hidden_dec[0], cfg.n_latent_dec[0]))
     scratch = {
         hot_loop.KERNEL: int(_kernels.plan(hot_loop.KERNEL, (h1, hid, 1),
                                            (h1, hid, d, 1))[1]),
         hot_loop.KERNEL_BWD: int(_kernels.plan(
-            hot_loop.KERNEL_BWD, (h1, hid, 1), (k * b, h1, hid, d, 1))[1])}
+            hot_loop.KERNEL_BWD, (h1, hid, 1), (k * b, h1, hid, d, 1))[1]),
+        LATENT_KERNEL: max(int(_kernels.plan(LATENT_KERNEL, w, w)[1])
+                           for w in blocks)}
     out_macs = F.output_block_macs(h1, hid, d)
     # the traced step recomputes the output block in B2 and takes no
     # gradient of the batch: train_step_flops + 2 k B out_macs - 2 B x h0
@@ -5175,12 +5339,14 @@ def audit_cost(torch, np, zoo, hot_loop, _kernels) -> tuple:
     # derived: 19b's warm-up and measured runs (train B1 2 / B2 2, eval
     # 2 x 20, score 2), 19c's store entry (its warm-up run and two
     # replays) and train graph (its warm-up step and two replays); each
-    # score dispatch (row_invariant) launches SCORE_ROW_LAUNCHES
+    # score dispatch (row_invariant) launches SCORE_ROW_LAUNCHES; each eval
+    # chunk (no_grad, bf16) two latent blocks, q(h2|h1) and p(h1|h2)
     rows_e, k_e, chunk = AUDIT_EVAL
     scores = 2 + 3
     want = dict.fromkeys(_kernels.COUNTERS, 0)
     want.update({hot_loop.KERNEL: 2 + 2 * (k_e // chunk) + scores + 3,
-                 hot_loop.KERNEL_BWD: 2 + 3})
+                 hot_loop.KERNEL_BWD: 2 + 3,
+                 LATENT_KERNEL: 2 * (k_e // chunk) * 2})
     for name, n in SCORE_ROW_LAUNCHES.items():
         want[name] = scores * n
     ok = ok and launches == want
@@ -5208,10 +5374,10 @@ def production_protocol(torch, np, hot_loop, _kernels, b1_times) -> tuple:
     with the synthetic fallback off), ``PROTOCOL_STAGES`` stages with a
     mid-stage checkpoint, the full 8,070-row suite at k=5000 after each.
     Holds: the loader found the files, the eval batch 269, the steps and
-    B1/B2's launches equal to the counts derived from the config (no other
-    kernel), the NLL finite and falling, a mid-stage save. Prints the
-    per-stage NLL beside JAX's (not held). Returns ({kernel: launches},
-    ok)."""
+    B1/B2's and the latent block's launches equal to the counts derived
+    from the config (no other kernel), the NLL finite and falling, a
+    mid-stage save. Prints the per-stage NLL beside JAX's (not held).
+    Returns ({kernel: launches}, ok)."""
     import io
 
     from iwae_replication_project_tpu_torch.training.schedule import (
@@ -5230,7 +5396,9 @@ def production_protocol(torch, np, hot_loop, _kernels, b1_times) -> tuple:
     per_eval = eval_b1_launches(cfg, n_test, diagnostics=cfg.diagnostics)
     want = dict.fromkeys(_kernels.COUNTERS, 0)
     want.update({hot_loop.KERNEL: steps + cfg.n_stages * per_eval,
-                 hot_loop.KERNEL_BWD: steps})
+                 hot_loop.KERNEL_BWD: steps,
+                 LATENT_KERNEL: cfg.n_stages * eval_latent_launches(
+                     cfg, n_test, diagnostics=cfg.diagnostics)})
     buf = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         _kernels.reset_launch_counts(_kernels.COUNTERS)
@@ -5287,6 +5455,7 @@ def main() -> int:
         from iwae_replication_project_tpu_torch.ops import _kernels, hot_loop
         from iwae_replication_project_tpu_torch.ops import (
             fused_likelihood as fl)
+        from iwae_replication_project_tpu_torch.ops import latent_block as lb
         from iwae_replication_project_tpu_torch.ops import (
             row_invariant as ri)
     except ImportError as e:
@@ -5309,7 +5478,7 @@ def main() -> int:
     try:
         secs = _kernels.build([hot_loop.KERNEL, hot_loop.KERNEL_BWD,
                                fl.KERNEL_FWD, fl.KERNEL_BWD,
-                               ri.KERNEL_DENSE, ri.KERNEL_SUM])
+                               ri.KERNEL_DENSE, ri.KERNEL_SUM, lb.KERNEL])
     except RuntimeError as e:
         return fail(str(e))
     for name, s in secs.items():
@@ -5341,6 +5510,10 @@ def main() -> int:
     if not ok:
         return fail("a row-invariant kernel disagrees with its plain "
                     "version")
+    latent_record, ok = check_latent_block(torch, lb)
+    if not ok:
+        return fail("the latent block kernel disagrees with its plain "
+                    "version")
 
     launches, ok = serve(torch, np, zoo, hot_loop)
     if not ok:
@@ -5361,9 +5534,11 @@ def main() -> int:
         return fail("the 256-wide bf16 block did not take the reference "
                     "path")
 
-    if not evaluate(torch, np, zoo, hot_loop, state,
-                    b1_times[("bf16", "eval", 500)]):
+    eval_launches, ok = evaluate(torch, np, zoo, hot_loop, state,
+                                 b1_times[("bf16", "eval", 500)])
+    if not ok:
         return fail("the evaluation phase failed")
+    latent_record["launches"] = eval_launches[lb.KERNEL]
 
     with tempfile.TemporaryDirectory() as tmp:
         _, ok, run_dir = driver(torch, np, zoo, hot_loop, tmp)
@@ -5456,7 +5631,7 @@ def main() -> int:
         rec["launches_by_path"] = {"serving_tier": tier_rows[rec["name"]],
                                    "multi_model_tier": mm_rows[rec["name"]]}
     for rec in [record, record_bwd] + fll_records + row_records \
-            + [int8_record]:
+            + [int8_record, latent_record]:
         paths = rec.setdefault("launches_by_path", {})
         paths["race_tier"] = race_launches.get(rec["name"], 0)
         paths["eager_oracle"] = oracle_launches.get(rec["name"], 0)
@@ -5466,7 +5641,8 @@ def main() -> int:
 
     print(f"total: {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": [record, record_bwd] + fll_records
-                      + row_records + [int8_record]}), flush=True)
+                      + row_records + [int8_record, latent_record]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

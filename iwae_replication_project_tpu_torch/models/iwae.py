@@ -16,6 +16,7 @@ import torch
 
 from iwae_replication_project_tpu_torch.models import mlp
 from iwae_replication_project_tpu_torch.ops import distributions as dist
+from iwae_replication_project_tpu_torch.ops import latent_block
 from iwae_replication_project_tpu_torch.ops import row_invariant as ri_ops
 from iwae_replication_project_tpu_torch.telemetry.spans import REC
 
@@ -177,12 +178,16 @@ def encode(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
     """The inference chain q(h|x) with a k-sample fan-out at the first layer.
 
     Returns ``(h, log_q, q_last)``: ``h`` a tuple of ``[k, B, d_i]`` samples,
-    ``log_q`` ``[k, B]`` and ``q_last`` the (mu, std) of the last
-    conditional. ``eps[i]`` (shape ``[k, B, d_i]``) injects layer i's noise;
-    without it the draws come from `generator` in layer order.
+    ``log_q`` ``[k, B]`` and ``q_last`` the ``[B, d]`` (mu, std) of a
+    single-layer model's q(h|x), which VAE_V1's analytic KL needs, or None
+    where ``L >= 2``. ``eps[i]`` (shape ``[k, B, d_i]``) injects layer i's
+    noise; without it the draws come from `generator` in layer order.
     `stop_q_score=True` detaches mu and std inside ``log q`` only, keeping
     the pathwise dependence through the samples: the score-term removal that
-    DReG and STL need (JAX :162-190).
+    DReG and STL need (JAX :162-190). Layers ``i >= 1`` run at sample level
+    and their draw and ``log q`` term are ``ops/latent_block``'s: one
+    kernel on the card where its dispatcher takes them (inference, bf16
+    operands), else its plain version.
     """
     if eps is not None and len(eps) != cfg.n_stochastic:
         raise ValueError(f"encode needs {cfg.n_stochastic} noise tensors, "
@@ -196,16 +201,20 @@ def encode(params: Params, cfg: ModelConfig, x: torch.Tensor, k: int, *,
                             eps=_noise(eps, 0))
     log_q = _sum_last(dist.normal_log_prob(h1, sg(mu), sg(std)), cfg)
     h = [h1]
-    q_last = (mu, std)
     for i in range(1, cfg.n_stochastic):
-        mu, std = mlp.stochastic_block_apply(params["enc"][i], h[-1],
-                                             cfg.std_floor, dt, ri)
-        hi = dist.normal_sample(mu, std, generator=generator,
-                                eps=_noise(eps, i))
-        log_q = log_q + _sum_last(dist.normal_log_prob(hi, sg(mu), sg(std)),
-                                  cfg)
+        blk, e = params["enc"][i], _noise(eps, i)
+        if latent_block.takes(cfg, blk, h[-1]):
+            hi, log_qi = latent_block.sample(
+                blk, h[-1].contiguous(), cfg.std_floor, dt,
+                eps=None if e is None else e.contiguous(),
+                generator=generator)
+        else:
+            hi, log_qi = latent_block.sample_plain(
+                blk, h[-1], e, cfg.std_floor, dt, row_invariant=ri,
+                stop_score=stop_q_score, generator=generator)
+        log_q = log_q + log_qi
         h.append(hi)
-        q_last = (mu, std)
+    q_last = (mu, std) if cfg.n_stochastic == 1 else None
     return tuple(h), log_q, q_last
 
 
@@ -269,15 +278,22 @@ def log_px_given_h(params: Params, cfg: ModelConfig, x: torch.Tensor,
 def log_prior(params: Params, cfg: ModelConfig,
               h: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """``log p(h)``: standard Normal on the deepest latent plus the decoder's
-    conditional chain down to h1 -> ``[k, B]``."""
+    conditional chain down to h1 -> ``[k, B]``. Each conditional runs at
+    sample level and is ``ops/latent_block``'s: one kernel on the card where
+    its dispatcher takes it (inference, bf16 operands), else its plain
+    version."""
     L = cfg.n_stochastic
     log_p = _sum_last(dist.standard_normal_log_prob(h[-1]), cfg)
     for i in range(L - 1):
-        mu, std = mlp.stochastic_block_apply(params["dec"][i], h[L - 1 - i],
-                                             cfg.std_floor, cfg.matmul_dtype,
-                                             cfg.row_invariant)
-        log_p = log_p + _sum_last(dist.normal_log_prob(h[L - 2 - i], mu, std),
-                                  cfg)
+        blk, hi, target = params["dec"][i], h[L - 1 - i], h[L - 2 - i]
+        if latent_block.takes(cfg, blk, hi):
+            log_p = log_p + latent_block.density(
+                blk, hi.contiguous(), target.contiguous(), cfg.std_floor,
+                cfg.matmul_dtype)
+        else:
+            log_p = log_p + latent_block.density_plain(
+                blk, hi, target, cfg.std_floor, cfg.matmul_dtype,
+                row_invariant=cfg.row_invariant)
     return log_p
 
 

@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from iwae_replication_project_tpu_torch.ops import latent_block
 from iwae_replication_project_tpu_torch.ops import row_invariant as ri_ops
 
 Params = Dict[str, Any]
@@ -65,14 +66,9 @@ def stochastic_block_apply(p: Params, x: torch.Tensor,
                            compute_dtype: Optional[torch.dtype] = None,
                            row_invariant: bool = False):
     """``(mu, std)`` of the conditional Gaussian given `x`;
-    std = exp(head) + floor."""
-    kw = dict(row_invariant=row_invariant)
-    y = dense_apply(p["l1"], x, compute_dtype, tanh=True, **kw)
-    y = dense_apply(p["l2"], y, compute_dtype, tanh=True, **kw)
-    mu = dense_apply(p["mu"], y, compute_dtype, **kw)
-    std = torch.exp(dense_apply(p["lstd"], y, compute_dtype, **kw)) \
-        + std_floor
-    return mu, std
+    std = exp(head) + floor: ``ops/latent_block.mu_std``, whose plain
+    versions of the fused sample-level block share it."""
+    return latent_block.mu_std(p, x, std_floor, compute_dtype, row_invariant)
 
 
 def output_block_init(generator: torch.Generator, in_dim: int, hidden: int,

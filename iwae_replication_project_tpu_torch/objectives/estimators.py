@@ -115,9 +115,10 @@ def vae_v1_bound(log_px_given_h: torch.Tensor, q_mu: torch.Tensor,
 
     Defined for single-stochastic-layer models only. A deeper encoder is
     detected, as in JAX, by the sample axis on ``q_mu`` (layer-1 parameters
-    are ``[B, d]``, deeper layers' ``[k, B, d]``) and rejected.
+    are ``[B, d]``, deeper layers' ``[k, B, d]``), or by no ``q_mu`` at all
+    (``models.iwae.encode`` hands on none where ``L >= 2``), and rejected.
     """
-    if q_mu.dim() != 2:
+    if q_mu is None or q_mu.dim() != 2:
         raise ValueError(
             "VAE_V1's analytic KL is defined for single-stochastic-layer "
             "models only; this encoder has L >= 2 -- use VAE (the MC "
@@ -152,7 +153,7 @@ def bound_from_log_weights(spec: ObjectiveSpec, log_w: torch.Tensor,
         if aux is None:
             raise ValueError("VAE_V1 needs aux['log_px_given_h'] and "
                              "aux['q_last']")
-        q_mu, q_std = aux["q_last"]
+        q_mu, q_std = aux["q_last"] or (None, None)   # None: L >= 2
         return vae_v1_bound(aux["log_px_given_h"], q_mu, q_std)
     raise ValueError(f"unknown objective {name!r}")
 

@@ -93,6 +93,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[object, List[object]]]] = {
         "row_dense_int8": (_i, [_vp] * 5 + [_i] * 5 + [_vp]),
         "row_dense_ctas": (ctypes.c_longlong, [_i] * 5),
     },
+    "latent_block": {
+        "latent_block": (_i, [_vp] * 13 + [_i] * 5 + [ctypes.c_float, _vp]),
+        "latent_block_smem_bytes": (ctypes.c_size_t, [_i] * 3),
+        "latent_block_fits": (_i, [_i] * 2),
+        "latent_block_scratch_bytes": (ctypes.c_size_t, [_i] * 3),
+    },
     "row_sum": {
         "row_sum": (_i, [_vp, _vp, ctypes.c_longlong, _i, ctypes.c_longlong,
                          _vp]),

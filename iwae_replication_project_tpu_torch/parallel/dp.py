@@ -175,10 +175,10 @@ def _sharded_bound(spec: ObjectiveSpec, log_w: torch.Tensor, aux: dict,
                 [torch.full_like(lw, a / kb),
                  torch.full_like(lw, (1.0 - a) / kb)])
     if name == "VAE_V1":
-        q_mu, q_std = aux["q_last"]
-        if q_mu.dim() != 2:
+        if aux["q_last"] is None:       # models.iwae.encode: L >= 2
             raise ValueError("VAE_V1 is single-stochastic-layer only "
                              "(flexible_IWAE.py:433)")
+        q_mu, q_std = aux["q_last"]
         (recon,) = _sp_sums(mesh, torch.sum(lpxh.detach(), dim=0))
         kl = torch.mean(torch.sum(dist.normal_kl_standard(q_mu, q_std),
                                   dim=-1))

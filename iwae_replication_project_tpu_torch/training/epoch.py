@@ -65,6 +65,7 @@ the diagnostics.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -242,8 +243,18 @@ def make_epoch_fn(spec: ObjectiveSpec, cfg: model.ModelConfig, n_train: int,
             graph.register_generator_state(_binarize_generator(state))
         before, steps = _kernels.all_launch_counts(), state.step
         inner = REC.begin("train/capture/graph") if REC.on else None
-        with torch.cuda.graph(graph):
-            run_step(state, b, accumulate)
+        # no garbage collection inside the capture: a dead reference cycle
+        # holding an earlier state's graphs (an optimizer is such a cycle)
+        # would destroy them mid-capture, which invalidates the capture
+        # (torch.cuda.graph does not collect first)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                run_step(state, b, accumulate)
+        finally:
+            if collecting:
+                gc.enable()
         if inner is not None:
             REC.end(inner)
         state.step = steps  # the capture ran nothing

@@ -472,14 +472,15 @@ class TestRealProgramSuite:
         ("serve_encode", {"row_dense": 8, "row_sum": 3}),
         ("serve_decode", {"row_dense": 7}),
         ("train_step", {"hot_loop_bwd": 1, "hot_loop_fwd": 1}),
-        ("eval_scorer_k5000", {"hot_loop_fwd": 20}),
+        ("eval_scorer_k5000", {"hot_loop_fwd": 20, "latent_block": 40}),
         ("hot_loop_kernel", {"hot_loop_fwd": 1})])
     def test_programs_record_the_kernels_the_card_launches(self, name,
                                                            kernels):
         # the counts a replayed 64-row program launches on the card
         # (chip_smoke.py phase 12: row_dense 12 / 8 / 7 and row_sum 5 / 3
         # / 0 per score / encode / decode dispatch), one B1 and B2 per
-        # step, one B1 per k=5000 chunk of 250
+        # step, one B1 and two latent blocks (q(h2|h1), p(h1|h2)) per
+        # k=5000 chunk of 250
         p = build_programs([name])[0]
         assert signature(p.graph)["kernels"] == kernels
 

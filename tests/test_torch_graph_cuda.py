@@ -202,6 +202,49 @@ def test_launch_counts_are_exact_across_replays(cuda):
 
 
 @pytest.mark.cuda
+def test_capture_survives_dead_graphs_collected(cuda, monkeypatch):
+    """A graph left in a dead reference cycle (an earlier state's: its
+    optimizer is such a cycle) is not destroyed inside a later capture,
+    which would invalidate the capture: with the collector set to run at
+    every allocation and the cycle made just as the step's capture begins,
+    the collector waits until the capture is over."""
+    import gc
+
+    dead = torch.cuda.CUDAGraph()
+    t = torch.zeros(1, device="cuda")
+    with torch.cuda.graph(dead):
+        t.add_(1)
+    holder = [dead]
+    del dead
+    real = torch.cuda.graph
+
+    class graph(real):
+        def __enter__(self):
+            out = super().__enter__()
+            if holder:
+                cycle = [holder.pop()]
+                cycle.append(cycle)
+                del cycle
+            return out
+
+    x = _data(False)
+    eager, fast = _fns(FLAGSHIP, False, False)
+    sa = ts.create_train_state(2, FLAGSHIP)
+    sb = ts.create_train_state(2, FLAGSHIP)
+    sa, _ = eager(sa, x)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        sb, _ = fast(sb, x)
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+    assert not holder
+    _assert_same(sa, sb)
+
+
+@pytest.mark.cuda
 def test_passes_per_call_on_the_graph(cuda):
     """epochs_per_call=3 on the graph path equals three calls of one."""
     x = _data(True)
